@@ -19,7 +19,7 @@ This is the plain version of the physics inside the megastep kernel
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -550,12 +550,29 @@ def solve_grab_joints(cfg: EnvConfig, pos, quat, eff_inv_m, inv_inertia,
     return dpos, drot
 
 
-def physics_step(cfg: EnvConfig, b, s, g, ext_force, ext_torque):
+def _tally_substep(tally, man: Manifold, mask, lam, target) -> None:
+    """Adds one substep's work counts over all worlds: manifold slots
+    refreshed, by kind (``live_*``); contacts solved (``masked``) and
+    those with a positive normal impulse (``pushing``), each also for
+    pairs alone; grab joints solved (``joints``)."""
+    pair = man.kind == KIND_PAIR
+    push = mask & (lam > 0.0)
+    for key, x in (("live_plane", man.kind == KIND_PLANE),
+                   ("live_wall", man.kind == KIND_WALL),
+                   ("live_pair", pair), ("masked", mask),
+                   ("masked_pair", mask & pair), ("pushing", push),
+                   ("pushing_pair", push & pair), ("joints", target >= 0)):
+        tally[key] = tally.get(key, 0) + int(x.sum())
+
+
+def physics_step(cfg: EnvConfig, b, s, g, ext_force, ext_torque,
+                 tally: Optional[Dict[str, int]] = None):
     """``cfg.num_physics_substeps`` XPBD substeps for all worlds.
 
     ``b``, ``s``, ``g``: RigidBodies / StaticGeom / GrabState with the
     world axis FIRST; ext_force/ext_torque [W, B, 3]. Returns the new
-    (pos, quat, vel, omega), world axis first.
+    (pos, quat, vel, omega), world axis first. ``tally``, when given,
+    gets each substep's work counts added (see ``_tally_substep``).
     """
     h = cfg.dt / cfg.num_physics_substeps
     dynamic = b.active & ~b.locked
@@ -584,6 +601,8 @@ def physics_step(cfg: EnvConfig, b, s, g, ext_force, ext_torque):
         dpos, drot, cnt, lam, dpos_t, drot_t, w_n = contact_solve(
             man, pos_i, quat_i, eff_inv_m, eff_inv_I, p, n, depth, mask,
             nb_pos, nb_quat, pos_prev, quat_prev)
+        if tally is not None:
+            _tally_substep(tally, man, mask, lam, g.target)
         norm = 1.0 / torch.clamp(cnt, min=1.0)
         pos_c = pos_i + dpos * norm[..., None] + dpos_t
         quat_c = apply_rot(quat_i, drot * norm[..., None] + drot_t)

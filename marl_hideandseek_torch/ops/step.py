@@ -13,6 +13,7 @@ Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::megastep_packed``.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -37,11 +38,13 @@ MEGASTEP = CudaKernel("megastep", "mhs_megastep",
                        ctypes.c_void_p])
 
 
-def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
+def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor,
+                   tally: Optional[Dict[str, int]] = None):
     """Plain PyTorch megastep (the JAX fallback branch). actions
     [A, 5, W] i32 -> (ps2, SweepResults, rewards [A, W] f32, dones
     [A, W] i32, team_r [W] f32). ps2 has the new bodies, locks, grabs,
-    scores and team reward; step bookkeeping is left to the caller."""
+    scores and team reward; step bookkeeping is left to the caller.
+    ``tally`` collects the physics' work counts (physics.physics_step)."""
     from marl_hideandseek_torch.env import packed as P
 
     ext_force, ext_torque = P.movement_packed(cfg, ps, actions)
@@ -50,7 +53,8 @@ def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
     st = obs_mod.world_first(ps)
     pos, quat, vel, omega = physics.physics_step(
         cfg, st.bodies, st.statics, st.grab,
-        torch.movedim(ext_force, -1, 0), torch.movedim(ext_torque, -1, 0))
+        torch.movedim(ext_force, -1, 0), torch.movedim(ext_torque, -1, 0),
+        tally=tally)
     pk = lambda x: torch.movedim(x, 0, -1).contiguous()
     ps = ps.replace(bodies=ps.bodies.replace(
         pos=pk(pos), quat=pk(quat), vel=pk(vel), omega=pk(omega)))
@@ -86,24 +90,16 @@ def wall_bound(wall_active: torch.Tensor) -> torch.Tensor:
     return wall_active.sum(0, dtype=torch.int32).amax().reshape(1)
 
 
-def megastep_buffers(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
-    """Checked input pointers, allocated outputs and the scalar parameters
-    of one megastep launch: (ptrs, iparams, fparams, outputs, keepalive).
-    The pointer order is MegaArgs' in csrc/megastep.cu."""
-    from marl_hideandseek_torch.env.packed import movement_scales
-
-    dev = ps.step.device
-    w = ps.step.shape[0]
+def megastep_inputs(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
+    """What one megastep launch reads, in MegaArgs' pointer order
+    (csrc/megastep.cu): a list of (tensor, shape without the world axis,
+    dtype)."""
     nb, na = cfg.num_dyn_bodies, cfg.max_agents
-    n_tgt = obs_mod.num_vis_targets(cfg)
     b, s, g = ps.bodies, ps.statics, ps.grab
     n_wall = s.wall_active.shape[0]
     n_plane = s.plane_active.shape[0]
-    if n_wall != MAX_WALLS or n_plane > 3:
-        raise ValueError("megastep: wall/plane slots exceed the kernel's")
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
-
-    ins = [
+    return [
         (b.pos, (nb, 3), f32), (b.quat, (nb, 4), f32), (b.vel, (nb, 3), f32),
         (b.omega, (nb, 3), f32), (b.inv_mass, (nb,), f32),
         (b.inv_inertia, (nb, 3), f32), (b.active.view(u8), (nb,), u8),
@@ -123,6 +119,26 @@ def megastep_buffers(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
         (ps.seekers_first.view(u8), (), u8), (ps.running_scores, (2,), i32),
         (ps.finished_scores, (2,), f32),
     ]
+
+
+def megastep_buffers(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
+    """Checked input pointers, allocated outputs and the scalar parameters
+    of one megastep launch: (ptrs, iparams, fparams, outputs, keepalive).
+    The pointer order is MegaArgs' in csrc/megastep.cu."""
+    from marl_hideandseek_torch.env.packed import movement_scales
+
+    dev = ps.step.device
+    w = ps.step.shape[0]
+    nb, na = cfg.num_dyn_bodies, cfg.max_agents
+    n_tgt = obs_mod.num_vis_targets(cfg)
+    s = ps.statics
+    n_wall = s.wall_active.shape[0]
+    n_plane = s.plane_active.shape[0]
+    if n_wall != MAX_WALLS or n_plane > 3:
+        raise ValueError("megastep: wall/plane slots exceed the kernel's")
+    f32, i32 = torch.float32, torch.int32
+
+    ins = megastep_inputs(cfg, ps, actions)
     ptrs = [check(t, f"megastep input {i}", shape + (w,), dt, dev)
             for i, (t, shape, dt) in enumerate(ins)]
     bound = wall_bound(s.wall_active)
