@@ -2,17 +2,33 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels with nvcc (in parallel), holds each kernel
-against its plain PyTorch version at the main path's shapes, then drives
-the main path - ``PackedEnv.init`` and ``PackedEnv.step`` at bench.py's
-configuration (16,384 worlds, 2 hiders and 2 seekers, 9 boxes, 2 ramps,
-ZeroAgentVelocity | RandomFlipTeams, seed 5) - for 300 steps across the
-episode-end full reset, then 20 steps with 1 % random resets (the compact
-reset branch). The megastep is checked twice: on a fresh init state, at
-rest, and on the main path's state after 100 steps, where bodies move.
-It checks that everything stays finite, that both kernels were launched
-by the main path, and prints one JSON line of per-kernel numbers, the
-card's name and power limit, and a final JSON status line.
+Builds the port's CUDA kernels with nvcc (one process per source, all in
+parallel), then drives three paths, each with its kernels' launch counts
+set to 0 just before and read just after:
+
+* the packed main path - ``PackedEnv.init`` and ``PackedEnv.step`` at
+  bench.py's configuration (16,384 worlds, 2 hiders and 2 seekers, 9
+  boxes, 2 ramps, ZeroAgentVelocity | RandomFlipTeams, seed 5) - for 300
+  steps across the episode-end full reset, then 20 steps with 1 % random
+  resets (the compact branch): K4 megastep and K1 raycast;
+* the classic path - ``HideAndSeekEnv`` at scripts/headless.py's
+  configuration (16,384 worlds, 3 hiders and 2 seekers, SimFlags.Default,
+  seed 5) - for 250 steps across the full reset, then 5 steps with 1 %
+  random resets, some to debug levels 2-8 (the compact branch): K3 fused
+  physics + sweep and K1; then 10 steps of its unfused branch: K2 physics
+  and K1;
+* the render path - bench.py's BENCH_RENDER=1 protocol: 20 more packed
+  steps, each followed by the K5 RGBD kernel at 64x64 into buffers
+  allocated once.
+
+Every kernel is held against its plain PyTorch version at the path's
+shapes: K1 on an init state; K4, K2 and K3 on an init state at rest and on
+their path's state after 100 steps (one step at the one-step bars, then
+chained steps at the JAX kernels' bars); K5 on 256 worlds of the render
+path's last step, at the JAX kernel's bar. It checks that everything stays
+finite, that each path launched its kernels, and prints one JSON line of
+per-kernel numbers, the card's name and power limit, and a final JSON
+status line.
 
 ``--profile`` adds a last phase: torch.profiler over 20 main-path steps
 without resets and 5 steps with 1 % resets, printing each window's wall
@@ -36,10 +52,16 @@ import torch
 WORLDS = 16384
 MAIN_STEPS = 300          # crosses step 239: the full episode-end reset
 COMPACT_STEPS = 20        # 1 % random resets: the compact branch
-K4_CHECK_STEPS = 3        # per K4 check: one tight step, then chained
-MOVING_AT = 100           # main-path step whose state the 2nd check uses
+K4_CHECK_STEPS = 3        # per kernel check: one tight step, then chained
+MOVING_AT = 100           # path step whose state the 2nd check uses
 RESET_FRACTION = 0.01
 SEED = 5
+CLASSIC_STEPS = 250       # crosses step 239: the full episode-end reset
+CLASSIC_COMPACT_STEPS = 5
+UNFUSED_STEPS = 10        # the classic env's unfused branch: K2 + K1
+RENDER_STEPS = 20         # bench.py BENCH_RENDER=1: a render every step
+RENDER_HW = 64
+RENDER_CHECK_WORLDS = 256  # K5 against the plain renderer on these
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 outside the tensor cores, FLOP/s.
@@ -137,9 +159,9 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["raycast", "megastep"])
+    build.build(["raycast", "megastep", "rgbd"])
     phase("build", t0)
-    for name in ("raycast", "megastep"):
+    for name in ("raycast", "megastep", "rgbd"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
 
     cfg = EnvConfig(
@@ -150,10 +172,12 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
-    def random_actions():
-        move = torch.randint(0, 5, (na, 3, WORLDS), generator=gen,
+    def random_actions(n_agents=na, n_move=5):
+        """Packed [A, 5, W] actions: move buckets, then grab and lock."""
+        move = torch.randint(0, n_move, (n_agents, 3, WORLDS), generator=gen,
                              device=dev)
-        gl = torch.randint(0, 2, (na, 2, WORLDS), generator=gen, device=dev)
+        gl = torch.randint(0, 2, (n_agents, 2, WORLDS), generator=gen,
+                           device=dev)
         return torch.cat([move, gl], 1).to(torch.int32).contiguous()
 
     # A state for the kernel checks, from its own env (not the main path).
@@ -182,12 +206,9 @@ def main() -> int:
                        s.wall_half_ext, s.wall_active, s.plane_point,
                        s.plane_normal, s.plane_active, *q) +
                 nbytes(t_k, id_k))
-    k1_ops = raycast_ops(cfg, ps0, q[3])
-    k1_bound = max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32) * 1e3
-    k1_by = "bytes" if k1_bytes / PEAK_BYTES > k1_ops / PEAK_F32 \
-        else "operations"
+    k1_bound, k1_by = bound(k1_bytes, raycast_ops(cfg, ps0, q[3]))
     log(f"K1 {k1_ms:.4f} ms/launch, plain {k1_plain_ms:.3f} ms, bound "
-        f"{k1_bound:.5f} ms ({k1_by}: {k1_bytes} B, {k1_ops:.4g} ops)")
+        f"{k1_bound:.5f} ms ({k1_by}: {k1_bytes} B)")
     phase("k1_check", t0)
 
     # ---- 3. K4 vs plain, on a fresh init state (at rest) --------------------
@@ -266,14 +287,30 @@ def main() -> int:
     k4_bytes = (nbytes(*[t for t, _, _ in
                          step.megastep_inputs(cfg, moving, acts)]) +
                 nbytes(*k4_outputs(rk)))
-    k4_ops = megastep_ops(cfg, moving, tally)
-    k4_bound = max(k4_bytes / PEAK_BYTES, k4_ops / PEAK_F32) * 1e3
-    k4_by = "bytes" if k4_bytes / PEAK_BYTES > k4_ops / PEAK_F32 \
-        else "operations"
+    k4_bound, k4_by = bound(k4_bytes, megastep_ops(cfg, moving, tally))
     log(f"K4 {k4_ms:.4f} ms/launch, plain {k4_plain_ms:.3f} ms, bound "
-        f"{k4_bound:.5f} ms ({k4_by}: {k4_bytes} B, {k4_ops:.4g} ops; "
-        f"physics work per launch {tally})")
+        f"{k4_bound:.5f} ms ({k4_by}: {k4_bytes} B; physics work per "
+        f"launch {tally})")
+    del moving
     phase("k4_check_moving", t0)
+
+    # ---- 6. render path: bench.py BENCH_RENDER=1 ----------------------------
+    t0 = time.perf_counter()
+    render = render_path(cfg, env, ps, random_actions, gpu)
+    ps = render.pop("state")
+    phase("render_path", t0)
+
+    # ---- 7. classic path (K3, K1), then its unfused branch (K2, K1) ---------
+    t0 = time.perf_counter()
+    del env, res
+    torch.cuda.empty_cache()
+    classic = classic_path(dev, random_actions, gpu)
+    phase("classic_path", t0)
+
+    # ---- 8. K2 and K3 vs plain on the classic init and moving states --------
+    t0 = time.perf_counter()
+    steps_k = check_physics_kernels(classic, random_actions)
+    phase("k2_k3_checks", t0)
 
     kernels = [
         dict(name="raycast", route="cuda",
@@ -282,15 +319,29 @@ def main() -> int:
              launches=launches["raycast"], max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None),
+        dict(name="physics", route="cuda",
+             source="marl_hideandseek_torch/csrc/megastep.cu",
+             replaces="marl_hideandseek_tpu/ops/pallas_physics.py:812",
+             launches=classic["launches"]["physics"], **steps_k["physics"]),
+        dict(name="fused", route="cuda",
+             source="marl_hideandseek_torch/csrc/megastep.cu",
+             replaces="marl_hideandseek_tpu/ops/pallas_step.py:554",
+             launches=classic["launches"]["fused"], **steps_k["fused"]),
         dict(name="megastep", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:1064",
              launches=launches["megastep"], max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None),
+        dict(name="rgbd", route="cuda",
+             source="marl_hideandseek_torch/csrc/rgbd.cu",
+             replaces="marl_hideandseek_tpu/ops/pallas_rgbd.py:325",
+             **render["kernel"]),
     ]
     if args.profile:
         t0 = time.perf_counter()
+        env = PackedEnv(cfg, device=dev)
+        ps, _ = env.init()
         ps = profile_window(env, ps, 20, random_actions, gen, 0.0,
                             "no resets")
         profile_window(env, ps, 5, random_actions, gen, RESET_FRACTION,
@@ -303,6 +354,270 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least time in ms, what bounds it) for this many bytes moved and
+    float32 operations done."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def render_path(cfg, env, ps, random_actions, gpu):
+    """bench.py's BENCH_RENDER=1 protocol: RENDER_STEPS packed steps, each
+    followed by K5 into buffers allocated once; then K5 against the plain
+    renderer on RENDER_CHECK_WORLDS worlds of the last step, and K5's time
+    at full width. Returns the state and K5's kernels-line row."""
+    from marl_hideandseek_torch.ops import rgbd as R
+    from marl_hideandseek_torch.types import on_bits
+    from marl_hideandseek_torch.viz import rgbd as plain
+
+    dev = ps.step.device
+    hw = RENDER_HW
+    out = R.rgbd_buffers(cfg, WORLDS, hw, hw, dev)
+    R.RGBD.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(RENDER_STEPS):
+        ps, res = env.step(ps, random_actions())
+        R.render_rgbd_packed_fast(cfg, ps, hw, hw, out=out)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t1
+    n_launch = R.RGBD.launches
+    require(n_launch == RENDER_STEPS, f"K5 launches {n_launch} on the "
+            f"render path, expected {RENDER_STEPS}")
+    check_finite(ps, res, "render path")
+    rgba, depth = out
+    require(bool(torch.isfinite(depth).all()), "K5 depth not finite")
+    n_pix = cfg.max_agents * hw * hw
+    log(f"render path: {RENDER_STEPS} steps + {hw}x{hw} RGBD each in "
+        f"{t_render:.3f} s = {RENDER_STEPS * WORLDS / t_render:.1f} steps x "
+        f"worlds / s, {RENDER_STEPS * WORLDS * n_pix / t_render:.4g} "
+        f"pixel-rays / s; K5 launches {n_launch}; {gpu}")
+
+    # K5 vs the plain renderer on the first RENDER_CHECK_WORLDS worlds.
+    k = RENDER_CHECK_WORLDS
+    sub = ps.map(on_bits(lambda x: x[..., :k].contiguous()))
+    rgb_k, d_k = R.to_reference_layout(cfg, rgba[..., :k], depth[..., :k],
+                                       hw, hw)
+    rgb_p, d_p = plain.render_rgbd_packed(cfg, sub, hw, hw)
+    torch.cuda.synchronize()
+    d_err = max_err(d_k, d_p)
+    depth_ok = bool(torch.isclose(d_k, d_p, atol=1e-3, rtol=1e-4).all())
+    same = (rgb_k == rgb_p).all(-1)
+    frac = same.float().mean().item()
+    sky = d_p[..., 0] == 0
+    sky_ok = bool((same | ~sky).all())
+    log(f"K5 vs plain on {k} worlds: depth max err {d_err:.3g}, colours "
+        f"equal on {frac:.6f} of pixels, sky exact {sky_ok}, hit share "
+        f"{(~sky).float().mean().item():.4f}")
+    require(depth_ok, f"K5 depth beyond atol 1e-3 / rtol 1e-4 ({d_err})")
+    require(frac >= 0.995, f"K5 colours equal on {frac} < 0.995")
+    require(sky_ok, "K5 sky pixels differ from the plain renderer")
+
+    ms = cuda_ms(lambda: R.render_rgbd_packed_fast(cfg, ps, hw, hw,
+                                                   out=out), 10)
+    plain_ms = cuda_ms(lambda: plain.render_rgbd_packed(cfg, sub, hw, hw), 1)
+    b, s = ps.bodies, ps.statics
+    n_bytes = (nbytes(b.pos, b.quat, b.half_ext, b.active, b.locked,
+                      ps.agent_type, s.wall_pos, s.wall_half_ext,
+                      s.wall_active, s.plane_point, s.plane_normal,
+                      s.plane_active) + nbytes(rgba, depth))
+    k5_bound, k5_by = bound(n_bytes, rgbd_ops(cfg, ps, depth))
+    log(f"K5 {ms:.4f} ms/launch at {WORLDS} worlds, plain {plain_ms:.3f} ms "
+        f"at {k} worlds, bound {k5_bound:.5f} ms ({k5_by}: {n_bytes} B)")
+    return dict(state=ps, kernel=dict(
+        launches=n_launch, max_abs_err=d_err, ms=ms, plain_ms=plain_ms,
+        plain_at_worlds=k, bound_ms=k5_bound, bound_by=k5_by,
+        library_ms=None))
+
+
+def classic_path(dev, random_actions, gpu):
+    """HideAndSeekEnv at scripts/headless.py's configuration: CLASSIC_STEPS
+    steps with random 11-bucket actions across the full reset, then
+    CLASSIC_COMPACT_STEPS with 1 % external resets (some to debug levels
+    2-8), through K3 and K1; then UNFUSED_STEPS of the unfused branch
+    through K2 and K1. Returns the launches and the states for the K2/K3
+    checks."""
+    from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env.env import HideAndSeekEnv
+    from marl_hideandseek_torch.ops import fused, physics, rays
+
+    cfg = EnvConfig(num_worlds=WORLDS, min_hiders=3, max_hiders=3,
+                    min_seekers=2, max_seekers=2,
+                    sim_flags=SimFlags.Default, rand_seed=SEED)
+    na = cfg.max_agents
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def actions():
+        return random_actions(na, 11).permute(2, 0, 1)       # [W, A, 5]
+
+    rays.RAYCAST.launches = 0
+    fused.FUSED.launches = 0
+    physics.PHYSICS.launches = 0
+    t0 = time.perf_counter()
+    env = HideAndSeekEnv(cfg, device=dev)
+    state, res = env.init()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    check_classic(state, res, cfg, "classic init")
+    init_state = state.map(snapshot)
+    moving = None
+    t1 = time.perf_counter()
+    for i in range(CLASSIC_STEPS):
+        state, res = env.step(state, actions())
+        if i + 1 == MOVING_AT:
+            moving = state.map(snapshot)
+        if (i + 1) % 125 == 0:
+            check_classic(state, res, cfg, f"classic step {i + 1}")
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t1
+    require(env.reset_counts["full"] >= 1, "classic: the full reset never "
+            "ran")
+    t2 = time.perf_counter()
+    for _ in range(CLASSIC_COMPACT_STEPS):
+        hit = torch.rand(WORLDS, generator=gen, device=dev) < RESET_FRACTION
+        level = torch.randint(1, 9, (WORLDS,), generator=gen, device=dev)
+        state, res = env.step(state, actions(),
+                              torch.where(hit, level, 0).to(torch.int32))
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t2
+    check_classic(state, res, cfg, "classic compact")
+    require(env.reset_counts["compact"] >= 1, "classic: the compact reset "
+            "never ran")
+    launches = {"fused": fused.FUSED.launches,
+                "raycast": rays.RAYCAST.launches}
+    require(launches["fused"] > 0 and launches["raycast"] > 0,
+            f"kernel launches on the classic path: {launches}")
+    log(f"classic path: init {t_init:.3f} s; {CLASSIC_STEPS} steps in "
+        f"{t_steps:.3f} s = {CLASSIC_STEPS * WORLDS / t_steps:.1f} steps x "
+        f"worlds / s; {CLASSIC_COMPACT_STEPS} steps with 1 % resets in "
+        f"{t_compact:.3f} s = "
+        f"{CLASSIC_COMPACT_STEPS * WORLDS / t_compact:.1f}; resets "
+        f"{env.reset_counts}; launches {launches}; {gpu}")
+
+    rays.RAYCAST.launches = 0
+    physics.PHYSICS.launches = 0
+    unfused = HideAndSeekEnv(cfg, device=dev, fused=False)
+    t3 = time.perf_counter()
+    for _ in range(UNFUSED_STEPS):
+        state, res = unfused.step(state, actions())
+    torch.cuda.synchronize()
+    t_unfused = time.perf_counter() - t3
+    check_classic(state, res, cfg, "classic unfused")
+    launches["physics"] = physics.PHYSICS.launches
+    require(launches["physics"] == UNFUSED_STEPS and
+            rays.RAYCAST.launches >= 2 * UNFUSED_STEPS,
+            f"unfused classic launches: physics {launches['physics']}, "
+            f"raycast {rays.RAYCAST.launches}")
+    log(f"classic path, unfused branch: {UNFUSED_STEPS} steps in "
+        f"{t_unfused:.3f} s = {UNFUSED_STEPS * WORLDS / t_unfused:.1f} "
+        f"steps x worlds / s; physics launches {launches['physics']}, "
+        f"raycast {rays.RAYCAST.launches}; {gpu}")
+    return dict(cfg=cfg, launches=launches, init=init_state, moving=moving)
+
+
+def check_classic(state, res, cfg, where: str) -> None:
+    check_finite(state, res, where)
+    shapes = {k: tuple(v.shape) for k, v in res.obs.items()}
+    na = cfg.max_agents
+    require(shapes["box_data"] == (WORLDS, na, 9, 17) and
+            shapes["agent_data"] == (WORLDS, na, 5, 14) and
+            shapes["self_lidar"] == (WORLDS, na, 30) and
+            shapes["vis_boxes_mask"] == (WORLDS, na, 9, 1) and
+            tuple(res.rewards.shape) == (WORLDS, na, 1),
+            f"classic observation shapes at {where}: {shapes}")
+
+
+def pre_physics(cfg, ps, acts):
+    """Movement and grab/lock on packed ``ps``: the K2/K3 inputs."""
+    from marl_hideandseek_torch.env import packed as P
+
+    ext_f, ext_t = P.movement_packed(cfg, ps, acts)
+    ps = P.action_system_packed(cfg, ps, acts, ps.act_hit_t, ps.act_hit_id)
+    return ps, ext_f, ext_t
+
+
+def check_physics_kernels(classic, random_actions):
+    """K2 and K3 against their plain versions on the classic init state
+    (at rest; step set to 100 so that seekers act) and on the classic
+    path's state after MOVING_AT steps; then each kernel's time, its plain
+    version's, and its bound on one input from the moving state."""
+    from marl_hideandseek_torch.ops import fused, physics
+    from marl_hideandseek_torch.types import pack_state
+
+    cfg = classic["cfg"]
+    na = cfg.max_agents
+    init = pack_state(classic["init"])
+    init = init.replace(step=torch.full_like(init.step, 100))
+    moving = pack_state(classic["moving"])
+    acts_fn = lambda: random_actions(na, 11)
+    out = {}
+    for kind in ("physics", "fused"):
+        err = 0.0
+        for ps, label in ((init, "init"),
+                          (moving, f"classic step {MOVING_AT}")):
+            err = max(err, check_step_run(kind, cfg, ps, acts_fn, label))
+        ps, ext_f, ext_t = pre_physics(cfg, moving, acts_fn())
+        tally: dict = {}
+        if kind == "physics":
+            args = (cfg, ps.bodies, ps.statics, ps.grab, ext_f, ext_t)
+            run = lambda: physics.physics_packed(*args)
+            run_plain = lambda: physics.physics_plain(*args)
+            physics.physics_plain(*args, tally=tally)
+            ins = physics.physics_inputs(*args)
+            outs = list(run().leaves())[:4]
+            n_ops = physics_ops(cfg, ps, tally)
+        else:
+            run = lambda: fused.fused_step_packed(cfg, ps, ext_f, ext_t)
+            run_plain = lambda: fused.fused_step_plain(cfg, ps, ext_f, ext_t)
+            fused.fused_step_plain(cfg, ps, ext_f, ext_t, tally=tally)
+            ins = fused.fused_inputs(cfg, ps, ext_f, ext_t)
+            bk, sk = run()
+            outs = [bk.pos, bk.quat, bk.vel, bk.omega, *sk]
+            n_ops = physics_ops(cfg, ps, tally) + sweep_ops(cfg, ps)
+        ms = cuda_ms(run, 10)
+        plain_ms = cuda_ms(run_plain, 1)
+        n_bytes = nbytes(*[t for t, _, _ in ins]) + nbytes(*outs)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        log(f"{kind} {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}: {n_bytes} B, {n_ops:.4g} ops; physics "
+            f"work per launch {tally})")
+        out[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def check_step_run(kind, cfg, ps, acts_fn, label: str) -> float:
+    """K4_CHECK_STEPS launches of K2 ('physics') or K3 ('fused') against
+    the plain version, each from the kernel's previous output through
+    movement and grab/lock; bodies as in ``check_bodies``, K3's sweep as
+    K4's. Returns the largest body error seen."""
+    from marl_hideandseek_torch.ops import fused, physics
+
+    err = 0.0
+    for i in range(K4_CHECK_STEPS):
+        ps, ext_f, ext_t = pre_physics(cfg, ps, acts_fn())
+        where = f"{kind} {label}, step {i}"
+        if kind == "physics":
+            args = (cfg, ps.bodies, ps.statics, ps.grab, ext_f, ext_t)
+            bk, bp = physics.physics_packed(*args), physics.physics_plain(*args)
+        else:
+            bk, sk = fused.fused_step_packed(cfg, ps, ext_f, ext_t)
+            bp, sp = fused.fused_step_plain(cfg, ps, ext_f, ext_t)
+        torch.cuda.synchronize()
+        e, notes = check_bodies(where, i, label, bk, bp)
+        err = max(err, e)
+        if kind == "fused":
+            notes.append(check_sweep(where, sk, sp))
+            require(frac_equal(sk.rew_seen, sp.rew_seen) >= 0.999,
+                    f"{where} rew_seen")
+            ps = ps.replace(act_hit_t=sk.act_t, act_hit_id=sk.act_id)
+        log(f"{where}: {'; '.join(notes)}")
+        ps = ps.replace(bodies=bk, step=ps.step + 1)
+    return err
 
 
 def check_finite(ps, res, where: str) -> None:
@@ -328,10 +643,10 @@ def snapshot(x: torch.Tensor) -> torch.Tensor:
 def check_k4_run(step, cfg, ps, random_actions, label: str,
                  tally: dict | None = None) -> float:
     """K4_CHECK_STEPS launches of K4 against its plain version, each from
-    the kernel's previous output: the first held to TIGHT (on every
-    element of a state at rest, on LIVE_SHARE of the live elements of a
-    moving one), the rest to JAX_BARS. ``tally`` gets the first plain
-    step's physics work counts. Returns the largest body error seen."""
+    the kernel's previous output: bodies as in ``check_bodies``, the
+    sweep as in ``check_sweep``, and rewards, dones, locks, grabs and
+    scores exact. ``tally`` gets the first plain step's physics work
+    counts. Returns the largest body error seen."""
     err = 0.0
     for i in range(K4_CHECK_STEPS):
         acts = random_actions()
@@ -340,38 +655,9 @@ def check_k4_run(step, cfg, ps, random_actions, label: str,
                                  else None)
         torch.cuda.synchronize()
         where = f"K4 {label}, step {i}"
-        notes = []
-        for name, tol in TIGHT.items():
-            a, p_ = getattr(rk[0].bodies, name), getattr(rp[0].bodies, name)
-            e = max_err(a, p_)
-            err = max(err, e)
-            if i > 0:
-                fr = frac_close(a, p_, JAX_BARS[name])
-                require(fr >= 0.995, f"{where} {name}: {fr} within "
-                        f"{JAX_BARS[name]}")
-                notes.append(f"{name} err {e:.3g}")
-                continue
-            live = (a.abs() > tol) | (p_.abs() > tol)
-            if name in ("pos", "quat"):
-                live = torch.ones_like(live)
-            n_live = int(live.sum())
-            close = int(((a - p_).abs() <= tol)[live].sum())
-            notes.append(f"{name} err {e:.3g}, {close}/{n_live} live "
-                         f"within {tol}")
-            if label == "init":
-                require(e <= tol, f"{where} {name}: max error {e} > {tol}")
-                continue
-            if name in ("vel", "omega"):
-                require(n_live >= MIN_LIVE, f"{where} {name}: only "
-                        f"{n_live} live elements")
-            require(close >= LIVE_SHARE * n_live, f"{where} {name}: "
-                    f"{close}/{n_live} live elements within {tol}")
-        vis_eq = (rk[1].vis_seen == rp[1].vis_seen).float().mean().item()
-        aid_eq = (rk[1].act_id == rp[1].act_id).float().mean().item()
-        lid = frac_close(rk[1].lidar, rp[1].lidar, 1e-3)
-        require(vis_eq >= 0.999, f"{where} vis agree {vis_eq}")
-        require(aid_eq >= 0.999, f"{where} act_id agree {aid_eq}")
-        require(lid >= 0.999, f"{where} lidar agree {lid}")
+        e, notes = check_bodies(where, i, label, rk[0].bodies, rp[0].bodies)
+        err = max(err, e)
+        notes.append(check_sweep(where, rk[1], rp[1]))
         require(bool((rk[2] == rp[2]).all()), f"{where} rewards")
         require(bool((rk[3] == rp[3]).all()), f"{where} dones")
         for name in ("locked", "owner"):
@@ -382,11 +668,62 @@ def check_k4_run(step, cfg, ps, random_actions, label: str,
                 f"{where} grab target")
         require(bool((rk[0].running_scores == rp[0].running_scores).all()),
                 f"{where} running scores")
-        log(f"{where}: {'; '.join(notes)}; vis {vis_eq:.6f} act_id "
-            f"{aid_eq:.6f} lidar {lid:.6f}")
+        log(f"{where}: {'; '.join(notes)}")
         ps = rk[0].replace(step=rk[0].step + 1, act_hit_t=rk[1].act_t,
                            act_hit_id=rk[1].act_id)
     return err
+
+
+def check_bodies(where: str, i: int, label: str, bk, bp):
+    """Launch i's bodies against the plain version's: the first at TIGHT
+    (on every element of a state at rest, labelled "init"; on LIVE_SHARE
+    of the live elements of a moving one, with at least MIN_LIVE live
+    velocity and angular-velocity elements), later ones at JAX_BARS on
+    >= 99.5 % of all elements. Returns (largest error, notes)."""
+    err = 0.0
+    notes = []
+    for name, tol in TIGHT.items():
+        a, p_ = getattr(bk, name), getattr(bp, name)
+        e = max_err(a, p_)
+        err = max(err, e)
+        if i > 0:
+            fr = frac_close(a, p_, JAX_BARS[name])
+            require(fr >= 0.995, f"{where} {name}: {fr} within "
+                    f"{JAX_BARS[name]}")
+            notes.append(f"{name} err {e:.3g}")
+            continue
+        live = (a.abs() > tol) | (p_.abs() > tol)
+        if name in ("pos", "quat"):
+            live = torch.ones_like(live)
+        n_live = int(live.sum())
+        close = int(((a - p_).abs() <= tol)[live].sum())
+        notes.append(f"{name} err {e:.3g}, {close}/{n_live} live "
+                     f"within {tol}")
+        if label == "init":
+            require(e <= tol, f"{where} {name}: max error {e} > {tol}")
+            continue
+        if name in ("vel", "omega"):
+            require(n_live >= MIN_LIVE, f"{where} {name}: only "
+                    f"{n_live} live elements")
+        require(close >= LIVE_SHARE * n_live, f"{where} {name}: "
+                f"{close}/{n_live} live elements within {tol}")
+    return err, notes
+
+
+def frac_equal(a, b) -> float:
+    return (a == b).float().mean().item()
+
+
+def check_sweep(where: str, sk, sp) -> str:
+    """A launch's sweep against the plain one: visibility and grab/lock
+    hit ids equal, and lidar within 1e-3, on >= 99.9 %."""
+    vis_eq = frac_equal(sk.vis_seen, sp.vis_seen)
+    aid_eq = frac_equal(sk.act_id, sp.act_id)
+    lid = frac_close(sk.lidar, sp.lidar, 1e-3)
+    require(vis_eq >= 0.999, f"{where} vis agree {vis_eq}")
+    require(aid_eq >= 0.999, f"{where} act_id agree {aid_eq}")
+    require(lid >= 0.999, f"{where} lidar agree {lid}")
+    return f"vis {vis_eq:.6f} act_id {aid_eq:.6f} lidar {lid:.6f}"
 
 
 def k4_outputs(rk) -> list:
@@ -492,12 +829,10 @@ def raycast_ops(cfg, ps, excl: torch.Tensor) -> float:
     return (per_ray * excl.shape[0] - skipped.sum(0)).sum().item()
 
 
-def megastep_ops(cfg, ps, tally: dict) -> float:
-    """Operations of one K4 launch on this state: the sweep's rays (per
-    agent: the visibility targets, 30 lidar and 1 grab ray, each against
-    every active primitive but the agent itself), the manifold build and
-    the substeps' per-slot work, plus the refreshes, solves and joints
-    the plain physics counted on the same input (``tally``)."""
+def sweep_ops(cfg, ps) -> float:
+    """Operations of the sweep on this state: per agent, the visibility
+    targets, 30 lidar and 1 grab ray, each against every active primitive
+    but the agent itself."""
     from marl_hideandseek_torch.env.observations import num_vis_targets
     from marl_hideandseek_torch.types import body_slot_ranges
 
@@ -507,8 +842,14 @@ def megastep_ops(cfg, ps, tally: dict) -> float:
     per_ray = per_body.sum(0) + static_ray_ops(ps)               # [W]
     own = per_body[al:ah]                                        # [A, W]
     rays = (n_tgt + 30 + 1) * (per_ray[None] - own)
-    sweep = rays.sum().item() + cfg.max_agents * ps.step.numel() * (
+    return rays.sum().item() + cfg.max_agents * ps.step.numel() * (
         OPS_SWEEP_AGENT + n_tgt * OPS_VIS_RAY + 30 * OPS_LIDAR_RAY)
+
+
+def physics_ops(cfg, ps, tally: dict) -> float:
+    """Operations of the physics step on this state: the manifold build
+    and the substeps' per-slot work, plus the refreshes, solves and
+    joints the plain physics counted on the same input (``tally``)."""
     n_slot = cfg.num_dyn_bodies
     walls = ps.statics.wall_active.float().sum(0)
     active = ps.bodies.active.float().sum(0)
@@ -518,7 +859,36 @@ def megastep_ops(cfg, ps, tally: dict) -> float:
                 ps.step.numel())
     work = sum(OPS_REFRESH.get(k, 0) * v + OPS_TALLY.get(k, 0) * v
                for k, v in tally.items())
-    return sweep + manifold + substeps + work
+    return manifold + substeps + work
+
+
+def megastep_ops(cfg, ps, tally: dict) -> float:
+    """Operations of one K4 launch on this state: the sweep and the
+    physics step (the movement, grab/lock and reward set-up is left
+    out)."""
+    return sweep_ops(cfg, ps) + physics_ops(cfg, ps, tally)
+
+
+# K5 per pixel ray (csrc/rgbd.cu): the camera ray (2 rotations, the
+# pixel offsets, the normalisation) 88; per hit pixel the shading (hit
+# point, the face normal through 2 rotations, its normalisation, the
+# light, 3 channels) about 100.
+OPS_PIXEL_RAY, OPS_PIXEL_SHADE = 88, 100
+
+
+def rgbd_ops(cfg, ps, depth: torch.Tensor) -> float:
+    """Operations of one K5 launch on this state: every pixel ray tests
+    every active primitive of its world but its agent's own body, and
+    shades its hit (``depth`` [A, P, W] > 0)."""
+    from marl_hideandseek_torch.types import body_slot_ranges
+
+    _, _, (al, ah) = body_slot_ranges(cfg)
+    n_pix = depth.shape[1]
+    per_body = body_ray_ops(cfg, ps)
+    per_ray = per_body.sum(0) + static_ray_ops(ps)               # [W]
+    tests = (per_ray[None] - per_body[al:ah]).sum().item() * n_pix
+    hits = (depth > 0).sum().item()
+    return tests + OPS_PIXEL_RAY * depth.numel() + OPS_PIXEL_SHADE * hits
 
 
 if __name__ == "__main__":

@@ -3,9 +3,13 @@
 A second package beside ``marl_hideandseek_tpu`` (the JAX reference, left
 unchanged). It imports torch and never JAX. The main path is
 ``env.packed.PackedEnv``: ``init`` / ``step`` over packed state (world axis
-last), with hand-written CUDA kernels for the megastep
-(``ops/step.py``) and the raycast (``ops/rays.py``) and plain PyTorch
-versions of both for CPU tensors.
+last) on the megastep kernel (``ops/step.py``). The classic
+``env.env.HideAndSeekEnv`` steps world-major state on the fused physics +
+sweep kernel (``ops/fused.py``) and renders RGBD with its own kernel
+(``ops/rgbd.py``); the raycast (``ops/rays.py``) re-sweeps reset worlds in
+both, and the physics step alone (``ops/physics.py``) serves the classic
+env's unfused branch. Every kernel is hand-written CUDA with a plain
+PyTorch version that CPU tensors take.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,14 @@
-"""numpy <-> torch state bridge.
+"""numpy <-> torch bridge for states, checkpoints and RGBD tensors.
 
 A state crosses between the JAX package and the port as a nested mapping
 of numpy arrays keyed by the dataclass field names (``{"bodies": {"pos":
 ...}, ..., "step": ...}``): the JAX side produces one with ``np.asarray``
 on its leaves, and this module builds the port's ``EnvState`` from it, or
-turns an ``EnvState`` back into one. The layout (world axis first or last)
-is whatever the arrays carry; dtypes are kept, including the u32 key
-leaves. No JAX object is accepted here.
+turns an ``EnvState`` back into one. The layout (world axis first for the
+classic env, last for the packed one) is whatever the arrays carry;
+dtypes are kept, including the u32 key leaves. A ``Checkpoint`` crosses
+as a flat mapping of its fields, the RGBD tensors as a pair of arrays. No
+JAX object is accepted here.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from marl_hideandseek_torch.env.checkpoint import Checkpoint
 from marl_hideandseek_torch.types import (
     EnvState,
     GrabState,
@@ -58,3 +61,34 @@ def state_to_numpy(state: EnvState) -> dict:
         else:
             out[f.name] = v.cpu().numpy()
     return out
+
+
+def checkpoint_from_numpy(tree: Mapping, device="cpu") -> Checkpoint:
+    """Mapping of numpy arrays keyed by the Checkpoint fields ->
+    ``Checkpoint`` on ``device``."""
+    return Checkpoint(**{f.name: _to_tensor(tree[f.name], device)
+                         for f in dataclasses.fields(Checkpoint)})
+
+
+def checkpoint_to_numpy(ckpt: Checkpoint) -> dict:
+    """``Checkpoint`` -> dict of numpy arrays (host copies)."""
+    return {f.name: getattr(ckpt, f.name).cpu().numpy()
+            for f in dataclasses.fields(ckpt)}
+
+
+def rgbd_from_numpy(rgb, depth, device="cpu"):
+    """(rgb ``[W, A, H, W, 4]`` u8, depth ``[W, A, H, W, 1]`` f32) numpy
+    arrays -> tensors on ``device``."""
+    rgb, depth = np.asarray(rgb), np.asarray(depth)
+    if rgb.dtype != np.uint8 or rgb.ndim != 5 or rgb.shape[-1] != 4:
+        raise ValueError(f"rgb: {rgb.dtype} {rgb.shape}, expected u8 "
+                         f"[W, A, H, W, 4]")
+    if depth.dtype != np.float32 or depth.shape != rgb.shape[:4] + (1,):
+        raise ValueError(f"depth: {depth.dtype} {depth.shape}, expected f32 "
+                         f"{rgb.shape[:4] + (1,)}")
+    return _to_tensor(rgb, device), _to_tensor(depth, device)
+
+
+def rgbd_to_numpy(rgb: torch.Tensor, depth: torch.Tensor):
+    """RGBD tensors -> (rgb, depth) numpy arrays (host copies)."""
+    return rgb.cpu().numpy(), depth.cpu().numpy()

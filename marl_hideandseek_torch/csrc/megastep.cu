@@ -1,13 +1,19 @@
-// K4: the megastep - the whole packed env step before resets.
+// K4: the megastep - the whole packed env step before resets - and the
+// K2 (physics) and K3 (physics + sweep) entries over the same device
+// functions.
 //
-// Replaces the Pallas TPU kernel marl_hideandseek_tpu/ops/pallas_step.py
+// Replaces the Pallas TPU kernels marl_hideandseek_tpu/ops/pallas_step.py
 // (_megastep_pallas -> pl.pallas_call, kernel _make_megastep_kernel, rows
-// _megastep_misc_layout), reached from megastep_packed. Plain version:
+// _megastep_misc_layout; _fused_pallas, kernel _make_fused_kernel) and
+// ops/pallas_physics.py (_physics_pallas), reached from megastep_packed,
+// fused_step(_packed) and physics_step_batch. Plain versions:
 // marl_hideandseek_torch/ops/step.py::megastep_plain, i.e. env/packed.py's
-// step systems around env/physics.py and the plain sweep
-// (env/observations.py + env/rays.py). This file copies their op order.
+// step systems around ops/fused.py::fused_step_plain, which is
+// env/physics.py followed by the plain sweep (env/observations.py +
+// env/rays.py); ops/physics.py::physics_plain. This file copies their op
+// order.
 //
-// Per world, in order: movement decode into force/torque, grab/lock on
+// K4 per world, in order: movement decode into force/torque, grab/lock on
 // the carried interaction-ray hits, the XPBD physics step (per-vertex
 // manifold at the predicted pose with a K-nearest candidate preselect,
 // then the substeps: integrate, contact refresh, Jacobi position solve
@@ -15,7 +21,8 @@
 // dynamic friction and restitution velocity passes), the ray sweep on the
 // post-physics pose (visibility, lidar, the next step's grab/lock rays,
 // the seeker-sees-hider flag), agent zero-velocity, rewards, dones and
-// episode scores.
+// episode scores. K3 is the physics step from given forces, then the
+// sweep; K2 the physics step alone.
 //
 // Thread mapping: one thread per world; consecutive worlds in consecutive
 // threads, so every load and store of the packed [..., W] layout is
@@ -25,12 +32,12 @@
 //
 // Bound: arithmetic. A world moves about 4.5 KB (state in; state, sweep
 // and scores out) but does about 0.5 MFLOP (the manifold build, 4
-// substeps over 8 contacts per body, ~190 rays against ~50 primitives). The physics and
-// sweep bodies are __device__ functions (physics_step, sweep) so that
-// standalone physics and physics+sweep launchers can reuse them. The
-// per-world state (bodies, manifold, contacts) lives in local memory:
-// register pressure is the expected limiter, and spills are accepted in
-// this first, simple version.
+// substeps over 8 contacts per body, ~190 rays against ~50 primitives).
+// The physics and sweep bodies are __noinline__ device functions
+// (physics_step, sweep) shared by the three entries, which keeps one
+// short build. The per-world state (bodies, manifold, contacts) lives in
+// local memory: register pressure is the expected limiter, and spills are
+// accepted in this first, simple version.
 
 #include <cstddef>
 
@@ -138,6 +145,82 @@ struct MegaArgs {
 constexpr int N_PTRS = 54;
 constexpr int N_INTS = 12;
 constexpr int N_FLOATS = 10;
+
+// K2 (physics) and K3 (physics + sweep): pointer order = ops/fused.py
+// `step_inputs`, then the outputs. The physics entry passes the first
+// N_PHYS_PTRS pointers; the sweep block stays null and its kernel never
+// reads it (step_world<false>).
+struct StepArgs {
+  const float* pos;
+  const float* quat;
+  const float* vel;
+  const float* omega;
+  const float* inv_mass;
+  const float* inv_inertia;
+  const unsigned char* active;
+  const unsigned char* locked;
+  const float* half_ext;
+  const float* friction_mu;
+  const float* ext_force;
+  const float* ext_torque;
+  const float* wall_pos;
+  const float* wall_half;
+  const unsigned char* wall_active;
+  const float* plane_point;
+  const float* plane_normal;
+  const unsigned char* plane_active;
+  const int* g_target;
+  const float* g_r2;
+  const float* g_relq;
+  const float* g_sep;
+  float* pos_o;
+  float* quat_o;
+  float* vel_o;
+  float* omega_o;
+  // sweep block (fused entry only)
+  const int* agent_type;
+  const unsigned char* agent_active;
+  const int* num_boxes;
+  const int* num_ramps;
+  const int* wall_bound;  // [1] batch-max active wall count
+  const float* lidar_cs;  // [2, 30] cos, sin of the lidar angles
+  float* vis_o;
+  float* lidar_o;
+  float* act_t_o;
+  int* act_id_o;
+  unsigned char* rew_seen_o;
+  // ints
+  int W, n_boxes, n_ramps, n_agents, n_wall, n_plane, n_tgt, n_sub;
+  // floats (each the float32 PyTorch rounds the Python constant to)
+  float dt, h, two_over_h, restitution, rest_thresh, cos_half_fov,
+      interact_len, lidar_range;
+};
+constexpr int N_PHYS_PTRS = 26;
+constexpr int N_FUSED_PTRS = 37;
+constexpr int N_STEP_INTS = 8;
+constexpr int N_STEP_FLOATS = 8;
+
+// Scalars of the physics step and of the sweep, taken from any entry's
+// arguments.
+struct PhysParams {
+  int n_sub;
+  float dt, h, two_over_h, restitution, rest_thresh;
+};
+struct SweepParams {
+  int n_tgt, n_boxes;
+  float cos_half_fov, interact_len, lidar_range;
+  const float* lidar_cs;
+};
+template <class Args>
+MHS_HD PhysParams phys_params(const Args& A) {
+  return PhysParams{A.n_sub, A.dt, A.h, A.two_over_h, A.restitution,
+                    A.rest_thresh};
+}
+template <class Args>
+MHS_HD SweepParams sweep_params(const Args& A) {
+  return SweepParams{A.n_tgt, A.n_boxes, A.cos_half_fov, A.interact_len,
+                     A.lidar_range, A.lidar_cs};
+}
 
 // ---- component-form helpers (math3d.qrot / qmul / qconj / qnorm) ---------
 
@@ -512,19 +595,19 @@ __device__ __noinline__ void grab_joints(const Layout& L, const Bodies& B,
 
 // physics_step: the manifold build and the substep loop; B.pos / quat /
 // vel / omega hold the result.
-__device__ __noinline__ void physics_step(const MegaArgs& A, const Layout& L,
-                                          Bodies& B, const Statics& S,
-                                          const Grab& G, const V3* ext_f,
-                                          const V3* ext_t, Manifold& M,
-                                          Contacts& C) {
+__device__ __noinline__ void physics_step(const PhysParams& P,
+                                          const Layout& L, Bodies& B,
+                                          const Statics& S, const Grab& G,
+                                          const V3* ext_f, const V3* ext_t,
+                                          Manifold& M, Contacts& C) {
   const int nbd = L.n_body;
-  const float h = A.h;
+  const float h = P.h;
   V3 pp[MAX_BODIES];
   for (int b = 0; b < nbd; ++b) {
     // pos + (dt * vel) * dyn
     float df = B.dyn[b] ? 1.0f : 0.0f;
-    V3 dv = V3{A.dt * B.vel[b].x * df, A.dt * B.vel[b].y * df,
-               A.dt * B.vel[b].z * df};
+    V3 dv = V3{P.dt * B.vel[b].x * df, P.dt * B.vel[b].y * df,
+               P.dt * B.vel[b].z * df};
     pp[b] = add(B.pos[b], dv);
   }
   build_manifold(L, B, S, pp, M);
@@ -535,7 +618,7 @@ __device__ __noinline__ void physics_step(const MegaArgs& A, const Layout& L,
   Q4 quat_c[MAX_BODIES];
   const float half_h = 0.5f * h;
 
-  for (int sub_i = 0; sub_i < A.n_sub; ++sub_i) {
+  for (int sub_i = 0; sub_i < P.n_sub; ++sub_i) {
     // ---- integrate ----
     for (int b = 0; b < nbd; ++b) {
       float mk = B.inv_m[b] > 0.0f ? 1.0f : 0.0f;
@@ -657,8 +740,8 @@ __device__ __noinline__ void physics_step(const MegaArgs& A, const Layout& L,
       vel_n[b] = V3{d.x / h, d.y / h, d.z / h};
       Q4 dq = quat_mul(quat_c[b], quat_inv(B.quat[b]));
       float s = sgn(dq.w);
-      om_n[b] = V3{A.two_over_h * dq.x * s, A.two_over_h * dq.y * s,
-                   A.two_over_h * dq.z * s};
+      om_n[b] = V3{P.two_over_h * dq.x * s, P.two_over_h * dq.y * s,
+                   P.two_over_h * dq.z * s};
     }
 
     // ---- velocity passes: dynamic friction + restitution ----
@@ -723,9 +806,9 @@ __device__ __noinline__ void physics_step(const MegaArgs& A, const Layout& L,
         V3 v_pre = add(vel_i[b], cross(om_i[b], r_pre));
         float vn_pre = dot(v_pre, n);
         float w_n = C.w_n[b][v];
-        if (lam > 0.0f && vn_pre < -A.rest_thresh && w_n > 1e-9f) {
+        if (lam > 0.0f && vn_pre < -P.rest_thresh && w_n > 1e-9f) {
           float vn_now = dot(sub(v_a, v_b), n);
-          float jr = ((-A.restitution) * vn_pre - vn_now) / fmax2(w_n, 1e-9f);
+          float jr = ((-P.restitution) * vn_pre - vn_now) / fmax2(w_n, 1e-9f);
           V3 imp = scale(n, jr);
           rsum[b] = add(rsum[b], imp);
           rdom[b] = add(rdom[b], aii(q_a, ii_a, cross(r_a, imp)));
@@ -798,7 +881,7 @@ struct SweepOut {
   bool rew_seen;
 };
 
-__device__ __noinline__ void sweep(const MegaArgs& A, const Layout& L,
+__device__ __noinline__ void sweep(const SweepParams& P, const Layout& L,
                                    const Bodies& B, const Statics& S,
                                    const int* atype, const bool* aact, int nab,
                                    int nar, SweepOut& O) {
@@ -814,7 +897,7 @@ __device__ __noinline__ void sweep(const MegaArgs& A, const Layout& L,
     const bool is_seeker = aact[a] && atype[a] == AGENT_SEEKER;
 
     // Visibility columns: other agents (clamped), boxes, ramps.
-    for (int k = 0; k < A.n_tgt; ++k) {
+    for (int k = 0; k < P.n_tgt; ++k) {
       int slot;
       bool valid;
       bool col_hider = false;
@@ -824,12 +907,12 @@ __device__ __noinline__ void sweep(const MegaArgs& A, const Layout& L,
         slot = L.agent_lo + oc;
         valid = o < na && aact[oc];
         col_hider = atype[oc] == AGENT_HIDER;
-      } else if (k < MAX_AGENTS - 1 + A.n_boxes) {
+      } else if (k < MAX_AGENTS - 1 + P.n_boxes) {
         int i = k - (MAX_AGENTS - 1);
         slot = i;
         valid = i < nab;
       } else {
-        int i = k - (MAX_AGENTS - 1) - A.n_boxes;
+        int i = k - (MAX_AGENTS - 1) - P.n_boxes;
         slot = L.ramp_lo + i;
         valid = i < nar;
       }
@@ -838,44 +921,158 @@ __device__ __noinline__ void sweep(const MegaArgs& A, const Layout& L,
       cast_ray(L, B, S, ap, to, 1.0f, sa, &id);
       float dist = norm3(to);
       float cos_angle = (to.x * fwd.x + to.y * fwd.y + to.z * fwd.z) / fmax2(dist, 1e-9f);
-      bool in_cone = cos_angle >= A.cos_half_fov;
+      bool in_cone = cos_angle >= P.cos_half_fov;
       bool seen = id == slot && in_cone && valid && aact[a];
       O.vis[a][k] = seen ? 1.0f : 0.0f;
       if (k < MAX_AGENTS - 1 && seen && is_seeker && col_hider) O.rew_seen = true;
     }
     // Lidar.
     for (int k = 0; k < N_LIDAR; ++k) {
-      float c = A.lidar_cs[k];
-      float s = A.lidar_cs[N_LIDAR + k];
+      float c = P.lidar_cs[k];
+      float s = P.lidar_cs[N_LIDAR + k];
       V3 d = V3{c * right.x + s * fwd.x, c * right.y + s * fwd.y,
                 c * right.z + s * fwd.z};
       float len = fmax2(norm3(d), 1e-9f);
       d = V3{d.x / len, d.y / len, d.z / len};
       int id;
-      float t = cast_ray(L, B, S, ap, d, A.lidar_range, sa, &id);
+      float t = cast_ray(L, B, S, ap, d, P.lidar_range, sa, &id);
       O.lidar[a][k] = (id >= 0 ? t : 0.0f) * act_f;
     }
     // Next step's grab/lock ray from the eye point.
     V3 eye = V3{ap.x + 0.0f, ap.y + 0.0f, ap.z + 0.5f};
     int id;
-    float t = cast_ray(L, B, S, eye, fwd, A.interact_len, sa, &id);
+    float t = cast_ray(L, B, S, eye, fwd, P.interact_len, sa, &id);
     O.act_t[a] = t;
     O.act_id[a] = id;
   }
 }
 
-__device__ void megastep_world(const MegaArgs& A, int w) {
-  const long long Wl = A.W;
-  auto i3 = [&](int i, int k) { return (static_cast<long long>(i) * 3 + k) * Wl + w; };
-  auto i4 = [&](int i, int k) { return (static_cast<long long>(i) * 4 + k) * Wl + w; };
-  auto i1 = [&](int i) { return static_cast<long long>(i) * Wl + w; };
+// ---- per-world loads and stores (packed [..., W] layout) ---------------
 
+// Offsets of world w in the packed layout.
+struct Idx {
+  long long W;
+  int w;
+  MHS_HD long long i1(int i) const { return static_cast<long long>(i) * W + w; }
+  MHS_HD long long i3(int i, int k) const {
+    return (static_cast<long long>(i) * 3 + k) * W + w;
+  }
+  MHS_HD long long i4(int i, int k) const {
+    return (static_cast<long long>(i) * 4 + k) * W + w;
+  }
+};
+
+MHS_HD V3 ld3(const float* p, const Idx& I, int i) {
+  return V3{p[I.i3(i, 0)], p[I.i3(i, 1)], p[I.i3(i, 2)]};
+}
+MHS_HD Q4 ld4(const float* p, const Idx& I, int i) {
+  return Q4{p[I.i4(i, 0)], p[I.i4(i, 1)], p[I.i4(i, 2)], p[I.i4(i, 3)]};
+}
+MHS_HD void st3(float* p, const Idx& I, int i, V3 v) {
+  p[I.i3(i, 0)] = v.x;
+  p[I.i3(i, 1)] = v.y;
+  p[I.i3(i, 2)] = v.z;
+}
+MHS_HD void st4(float* p, const Idx& I, int i, Q4 q) {
+  p[I.i4(i, 0)] = q.w;
+  p[I.i4(i, 1)] = q.x;
+  p[I.i4(i, 2)] = q.y;
+  p[I.i4(i, 3)] = q.z;
+}
+
+MHS_HD Layout make_layout(int n_boxes, int n_ramps, int n_agents) {
   Layout L;
-  L.n_agents = A.n_agents;
-  L.ramp_lo = A.n_boxes;
-  L.ramp_hi = A.n_boxes + A.n_ramps;
+  L.n_agents = n_agents;
+  L.ramp_lo = n_boxes;
+  L.ramp_hi = n_boxes + n_ramps;
   L.agent_lo = L.ramp_hi;
-  L.n_body = L.agent_lo + A.n_agents;
+  L.n_body = L.agent_lo + n_agents;
+  return L;
+}
+
+// World w's bodies (raw inverse masses), statics and grabs, from an
+// argument struct with MegaArgs' / StepArgs' field names. The wall loop
+// bound defaults to every slot.
+template <class Args>
+MHS_HD void load_world(const Args& A, const Idx& I, const Layout& L,
+                       Bodies& B, bool* locked, float* raw_inv_m,
+                       V3* raw_inv_i, Statics& S, Grab& G) {
+  for (int b = 0; b < L.n_body; ++b) {
+    B.pos[b] = ld3(A.pos, I, b);
+    B.quat[b] = ld4(A.quat, I, b);
+    B.vel[b] = ld3(A.vel, I, b);
+    B.omega[b] = ld3(A.omega, I, b);
+    B.half[b] = ld3(A.half_ext, I, b);
+    raw_inv_m[b] = A.inv_mass[I.i1(b)];
+    raw_inv_i[b] = ld3(A.inv_inertia, I, b);
+    B.mu[b] = A.friction_mu[I.i1(b)];
+    B.active[b] = A.active[I.i1(b)] != 0;
+    locked[b] = A.locked[I.i1(b)] != 0;
+  }
+  S.n_wall = A.n_wall;
+  S.n_plane = A.n_plane;
+  S.wall_bound = A.n_wall;
+  for (int k = 0; k < S.n_wall; ++k) {
+    S.wpos[k] = ld3(A.wall_pos, I, k);
+    S.whalf[k] = ld3(A.wall_half, I, k);
+    S.wact[k] = A.wall_active[I.i1(k)] != 0;
+  }
+  for (int p = 0; p < S.n_plane; ++p) {
+    S.ppt[p] = ld3(A.plane_point, I, p);
+    S.pn[p] = ld3(A.plane_normal, I, p);
+    S.pact[p] = A.plane_active[I.i1(p)] != 0;
+  }
+  for (int a = 0; a < L.n_agents; ++a) {
+    G.target[a] = A.g_target[I.i1(a)];
+    G.r2[a] = ld3(A.g_r2, I, a);
+    G.relq[a] = ld4(A.g_relq, I, a);
+    G.sep[a] = A.g_sep[I.i1(a)];
+  }
+}
+
+// Effective masses (physics.physics_step): zero unless active and not
+// locked.
+MHS_HD void set_dynamic(const Layout& L, Bodies& B, const bool* locked,
+                        const float* raw_inv_m, const V3* raw_inv_i) {
+  for (int b = 0; b < L.n_body; ++b) {
+    B.dyn[b] = B.active[b] && !locked[b];
+    B.inv_m[b] = B.dyn[b] ? raw_inv_m[b] : 0.0f;
+    B.inv_i[b] = B.dyn[b] ? raw_inv_i[b] : V3{0.0f, 0.0f, 0.0f};
+  }
+}
+
+template <class Args>
+MHS_HD void store_bodies(const Args& A, const Idx& I, const Layout& L,
+                         const Bodies& B) {
+  for (int b = 0; b < L.n_body; ++b) {
+    st3(A.pos_o, I, b, B.pos[b]);
+    st4(A.quat_o, I, b, B.quat[b]);
+    st3(A.vel_o, I, b, B.vel[b]);
+    st3(A.omega_o, I, b, B.omega[b]);
+  }
+}
+
+template <class Args>
+MHS_HD void store_sweep(const Args& A, const Idx& I, const Layout& L,
+                        const SweepOut& O) {
+  for (int a = 0; a < L.n_agents; ++a) {
+    for (int k = 0; k < A.n_tgt; ++k)
+      A.vis_o[(static_cast<long long>(a) * A.n_tgt + k) * I.W + I.w] =
+          O.vis[a][k];
+    for (int k = 0; k < N_LIDAR; ++k)
+      A.lidar_o[(static_cast<long long>(a) * N_LIDAR + k) * I.W + I.w] =
+          O.lidar[a][k];
+    A.act_t_o[I.i1(a)] = O.act_t[a];
+    A.act_id_o[I.i1(a)] = O.act_id[a];
+  }
+  A.rew_seen_o[I.w] = O.rew_seen ? 1 : 0;
+}
+
+__device__ void megastep_world(const MegaArgs& A, int w) {
+  const Idx I{A.W, w};
+  const long long Wl = A.W;
+  auto i1 = [&](int i) { return I.i1(i); };
+  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
   const int nbd = L.n_body;
   const int na = A.n_agents;
 
@@ -885,43 +1082,14 @@ __device__ void megastep_world(const MegaArgs& A, int w) {
   int owner[MAX_BODIES];
   float raw_inv_m[MAX_BODIES];
   V3 raw_inv_i[MAX_BODIES];
-  for (int b = 0; b < nbd; ++b) {
-    B.pos[b] = V3{A.pos[i3(b, 0)], A.pos[i3(b, 1)], A.pos[i3(b, 2)]};
-    B.quat[b] = Q4{A.quat[i4(b, 0)], A.quat[i4(b, 1)], A.quat[i4(b, 2)], A.quat[i4(b, 3)]};
-    B.vel[b] = V3{A.vel[i3(b, 0)], A.vel[i3(b, 1)], A.vel[i3(b, 2)]};
-    B.omega[b] = V3{A.omega[i3(b, 0)], A.omega[i3(b, 1)], A.omega[i3(b, 2)]};
-    B.half[b] = V3{A.half_ext[i3(b, 0)], A.half_ext[i3(b, 1)], A.half_ext[i3(b, 2)]};
-    raw_inv_m[b] = A.inv_mass[i1(b)];
-    raw_inv_i[b] = V3{A.inv_inertia[i3(b, 0)], A.inv_inertia[i3(b, 1)],
-                      A.inv_inertia[i3(b, 2)]};
-    B.mu[b] = A.friction_mu[i1(b)];
-    B.active[b] = A.active[i1(b)] != 0;
-    locked[b] = A.locked[i1(b)] != 0;
-    owner[b] = A.owner[i1(b)];
-  }
   Statics S;
-  S.n_wall = A.n_wall;
-  S.n_plane = A.n_plane;
-  S.wall_bound = *A.wall_bound;
-  for (int k = 0; k < S.n_wall; ++k) {
-    S.wpos[k] = V3{A.wall_pos[i3(k, 0)], A.wall_pos[i3(k, 1)], A.wall_pos[i3(k, 2)]};
-    S.whalf[k] = V3{A.wall_half[i3(k, 0)], A.wall_half[i3(k, 1)], A.wall_half[i3(k, 2)]};
-    S.wact[k] = A.wall_active[i1(k)] != 0;
-  }
-  for (int p = 0; p < S.n_plane; ++p) {
-    S.ppt[p] = V3{A.plane_point[i3(p, 0)], A.plane_point[i3(p, 1)], A.plane_point[i3(p, 2)]};
-    S.pn[p] = V3{A.plane_normal[i3(p, 0)], A.plane_normal[i3(p, 1)], A.plane_normal[i3(p, 2)]};
-    S.pact[p] = A.plane_active[i1(p)] != 0;
-  }
   Grab G;
+  load_world(A, I, L, B, locked, raw_inv_m, raw_inv_i, S, G);
+  S.wall_bound = *A.wall_bound;
+  for (int b = 0; b < nbd; ++b) owner[b] = A.owner[i1(b)];
   int atype[MAX_AGENTS];
   bool aact[MAX_AGENTS];
   for (int a = 0; a < na; ++a) {
-    G.target[a] = A.g_target[i1(a)];
-    G.r2[a] = V3{A.g_r2[i3(a, 0)], A.g_r2[i3(a, 1)], A.g_r2[i3(a, 2)]};
-    G.relq[a] = Q4{A.g_relq[i4(a, 0)], A.g_relq[i4(a, 1)], A.g_relq[i4(a, 2)],
-                   A.g_relq[i4(a, 3)]};
-    G.sep[a] = A.g_sep[i1(a)];
     atype[a] = A.agent_type[i1(a)];
     aact[a] = A.agent_active[i1(a)] != 0;
   }
@@ -1007,20 +1175,16 @@ __device__ void megastep_world(const MegaArgs& A, int w) {
   }
 
   // ---- effective masses, physics ----
-  for (int b = 0; b < nbd; ++b) {
-    B.dyn[b] = B.active[b] && !locked2[b];
-    B.inv_m[b] = B.dyn[b] ? raw_inv_m[b] : 0.0f;
-    B.inv_i[b] = B.dyn[b] ? raw_inv_i[b] : V3{0.0f, 0.0f, 0.0f};
-  }
+  set_dynamic(L, B, locked2, raw_inv_m, raw_inv_i);
   {
     Manifold M;
     Contacts C;
-    physics_step(A, L, B, S, G, ext_f, ext_t, M, C);
+    physics_step(phys_params(A), L, B, S, G, ext_f, ext_t, M, C);
   }
 
   // ---- sweep on the post-physics pose ----
   SweepOut O;
-  sweep(A, L, B, S, atype, aact, nab, nar, O);
+  sweep(sweep_params(A), L, B, S, atype, aact, nab, nar, O);
 
   // ---- zero agent velocities ----
   if (A.zero_agent_vel) {
@@ -1060,41 +1224,18 @@ __device__ void megastep_world(const MegaArgs& A, int w) {
   }
 
   // ---- store ----
+  store_bodies(A, I, L, B);
   for (int b = 0; b < nbd; ++b) {
-    A.pos_o[i3(b, 0)] = B.pos[b].x;
-    A.pos_o[i3(b, 1)] = B.pos[b].y;
-    A.pos_o[i3(b, 2)] = B.pos[b].z;
-    A.quat_o[i4(b, 0)] = B.quat[b].w;
-    A.quat_o[i4(b, 1)] = B.quat[b].x;
-    A.quat_o[i4(b, 2)] = B.quat[b].y;
-    A.quat_o[i4(b, 3)] = B.quat[b].z;
-    A.vel_o[i3(b, 0)] = B.vel[b].x;
-    A.vel_o[i3(b, 1)] = B.vel[b].y;
-    A.vel_o[i3(b, 2)] = B.vel[b].z;
-    A.omega_o[i3(b, 0)] = B.omega[b].x;
-    A.omega_o[i3(b, 1)] = B.omega[b].y;
-    A.omega_o[i3(b, 2)] = B.omega[b].z;
     A.locked_o[i1(b)] = locked2[b] ? 1 : 0;
     A.owner_o[i1(b)] = owner2[b];
   }
   for (int a = 0; a < na; ++a) {
     A.g_target_o[i1(a)] = G.target[a];
-    A.g_r2_o[i3(a, 0)] = G.r2[a].x;
-    A.g_r2_o[i3(a, 1)] = G.r2[a].y;
-    A.g_r2_o[i3(a, 2)] = G.r2[a].z;
-    A.g_relq_o[i4(a, 0)] = G.relq[a].w;
-    A.g_relq_o[i4(a, 1)] = G.relq[a].x;
-    A.g_relq_o[i4(a, 2)] = G.relq[a].y;
-    A.g_relq_o[i4(a, 3)] = G.relq[a].z;
+    st3(A.g_r2_o, I, a, G.r2[a]);
+    st4(A.g_relq_o, I, a, G.relq[a]);
     A.g_sep_o[i1(a)] = G.sep[a];
-    for (int k = 0; k < A.n_tgt; ++k)
-      A.vis_o[(static_cast<long long>(a) * A.n_tgt + k) * Wl + w] = O.vis[a][k];
-    for (int k = 0; k < N_LIDAR; ++k)
-      A.lidar_o[(static_cast<long long>(a) * N_LIDAR + k) * Wl + w] = O.lidar[a][k];
-    A.act_t_o[i1(a)] = O.act_t[a];
-    A.act_id_o[i1(a)] = O.act_id[a];
   }
-  A.rew_seen_o[w] = O.rew_seen ? 1 : 0;
+  store_sweep(A, I, L, O);
   A.team_r_o[w] = team_r;
   for (int i = 0; i < 2; ++i) {
     A.running_o[i1(i)] = scores[i];
@@ -1102,10 +1243,56 @@ __device__ void megastep_world(const MegaArgs& A, int w) {
   }
 }
 
+// K2 / K3: one world's physics step from the given external forces, then
+// (kSweep) the sweep on the moved bodies. Locks and grabs are inputs.
+template <bool kSweep>
+__device__ void step_world(const StepArgs& A, int w) {
+  const Idx I{A.W, w};
+  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
+  Bodies B;
+  bool locked[MAX_BODIES];
+  float raw_inv_m[MAX_BODIES];
+  V3 raw_inv_i[MAX_BODIES];
+  Statics S;
+  Grab G;
+  load_world(A, I, L, B, locked, raw_inv_m, raw_inv_i, S, G);
+  V3 ext_f[MAX_BODIES], ext_t[MAX_BODIES];
+  for (int b = 0; b < L.n_body; ++b) {
+    ext_f[b] = ld3(A.ext_force, I, b);
+    ext_t[b] = ld3(A.ext_torque, I, b);
+  }
+  set_dynamic(L, B, locked, raw_inv_m, raw_inv_i);
+  {
+    Manifold M;
+    Contacts C;
+    physics_step(phys_params(A), L, B, S, G, ext_f, ext_t, M, C);
+  }
+  store_bodies(A, I, L, B);
+  if constexpr (kSweep) {
+    S.wall_bound = *A.wall_bound;
+    int atype[MAX_AGENTS];
+    bool aact[MAX_AGENTS];
+    for (int a = 0; a < L.n_agents; ++a) {
+      atype[a] = A.agent_type[I.i1(a)];
+      aact[a] = A.agent_active[I.i1(a)] != 0;
+    }
+    SweepOut O;
+    sweep(sweep_params(A), L, B, S, atype, aact, A.num_boxes[w],
+          A.num_ramps[w], O);
+    store_sweep(A, I, L, O);
+  }
+}
+
 #ifndef MHS_HOST_BUILD
 __global__ void megastep_kernel(const MegaArgs A) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w < A.W) megastep_world(A, w);
+}
+
+template <bool kSweep>
+__global__ void step_kernel(const StepArgs A) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w < A.W) step_world<kSweep>(A, w);
 }
 #endif
 
@@ -1142,18 +1329,70 @@ bool fill_args(MegaArgs* a, void* const* ptrs, int n_ptrs, const int* ip,
          a->n_tgt == (MAX_AGENTS - 1) + a->n_boxes + a->n_ramps;
 }
 
+// n_ptrs: N_PHYS_PTRS (physics entry; the sweep block stays null) or
+// N_FUSED_PTRS (fused entry).
+bool fill_step_args(StepArgs* a, void* const* ptrs, int n_ptrs, int want,
+                    const int* ip, int n_i, const float* fp, int n_f) {
+  if (n_ptrs != want || n_i != N_STEP_INTS || n_f != N_STEP_FLOATS)
+    return false;
+  void** dst = reinterpret_cast<void**>(a);
+  for (int i = 0; i < N_FUSED_PTRS; ++i) dst[i] = i < n_ptrs ? ptrs[i] : nullptr;
+  a->W = ip[0];
+  a->n_boxes = ip[1];
+  a->n_ramps = ip[2];
+  a->n_agents = ip[3];
+  a->n_wall = ip[4];
+  a->n_plane = ip[5];
+  a->n_tgt = ip[6];
+  a->n_sub = ip[7];
+  a->dt = fp[0];
+  a->h = fp[1];
+  a->two_over_h = fp[2];
+  a->restitution = fp[3];
+  a->rest_thresh = fp[4];
+  a->cos_half_fov = fp[5];
+  a->interact_len = fp[6];
+  a->lidar_range = fp[7];
+  return a->n_boxes <= MAX_BOXES && a->n_ramps <= MAX_RAMPS &&
+         a->n_agents <= MAX_AGENTS && a->n_agents > 0 &&
+         a->n_wall <= MAX_WALLS && a->n_plane <= MAX_PLANES &&
+         a->n_tgt == (MAX_AGENTS - 1) + a->n_boxes + a->n_ramps;
+}
+
 static_assert(sizeof(void*) * N_PTRS == offsetof(MegaArgs, W),
               "MegaArgs pointer block must match N_PTRS");
+static_assert(sizeof(void*) * N_PHYS_PTRS == offsetof(StepArgs, agent_type),
+              "StepArgs physics block must match N_PHYS_PTRS");
+static_assert(sizeof(void*) * N_FUSED_PTRS == offsetof(StepArgs, W),
+              "StepArgs pointer block must match N_FUSED_PTRS");
 
 }  // namespace
 
 #ifdef MHS_HOST_BUILD
-// Host rehearsal entry: the same per-world code in a plain loop.
+// Host rehearsal entries: the same per-world code in a plain loop.
 extern "C" int mhs_megastep_host(void* const* ptrs, int n_ptrs, const int* ip,
                                  int n_i, const float* fp, int n_f) {
   MegaArgs a;
   if (!fill_args(&a, ptrs, n_ptrs, ip, n_i, fp, n_f)) return 1;
   for (int w = 0; w < a.W; ++w) megastep_world(a, w);
+  return 0;
+}
+
+extern "C" int mhs_physics_host(void* const* ptrs, int n_ptrs, const int* ip,
+                                int n_i, const float* fp, int n_f) {
+  StepArgs a;
+  if (!fill_step_args(&a, ptrs, n_ptrs, N_PHYS_PTRS, ip, n_i, fp, n_f))
+    return 1;
+  for (int w = 0; w < a.W; ++w) step_world<false>(a, w);
+  return 0;
+}
+
+extern "C" int mhs_fused_host(void* const* ptrs, int n_ptrs, const int* ip,
+                              int n_i, const float* fp, int n_f) {
+  StepArgs a;
+  if (!fill_step_args(&a, ptrs, n_ptrs, N_FUSED_PTRS, ip, n_i, fp, n_f))
+    return 1;
+  for (int w = 0; w < a.W; ++w) step_world<true>(a, w);
   return 0;
 }
 #else
@@ -1167,5 +1406,32 @@ extern "C" int mhs_megastep(void* const* ptrs, int n_ptrs, const int* ip,
   const int blocks = (a.W + threads - 1) / threads;
   megastep_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSweep>
+int launch_step(void* const* ptrs, int n_ptrs, const int* ip, int n_i,
+                const float* fp, int n_f, void* stream) {
+  StepArgs a;
+  if (!fill_step_args(&a, ptrs, n_ptrs, kSweep ? N_FUSED_PTRS : N_PHYS_PTRS,
+                      ip, n_i, fp, n_f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.W <= 0) return 0;
+  const int threads = 64;
+  const int blocks = (a.W + threads - 1) / threads;
+  step_kernel<kSweep>
+      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: the physics step alone (physics_step_batch).
+extern "C" int mhs_physics(void* const* ptrs, int n_ptrs, const int* ip,
+                           int n_i, const float* fp, int n_f, void* stream) {
+  return launch_step<false>(ptrs, n_ptrs, ip, n_i, fp, n_f, stream);
+}
+
+// K3: the physics step, then the sweep on the moved bodies (fused_step).
+extern "C" int mhs_fused(void* const* ptrs, int n_ptrs, const int* ip,
+                         int n_i, const float* fp, int n_f, void* stream) {
+  return launch_step<true>(ptrs, n_ptrs, ip, n_i, fp, n_f, stream);
 }
 #endif

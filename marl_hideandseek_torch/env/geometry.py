@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from marl_hideandseek_torch.config import MAX_WALLS
-from marl_hideandseek_torch.env.env import randint
+from marl_hideandseek_torch.env.rng import randint, uniform
 
 DOOR_SIZE_CONNECT = 0.1
 DOOR_SIZE_ADD = 0.2
@@ -111,7 +111,7 @@ def add_door(ws: WallSet, idx, door_size: float, gen, do) -> WallSet:
     p1 = _row(ws.p1, idx)
     p2 = _row(ws.p2, idx)
     is_x = torch.abs(p1[:, 1] - p2[:, 1]) < _EPS_H
-    u = torch.rand(is_x.shape, generator=gen, device=is_x.device)
+    u = uniform(gen, is_x.shape, is_x.device)
     rat = 0.3 + 0.4 * u
     lo = torch.where(is_x, p1[:, 0], p1[:, 1]) + door_size
     hi = torch.where(is_x, p2[:, 0], p2[:, 1]) - door_size
@@ -179,7 +179,7 @@ def _connect_walls_canonical(ws: WallSet, idx_a, idx_b, gen, do) -> WallSet:
     s_p1, s_p2 = _row(ws.p1, second), _row(ws.p2, second)
     high = torch.minimum(f_p2[:, 0], s_p2[:, 0])
     low = torch.maximum(f_p1[:, 0], s_p1[:, 0])
-    u = torch.rand(low.shape, generator=gen, device=low.device)
+    u = uniform(gen, low.shape, low.device)
     rat = 0.4 + 0.2 * u
     x = low + rat * (high - low)
 
@@ -228,7 +228,7 @@ def op_add_door(ws: WallSet, gen, do) -> WallSet:
     return add_door(ws, idx, DOOR_SIZE_ADD, gen, do)
 
 
-def make_walls(gen: torch.Generator, n: int, device) -> WallSet:
+def make_walls(gen, n: int, device) -> WallSet:
     """The full grammar for n worlds (geo_gen.cpp:429-465): border walls,
     op counts (1-6 connects, 4-6 doors), then ops chosen uniformly among
     the types with budget left until both budgets are spent."""

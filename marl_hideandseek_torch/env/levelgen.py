@@ -19,7 +19,7 @@ import torch
 from marl_hideandseek_torch import math3d
 from marl_hideandseek_torch.config import ARENA_HALF, MAX_WALLS, EnvConfig
 from marl_hideandseek_torch.env import geometry
-from marl_hideandseek_torch.env.env import randint
+from marl_hideandseek_torch.env.rng import KeyedRNG, randint, uniform
 from marl_hideandseek_torch.types import (
     AGENT_HIDER,
     AGENT_SEEKER,
@@ -132,10 +132,10 @@ def _rejection_place(gen, n: int, placed_lo, placed_hi, placed_mask,
     half_ext [n, 3]; returns (pos, quat, lo, hi), each [n, 3|4]."""
     dev = placed_lo.device
     n_trials = MAX_REJECTIONS + 1
-    xy = (torch.rand((n, n_trials, 2), generator=gen, device=dev) *
-          (2.0 * ARENA_HALF) - ARENA_HALF)
+    xy = (uniform(gen, (n, n_trials, 2), dev) * (2.0 * ARENA_HALF) -
+          ARENA_HALF)
     pos = torch.cat([xy, torch.ones((n, n_trials, 1), device=dev)], -1)
-    yaw = torch.rand((n, n_trials), generator=gen, device=dev) * math.pi
+    yaw = uniform(gen, (n, n_trials), dev) * math.pi
     quat = math3d.quat_from_yaw(yaw)
     off = math3d.vec(center_off, pos).expand(n, n_trials, 3)
     centers = pos + math3d.quat_rotate(quat, off)
@@ -239,8 +239,7 @@ def generate_training_world(cfg: EnvConfig, gen, level_key, ep_key,
     dev = num_hiders.device
     _, _, (agent_lo, agent_hi) = body_slot_ranges(cfg)
     if cfg.use_fixed_world:
-        fixed = torch.Generator(device=dev)
-        fixed.manual_seed(0)
+        fixed = KeyedRNG(torch.zeros((2, 1), dtype=torch.uint32, device=dev))
         st1, tb1 = _training_geometry(cfg, fixed, 1, dev)
         st = st1.map(lambda x: x.expand((k,) + x.shape[1:]).clone())
         total_boxes = tb1.expand(k).clone()

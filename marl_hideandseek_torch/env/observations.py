@@ -31,6 +31,7 @@ from marl_hideandseek_torch.config import (
 from marl_hideandseek_torch.types import (
     AGENT_HIDER,
     AGENT_SEEKER,
+    OWNER_HIDER,
     EnvState,
     body_slot_ranges,
 )
@@ -41,6 +42,12 @@ COS_HALF_FOV = float(np.cos(np.deg2rad(VIS_FOV_DEGREES / 2.0)))
 def world_first(ps: EnvState) -> EnvState:
     """Views of a packed state with the world axis moved first."""
     return ps.map(lambda x: torch.movedim(x, -1, 0))
+
+
+def world_last(state: EnvState) -> EnvState:
+    """Views of a world-major state with the world axis moved last: the
+    packed layout, without the copy of ``types.pack_state``."""
+    return state.map(lambda x: torch.movedim(x, 0, -1))
 
 
 def others_index_matrix(n_agents: int) -> np.ndarray:
@@ -200,3 +207,170 @@ def reward_flag_from_vis(cfg: EnvConfig, st: EnvState, vis_seen):
     pair_seen = ((vis_seen[:, :, :MAX_AGENTS - 1] > 0.5) &
                  is_seeker[:, :, None] & col_is_hider)
     return pair_seen.flatten(1).any(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Observation assembly (packed.py:343, observations.py:226-355)
+# ---------------------------------------------------------------------------
+
+
+def _lock_obs(locked, owner):
+    lk = locked.to(torch.float32)
+    return [lk * (owner == OWNER_HIDER), lk * (owner != OWNER_HIDER)]
+
+
+def build_observations_packed(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
+    """Flat-feature observations from packed state and the sweep
+    (vis_seen [A, T, W], lidar [A, 30, W]); leaves [W, A, F]."""
+    n_a = cfg.max_agents
+    (box_lo, box_hi), (ramp_lo, ramp_hi), (agent_lo, agent_hi) = \
+        body_slot_ranges(cfg)
+    b = ps.bodies
+    w = ps.step.shape[0]
+    dev = ps.step.device
+
+    def comps(arr, lo, hi, n):
+        return tuple(arr[lo:hi, k] for k in range(n))
+
+    a_pos = comps(b.pos, agent_lo, agent_hi, 3)
+    a_quat = comps(b.quat, agent_lo, agent_hi, 4)
+    a_vel = comps(b.vel, agent_lo, agent_hi, 3)
+    a_omega = comps(b.omega, agent_lo, agent_hi, 3)
+    a_inv_q = math3d.qconj(a_quat)
+    act_f = ps.agent_active.to(torch.float32)
+    is_grabbing = (ps.grab.target >= 0).to(torch.float32)
+
+    def to_wa(feats, dim=1):
+        st = torch.stack(feats, dim=dim)
+        if st.dim() == 4:                                 # [A, E, F, W]
+            st = st.reshape(st.shape[0], -1, st.shape[3])
+        return torch.movedim(st, -1, 0).contiguous()
+
+    prep = torch.clamp(cfg.num_prep_steps - ps.step, min=0).to(torch.int32)
+    prep_counter = prep[:, None, None].expand(w, n_a, 1).contiguous()
+
+    vel_l = math3d.qrot(a_inv_q, a_vel)
+    om_l = math3d.qrot(a_inv_q, a_omega)
+    self_feats = (list(a_pos) + list(math3d.euler(a_quat)) + list(vel_l) +
+                  list(om_l) + [is_grabbing])
+    self_data = to_wa([f * act_f for f in self_feats])
+    self_type = torch.movedim(ps.agent_type[:, None], -1, 0).contiguous()
+    self_mask = torch.movedim(act_f[:, None], -1, 0).contiguous()
+
+    def exp_a(c):
+        return tuple(x[:, None] for x in c)
+
+    def exp_e(c):
+        return tuple(x[None] for x in c)
+
+    def entity_feats(lo, hi):
+        return math3d.rel_posvel(
+            exp_a(a_pos), exp_a(a_inv_q), exp_a(a_vel), exp_a(a_omega),
+            exp_e(comps(b.pos, lo, hi, 3)), exp_e(comps(b.quat, lo, hi, 4)),
+            exp_e(comps(b.vel, lo, hi, 3)), exp_e(comps(b.omega, lo, hi, 3)))
+
+    box_feats = entity_feats(box_lo, box_hi)
+    shape = box_feats[0].shape
+    box_size = [(2.0 * b.half_ext[box_lo:box_hi, k])[None].expand(shape)
+                for k in range(3)]
+    box_lock = [f[None].expand(shape) for f in
+                _lock_obs(b.locked[box_lo:box_hi], b.owner[box_lo:box_hi])]
+    box_observed = (torch.arange(cfg.max_boxes, device=dev)[:, None] <
+                    ps.num_active_boxes[None, :])
+    box_gate = box_observed[None].to(torch.float32) * act_f[:, None, :]
+    box_data = to_wa([f * box_gate for f in box_feats + box_size + box_lock],
+                     dim=2)
+
+    ramp_feats = entity_feats(ramp_lo, ramp_hi)
+    rshape = ramp_feats[0].shape
+    ramp_lock = [f[None].expand(rshape) for f in
+                 _lock_obs(b.locked[ramp_lo:ramp_hi],
+                           b.owner[ramp_lo:ramp_hi])]
+    ramp_observed = (torch.arange(cfg.max_ramps, device=dev)[:, None] <
+                     ps.num_active_ramps[None, :])
+    ramp_gate = ramp_observed[None].to(torch.float32) * act_f[:, None, :]
+    ramp_data = to_wa([f * ramp_gate for f in ramp_feats + ramp_lock], dim=2)
+
+    others = others_index_matrix(n_a)
+    o_in_range = torch.as_tensor(others < n_a, device=dev)
+    o_safe = torch.as_tensor(np.minimum(others, n_a - 1), device=dev)
+
+    def gather_o(c):
+        return tuple(x[o_safe] for x in c)                # [A, 5, W]
+
+    o_active = ps.agent_active[o_safe] & o_in_range[:, :, None]
+    ag_feats = math3d.rel_posvel(
+        exp_a(a_pos), exp_a(a_inv_q), exp_a(a_vel), exp_a(a_omega),
+        gather_o(a_pos), gather_o(a_quat), gather_o(a_vel),
+        gather_o(a_omega))
+    o_is_hider = (ps.agent_type[o_safe] == AGENT_HIDER).to(torch.float32)
+    o_grabbing = is_grabbing[o_safe]
+    ag_gate = o_active.to(torch.float32) * act_f[:, None, :]
+    agent_data = to_wa([f * ag_gate for f in ag_feats +
+                        [o_is_hider, o_grabbing]], dim=2)
+
+    t_agents = MAX_AGENTS - 1
+    return {
+        "prep_counter": prep_counter,
+        "self_data": self_data,
+        "self_type": self_type,
+        "self_mask": self_mask,
+        "self_lidar": torch.movedim(lidar, -1, 0).contiguous(),
+        "agent_data": agent_data,
+        "box_data": box_data,
+        "ramp_data": ramp_data,
+        "vis_agents_mask": torch.movedim(vis_seen[:, :t_agents], -1,
+                                         0).contiguous(),
+        "vis_boxes_mask": torch.movedim(
+            vis_seen[:, t_agents:t_agents + cfg.max_boxes], -1,
+            0).contiguous(),
+        "vis_ramps_mask": torch.movedim(
+            vis_seen[:, t_agents + cfg.max_boxes:], -1, 0).contiguous(),
+    }
+
+
+def reference_obs(cfg: EnvConfig, obs: dict) -> dict:
+    """Flat-feature dict -> the reference's exported shapes."""
+    w, n_a = obs["self_data"].shape[:2]
+    return {
+        **obs,
+        "agent_data": obs["agent_data"].reshape(w, n_a, MAX_AGENTS - 1, 14),
+        "box_data": obs["box_data"].reshape(w, n_a, cfg.max_boxes, 17),
+        "ramp_data": obs["ramp_data"].reshape(w, n_a, cfg.max_ramps, 14),
+        "vis_agents_mask": obs["vis_agents_mask"][..., None],
+        "vis_boxes_mask": obs["vis_boxes_mask"][..., None],
+        "vis_ramps_mask": obs["vis_ramps_mask"][..., None],
+    }
+
+
+def build_observations(cfg: EnvConfig, state: EnvState, vis_seen, lidar):
+    """Observations of world-major state in the classic ``StepResult``
+    shapes (observations.py:226): ``vis_seen [W, A, T]``, ``lidar
+    [W, A, 30]`` -> dict of ``[W, A, ...]`` leaves (``agent_data [W, A,
+    5, 14]``, ``box_data [W, A, 9, 17]``, ``vis_*_mask [W, A, n, 1]``,
+    ...). The packed assembly on views of the same tensors."""
+    obs = build_observations_packed(
+        cfg, world_last(state), torch.movedim(vis_seen, 0, -1),
+        torch.movedim(lidar, 0, -1))
+    return reference_obs(cfg, obs)
+
+
+def global_debug_positions(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
+    """[W, max_boxes + max_ramps + MAX_AGENTS, 2] xy positions of the
+    observed bodies, zero elsewhere (reference: globalPositionsDebugSystem
+    src/sim.cpp:895-941), world-major state."""
+    (box_lo, box_hi), (ramp_lo, ramp_hi), (agent_lo, agent_hi) = \
+        body_slot_ranges(cfg)
+    b = state.bodies
+    dev = b.pos.device
+    box_on = torch.arange(cfg.max_boxes, device=dev) < \
+        state.num_active_boxes[:, None]
+    ramp_on = torch.arange(cfg.max_ramps, device=dev) < \
+        state.num_active_ramps[:, None]
+    out = torch.cat([
+        b.pos[:, box_lo:box_hi, :2] * box_on[..., None],
+        b.pos[:, ramp_lo:ramp_hi, :2] * ramp_on[..., None],
+        b.pos[:, agent_lo:agent_hi, :2] * state.agent_active[..., None],
+    ], dim=1)
+    pad = cfg.max_boxes + cfg.max_ramps + MAX_AGENTS - out.shape[1]
+    return torch.nn.functional.pad(out, (0, 0, 0, pad))

@@ -13,38 +13,33 @@ addresses. A step is:
    with the raycast kernel (``ops/rays.py``);
 3. observation assembly with flattened feature dims.
 
-Level regeneration is injectable (``worldgen``): the default is the
-batched PyTorch level generator (``env/levelgen.py``) drawing from the
-env's ``torch.Generator``; tests pass worlds generated elsewhere.
+Level regeneration is injectable (``worldgen``): the default draws each
+episode from the env's ``torch.Generator`` and generates its level from
+the world's level key (``env/episode.py``, ``env/levelgen.py``); tests
+pass worlds generated elsewhere.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from marl_hideandseek_torch import math3d
 from marl_hideandseek_torch.config import (
-    MAX_AGENTS,
     NUM_PREP_STEPS,
     OOB_LIMIT,
     OOB_PENALTY,
     EnvConfig,
 )
 from marl_hideandseek_torch.env import observations as obs_mod
-from marl_hideandseek_torch.env.env import (
-    DEFAULT_BUCKETS,
-    DEFAULT_F_MAX,
-    DEFAULT_T_MAX,
-    INSTANT_BUCKETS,
-    INSTANT_F_MAX,
-    INSTANT_T_MAX,
+from marl_hideandseek_torch.env.episode import (
+    WorldGen,
     fresh_world,
     levelgen_worldgen,
     regen_world,
 )
+from marl_hideandseek_torch.env.observations import build_observations_packed
 from marl_hideandseek_torch.ops import rays as ops_rays
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.types import (
@@ -57,12 +52,17 @@ from marl_hideandseek_torch.types import (
     PackedStepResult,
     SweepResults,
     body_slot_ranges,
+    on_bits,
 )
 
-# worldgen(world_ids [k] i64, episode_counter [k] i64, level_ids [k] i64)
-#   -> packed EnvState of k fresh worlds (episode draws + level
-#   generation; step, counter and scores are set by the caller).
-WorldGen = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], EnvState]
+# Movement constants (reference: src/sim.cpp:202-254). Default variant:
+# 11 buckets, F_max 60, tau_max 15; ZeroAgentVelocity: 5, 800, 240.
+DEFAULT_BUCKETS = 11
+DEFAULT_F_MAX = 60.0
+DEFAULT_T_MAX = 15.0
+INSTANT_BUCKETS = 5
+INSTANT_F_MAX = 800.0
+INSTANT_T_MAX = 240.0
 
 
 # ---------------------------------------------------------------------------
@@ -232,137 +232,8 @@ def episode_results_packed(cfg: EnvConfig, ps: EnvState, team_r) -> EnvState:
 
 
 # ---------------------------------------------------------------------------
-# Observation assembly (packed.py:343) and the standalone sweep (:479)
+# The standalone sweep (packed.py:479)
 # ---------------------------------------------------------------------------
-
-
-def _lock_obs(locked, owner):
-    lk = locked.to(torch.float32)
-    return [lk * (owner == OWNER_HIDER), lk * (owner != OWNER_HIDER)]
-
-
-def build_observations_packed(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
-    """Flat-feature observations from packed state and the sweep
-    (vis_seen [A, T, W], lidar [A, 30, W]); leaves [W, A, F]."""
-    n_a = cfg.max_agents
-    (box_lo, box_hi), (ramp_lo, ramp_hi), (agent_lo, agent_hi) = \
-        body_slot_ranges(cfg)
-    b = ps.bodies
-    w = ps.step.shape[0]
-    dev = ps.step.device
-
-    def comps(arr, lo, hi, n):
-        return tuple(arr[lo:hi, k] for k in range(n))
-
-    a_pos = comps(b.pos, agent_lo, agent_hi, 3)
-    a_quat = comps(b.quat, agent_lo, agent_hi, 4)
-    a_vel = comps(b.vel, agent_lo, agent_hi, 3)
-    a_omega = comps(b.omega, agent_lo, agent_hi, 3)
-    a_inv_q = math3d.qconj(a_quat)
-    act_f = ps.agent_active.to(torch.float32)
-    is_grabbing = (ps.grab.target >= 0).to(torch.float32)
-
-    def to_wa(feats, dim=1):
-        st = torch.stack(feats, dim=dim)
-        if st.dim() == 4:                                 # [A, E, F, W]
-            st = st.reshape(st.shape[0], -1, st.shape[3])
-        return torch.movedim(st, -1, 0).contiguous()
-
-    prep = torch.clamp(cfg.num_prep_steps - ps.step, min=0).to(torch.int32)
-    prep_counter = prep[:, None, None].expand(w, n_a, 1).contiguous()
-
-    vel_l = math3d.qrot(a_inv_q, a_vel)
-    om_l = math3d.qrot(a_inv_q, a_omega)
-    self_feats = (list(a_pos) + list(math3d.euler(a_quat)) + list(vel_l) +
-                  list(om_l) + [is_grabbing])
-    self_data = to_wa([f * act_f for f in self_feats])
-    self_type = torch.movedim(ps.agent_type[:, None], -1, 0).contiguous()
-    self_mask = torch.movedim(act_f[:, None], -1, 0).contiguous()
-
-    def exp_a(c):
-        return tuple(x[:, None] for x in c)
-
-    def exp_e(c):
-        return tuple(x[None] for x in c)
-
-    def entity_feats(lo, hi):
-        return math3d.rel_posvel(
-            exp_a(a_pos), exp_a(a_inv_q), exp_a(a_vel), exp_a(a_omega),
-            exp_e(comps(b.pos, lo, hi, 3)), exp_e(comps(b.quat, lo, hi, 4)),
-            exp_e(comps(b.vel, lo, hi, 3)), exp_e(comps(b.omega, lo, hi, 3)))
-
-    box_feats = entity_feats(box_lo, box_hi)
-    shape = box_feats[0].shape
-    box_size = [(2.0 * b.half_ext[box_lo:box_hi, k])[None].expand(shape)
-                for k in range(3)]
-    box_lock = [f[None].expand(shape) for f in
-                _lock_obs(b.locked[box_lo:box_hi], b.owner[box_lo:box_hi])]
-    box_observed = (torch.arange(cfg.max_boxes, device=dev)[:, None] <
-                    ps.num_active_boxes[None, :])
-    box_gate = box_observed[None].to(torch.float32) * act_f[:, None, :]
-    box_data = to_wa([f * box_gate for f in box_feats + box_size + box_lock],
-                     dim=2)
-
-    ramp_feats = entity_feats(ramp_lo, ramp_hi)
-    rshape = ramp_feats[0].shape
-    ramp_lock = [f[None].expand(rshape) for f in
-                 _lock_obs(b.locked[ramp_lo:ramp_hi],
-                           b.owner[ramp_lo:ramp_hi])]
-    ramp_observed = (torch.arange(cfg.max_ramps, device=dev)[:, None] <
-                     ps.num_active_ramps[None, :])
-    ramp_gate = ramp_observed[None].to(torch.float32) * act_f[:, None, :]
-    ramp_data = to_wa([f * ramp_gate for f in ramp_feats + ramp_lock], dim=2)
-
-    others = obs_mod.others_index_matrix(n_a)
-    o_in_range = torch.as_tensor(others < n_a, device=dev)
-    o_safe = torch.as_tensor(np.minimum(others, n_a - 1), device=dev)
-
-    def gather_o(c):
-        return tuple(x[o_safe] for x in c)                # [A, 5, W]
-
-    o_active = ps.agent_active[o_safe] & o_in_range[:, :, None]
-    ag_feats = math3d.rel_posvel(
-        exp_a(a_pos), exp_a(a_inv_q), exp_a(a_vel), exp_a(a_omega),
-        gather_o(a_pos), gather_o(a_quat), gather_o(a_vel),
-        gather_o(a_omega))
-    o_is_hider = (ps.agent_type[o_safe] == AGENT_HIDER).to(torch.float32)
-    o_grabbing = is_grabbing[o_safe]
-    ag_gate = o_active.to(torch.float32) * act_f[:, None, :]
-    agent_data = to_wa([f * ag_gate for f in ag_feats +
-                        [o_is_hider, o_grabbing]], dim=2)
-
-    t_agents = MAX_AGENTS - 1
-    return {
-        "prep_counter": prep_counter,
-        "self_data": self_data,
-        "self_type": self_type,
-        "self_mask": self_mask,
-        "self_lidar": torch.movedim(lidar, -1, 0).contiguous(),
-        "agent_data": agent_data,
-        "box_data": box_data,
-        "ramp_data": ramp_data,
-        "vis_agents_mask": torch.movedim(vis_seen[:, :t_agents], -1,
-                                         0).contiguous(),
-        "vis_boxes_mask": torch.movedim(
-            vis_seen[:, t_agents:t_agents + cfg.max_boxes], -1,
-            0).contiguous(),
-        "vis_ramps_mask": torch.movedim(
-            vis_seen[:, t_agents + cfg.max_boxes:], -1, 0).contiguous(),
-    }
-
-
-def reference_obs(cfg: EnvConfig, obs: dict) -> dict:
-    """Flat-feature dict -> the reference's exported shapes."""
-    w, n_a = obs["self_data"].shape[:2]
-    return {
-        **obs,
-        "agent_data": obs["agent_data"].reshape(w, n_a, MAX_AGENTS - 1, 14),
-        "box_data": obs["box_data"].reshape(w, n_a, cfg.max_boxes, 17),
-        "ramp_data": obs["ramp_data"].reshape(w, n_a, cfg.max_ramps, 14),
-        "vis_agents_mask": obs["vis_agents_mask"][..., None],
-        "vis_boxes_mask": obs["vis_boxes_mask"][..., None],
-        "vis_ramps_mask": obs["vis_ramps_mask"][..., None],
-    }
 
 
 def _packed_rays(x: torch.Tensor) -> torch.Tensor:
@@ -396,21 +267,11 @@ def standalone_sweep_packed(cfg: EnvConfig, ps: EnvState,
 # ---------------------------------------------------------------------------
 
 
-def _bits(fn):
-    """Run a leaf op on u32 leaves through their i32 view (PyTorch
-    implements few ops for uint32); the bits are unchanged."""
-    def g(*xs):
-        if xs[0].dtype == torch.uint32:
-            return fn(*(x.view(torch.int32) for x in xs)).view(torch.uint32)
-        return fn(*xs)
-    return g
-
-
 def _select_worlds(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(mask.reshape((1,) * (new.dim() - 1) + (-1,)), new, old)
 
 
-def _canon_float(x: torch.Tensor) -> torch.Tensor:
+def canon_float(x: torch.Tensor) -> torch.Tensor:
     """The compact merge's float contract: finite values stay, anything
     else (NaN, -inf, +inf) becomes +inf (packed.py:677-695)."""
     if not x.is_floating_point():
@@ -424,8 +285,9 @@ class PackedEnv:
 
     ``device`` defaults to ``"cuda"`` and must exist: asking for CUDA
     without a card raises rather than running on the CPU. ``worldgen``
-    replaces the level generator (see ``WorldGen``); the default draws
-    from the env's ``torch.Generator``, seeded with ``cfg.rand_seed``.
+    replaces the world generator (see ``WorldGen``); the default draws
+    episodes from the env's ``torch.Generator``, seeded with
+    ``cfg.rand_seed``, and levels from their level keys.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda",
@@ -497,7 +359,7 @@ class PackedEnv:
         """Regenerate every world, keep the triggered ones, re-sweep."""
         regen = regen_world(self.worldgen, world_ids, ps, level_ids)
         adv = ps.replace(step=ps.step + 1)
-        new_p = regen.map2(adv, _bits(
+        new_p = regen.map2(adv, on_bits(
             lambda n, o: _select_worlds(trigger, n, o)))
         return new_p, standalone_sweep_packed(self.cfg, new_p)
 
@@ -518,16 +380,16 @@ class PackedEnv:
         first = (torch.argmax((idx[:, None] == idx[None, :]).to(torch.int8),
                               dim=1) == torch.arange(k, device=dev))
 
-        sub = ps.map(_bits(lambda x: x[..., idx]))
+        sub = ps.map(on_bits(lambda x: x[..., idx]))
         regen = regen_world(self.worldgen, world_ids[idx], sub, level_ids[idx])
         sub_sweep = standalone_sweep_packed(self.cfg, regen)
 
         cols = idx[first]
 
-        @_bits
+        @on_bits
         def merge(old, new):
             out = old.clone()
-            out[..., cols] = _canon_float(new)[..., first].to(old.dtype)
+            out[..., cols] = canon_float(new)[..., first].to(old.dtype)
             return out
 
         adv = ps.replace(step=ps.step + 1)

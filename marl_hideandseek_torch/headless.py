@@ -1,0 +1,104 @@
+"""Headless soak runner of the classic env (port of scripts/headless.py;
+reference: src/headless.cpp).
+
+    python -m marl_hideandseek_torch.headless NUM_WORLDS NUM_STEPS
+        [--rand-actions] [--level N] [--device cuda|cpu]
+
+Runs the reference's fixed configuration - 3 hiders, 2 seekers,
+``SimFlags.Default``, seed 5 (headless.cpp:38-44) - on ``HideAndSeekEnv``,
+with random or neutral actions, optionally after resetting every world to
+debug level N (2-8). Raises if a reward or a state value turns NaN or
+infinite (``act_hit_t`` is +inf on a ray miss), and prints the rate in
+steps x worlds / s with the device it was measured on: the card's name
+and power limit, as ``nvidia-smi`` reports them, on CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch.env.env import HideAndSeekEnv
+from marl_hideandseek_torch.env.packed import DEFAULT_BUCKETS, INSTANT_BUCKETS
+
+
+def device_line(device: torch.device) -> str:
+    """The device a rate was measured on."""
+    if device.type != "cuda":
+        return "cpu (plain PyTorch path)"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index or 0}"],
+            capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(device)}, power limit not read"
+
+
+def check_finite(state, result, where: str) -> None:
+    if not bool(torch.isfinite(result.rewards).all()):
+        raise RuntimeError(f"NaN/Inf in rewards at {where}")
+    for t in state.leaves():
+        if t.is_floating_point() and bool(
+                (~(torch.isfinite(t) | (t == math.inf))).any()):
+            raise RuntimeError(f"NaN/-Inf in the state at {where}")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("num_worlds", type=int)
+    p.add_argument("num_steps", type=int)
+    p.add_argument("--rand-actions", action="store_true")
+    p.add_argument("--level", type=int, default=1)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    cfg = EnvConfig(num_worlds=args.num_worlds, min_hiders=3, max_hiders=3,
+                    min_seekers=2, max_seekers=2,
+                    sim_flags=SimFlags.Default, rand_seed=5)
+    dev = torch.device(args.device)
+    env = HideAndSeekEnv(cfg, device=dev)
+    w, na = cfg.num_worlds, cfg.max_agents
+    n_move = INSTANT_BUCKETS if cfg.zero_agent_velocity else DEFAULT_BUCKETS
+    neutral = torch.full((w, na, 5), n_move // 2, dtype=torch.int32,
+                         device=dev)
+    neutral[..., 3:] = 0
+    state, result = env.init()
+    if args.level != 1:
+        resets = torch.full((w,), args.level, dtype=torch.int32, device=dev)
+        state, result = env.step(state, neutral, resets)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    start = time.perf_counter()
+    for _ in range(args.num_steps):
+        if args.rand_actions:
+            actions = torch.cat([
+                torch.randint(0, n_move, (w, na, 3), generator=gen,
+                              device=dev),
+                torch.randint(0, 2, (w, na, 2), generator=gen, device=dev)],
+                dim=-1)
+        else:
+            actions = neutral
+        state, result = env.step(state, actions)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - start
+    check_finite(state, result, f"step {args.num_steps}")
+    print(f"FPS: {args.num_steps * w / elapsed:.0f} steps x worlds / s "
+          f"({args.num_steps} steps x {w} worlds in {elapsed:.3f} s) on "
+          f"{device_line(dev)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

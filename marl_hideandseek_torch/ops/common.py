@@ -8,6 +8,10 @@ import torch
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+# Entry signature of the kernels that take their arguments as arrays
+# (csrc/megastep.cu, csrc/rgbd.cu): pointers, ints and floats, each with
+# its count, then the stream.
+ARRAY_ENTRY = [PTR, INT, PTR, INT, PTR, INT, PTR]
 
 
 def check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
@@ -27,3 +31,32 @@ def check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def as_f32(x: float) -> float:
+    """A Python constant as the float32 PyTorch rounds it to."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def c_arrays(ptrs, iparams, fparams):
+    """ctypes arrays for the (pointers, ints, floats) launch arguments."""
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(iparams))(*iparams),
+            (ctypes.c_float * len(fparams))(*fparams))
+
+
+def launch_arrays(kernel, ptrs, iparams, fparams, device) -> None:
+    """One launch of an ``ARRAY_ENTRY`` kernel on the current stream."""
+    p_arr, i_arr, f_arr = c_arrays(ptrs, iparams, fparams)
+    kernel(ctypes.cast(p_arr, ctypes.c_void_p), len(ptrs),
+           ctypes.cast(i_arr, ctypes.c_void_p), len(iparams),
+           ctypes.cast(f_arr, ctypes.c_void_p), len(fparams),
+           stream_ptr(device))
+
+
+def wall_bound(wall_active: torch.Tensor) -> torch.Tensor:
+    """[1] i32 batch-max active-wall count (pallas_step._wall_bound): the
+    kernels' wall loops stop there. Wall slots are densely packed, so the
+    slots past it are inactive in every world. Computed on the device,
+    without a host sync."""
+    return wall_active.sum(0, dtype=torch.int32).amax().reshape(1)

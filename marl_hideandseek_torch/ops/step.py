@@ -12,7 +12,6 @@ Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::megastep_packed``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
@@ -26,21 +25,24 @@ from marl_hideandseek_torch.config import (
     EnvConfig,
 )
 from marl_hideandseek_torch.env import observations as obs_mod
-from marl_hideandseek_torch.env import physics
-from marl_hideandseek_torch.ops import rays as ops_rays
+from marl_hideandseek_torch.ops import fused as ops_fused
 from marl_hideandseek_torch.ops.build import CudaKernel
-from marl_hideandseek_torch.ops.common import check, stream_ptr
+from marl_hideandseek_torch.ops.common import (
+    ARRAY_ENTRY,
+    as_f32,
+    check,
+    launch_arrays,
+    wall_bound,
+)
 from marl_hideandseek_torch.types import EnvState, SweepResults
 
-MEGASTEP = CudaKernel("megastep", "mhs_megastep",
-                      [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p])
+MEGASTEP = CudaKernel("megastep", "mhs_megastep", ARRAY_ENTRY)
 
 
 def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor,
                    tally: Optional[Dict[str, int]] = None):
-    """Plain PyTorch megastep (the JAX fallback branch). actions
+    """Plain PyTorch megastep (the JAX fallback branch): the step systems
+    around the plain physics + sweep (``ops/fused.py``). actions
     [A, 5, W] i32 -> (ps2, SweepResults, rewards [A, W] f32, dones
     [A, W] i32, team_r [W] f32). ps2 has the new bodies, locks, grabs,
     scores and team reward; step bookkeeping is left to the caller.
@@ -50,16 +52,9 @@ def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor,
     ext_force, ext_torque = P.movement_packed(cfg, ps, actions)
     ps = P.action_system_packed(cfg, ps, actions, ps.act_hit_t,
                                 ps.act_hit_id)
-    st = obs_mod.world_first(ps)
-    pos, quat, vel, omega = physics.physics_step(
-        cfg, st.bodies, st.statics, st.grab,
-        torch.movedim(ext_force, -1, 0), torch.movedim(ext_torque, -1, 0),
-        tally=tally)
-    pk = lambda x: torch.movedim(x, 0, -1).contiguous()
-    ps = ps.replace(bodies=ps.bodies.replace(
-        pos=pk(pos), quat=pk(quat), vel=pk(vel), omega=pk(omega)))
-    sweep = P.standalone_sweep_packed(
-        cfg, ps, raycast=ops_rays.raycast_packed_plain)
+    bodies, sweep = ops_fused.fused_step_plain(cfg, ps, ext_force,
+                                               ext_torque, tally=tally)
+    ps = ps.replace(bodies=bodies)
     if cfg.zero_agent_velocity:
         ps = P.zero_agent_velocities_packed(cfg, ps)
     team_r = torch.where(sweep.rew_seen, -1.0, 1.0)
@@ -75,19 +70,6 @@ def megastep_packed(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
     if ps.step.device.type == "cpu":
         return megastep_plain(cfg, ps, actions)
     return _megastep_cuda(cfg, ps, actions)
-
-
-def _f32(x: float) -> float:
-    """A Python constant as the float32 PyTorch rounds it to."""
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
-def wall_bound(wall_active: torch.Tensor) -> torch.Tensor:
-    """[1] i32 batch-max active-wall count (pallas_step._wall_bound): the
-    sweep's wall loop stops there. Wall slots are densely packed, so the
-    slots past it are inactive in every world. Computed on the device,
-    without a host sync."""
-    return wall_active.sum(0, dtype=torch.int32).amax().reshape(1)
 
 
 def megastep_inputs(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
@@ -163,17 +145,10 @@ def megastep_buffers(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
     iparams = [w, cfg.max_boxes, cfg.max_ramps, na, n_wall, n_plane, n_tgt,
                int(cfg.zero_agent_velocity), cfg.episode_len,
                cfg.num_physics_substeps, half, NUM_PREP_STEPS]
-    fparams = [_f32(v) for v in (
+    fparams = [as_f32(v) for v in (
         cfg.dt, h, f_per, t_per, 2.0 / h, cfg.restitution, 2.0 * 9.8 * h,
         obs_mod.COS_HALF_FOV, INTERACT_RAY_LEN, LIDAR_MAX_RANGE)]
     return ptrs, iparams, fparams, out, (bound, lidar_cs)
-
-
-def c_arrays(ptrs, iparams, fparams):
-    """ctypes arrays for the (pointers, ints, floats) launch arguments."""
-    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(iparams))(*iparams),
-            (ctypes.c_float * len(fparams))(*fparams))
 
 
 def megastep_results(ps: EnvState, out: dict):
@@ -197,9 +172,5 @@ def megastep_results(ps: EnvState, out: dict):
 def _megastep_cuda(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor):
     # `_keep` holds the inputs made here until the launch is queued.
     ptrs, iparams, fparams, out, _keep = megastep_buffers(cfg, ps, actions)
-    p_arr, i_arr, f_arr = c_arrays(ptrs, iparams, fparams)
-    MEGASTEP(ctypes.cast(p_arr, ctypes.c_void_p), len(ptrs),
-             ctypes.cast(i_arr, ctypes.c_void_p), len(iparams),
-             ctypes.cast(f_arr, ctypes.c_void_p), len(fparams),
-             stream_ptr(ps.step.device))
+    launch_arrays(MEGASTEP, ptrs, iparams, fparams, ps.step.device)
     return megastep_results(ps, out)

@@ -154,13 +154,25 @@ def unpack_state(pstate: EnvState) -> EnvState:
     return pstate.map(lambda x: torch.movedim(x, -1, 0).contiguous())
 
 
+def on_bits(fn):
+    """Run a leaf op on u32 leaves through their i32 view (PyTorch
+    implements few ops for uint32); the bits are unchanged."""
+    def g(*xs):
+        if xs[0].dtype == torch.uint32:
+            return fn(*(x.view(torch.int32) for x in xs)).view(torch.uint32)
+        return fn(*xs)
+    return g
+
+
 def pack_actions(actions: torch.Tensor) -> torch.Tensor:
     """[W, A, 5] -> [A, 5, W]."""
     return torch.movedim(actions, 0, -1).contiguous()
 
 
 class SweepResults(NamedTuple):
-    """Per-step ray-sweep outputs, packed (world axis last)."""
+    """Per-step ray-sweep outputs. Packed (world axis last, shapes below)
+    in the packed step; world axis first (``vis_seen [W, A, T]``, ...) in
+    the classic env."""
 
     vis_seen: torch.Tensor  # [A, T, W] f32 final visibility mask values
     lidar: torch.Tensor     # [A, 30, W] f32 depths (0 on miss)
@@ -177,3 +189,13 @@ class PackedStepResult(NamedTuple):
     # Hider-team reward of this transition, captured before any reset
     # regeneration overwrites the state (+1 hidden / -1 seen).
     team_reward: Optional[torch.Tensor] = None  # [W] f32
+
+
+class StepResult(NamedTuple):
+    """Outputs of one classic (world-major) env step (reference:
+    src/mgr.cpp:1338-1375)."""
+
+    obs: dict                       # named observations, leaves [W, A, ...]
+    rewards: torch.Tensor           # [W, A, 1] f32
+    dones: torch.Tensor             # [W, A, 1] i32
+    episode_results: torch.Tensor   # [W, 2] f32

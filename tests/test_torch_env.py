@@ -20,6 +20,7 @@ from marl_hideandseek_tpu.env import levelgen as jlevelgen
 from marl_hideandseek_tpu.env import packed as jp
 from marl_hideandseek_torch import bridge
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch.env import observations as tobs
 from marl_hideandseek_torch.env import packed as tp
 
 W = 8
@@ -43,15 +44,15 @@ def to_np(x):
     return np.asarray(x)
 
 
-def make_jax_worldgen():
+def make_jax_worldgen(jcfg=JCFG):
     """JAX's _draw_episode + generate_world, vmapped with the world axis
     last, as a port worldgen callable."""
-    base = jax.random.PRNGKey(JCFG.rand_seed)
+    base = jax.random.PRNGKey(jcfg.rand_seed)
 
     def one(wid, counter, lvl):
         ep_key, level_key, n_h, n_s, flip = jenv_mod._draw_episode(
-            JCFG, base, wid, counter)
-        return jlevelgen.generate_world(JCFG, level_key, ep_key, lvl, n_h,
+            jcfg, base, wid, counter)
+        return jlevelgen.generate_world(jcfg, level_key, ep_key, lvl, n_h,
                                         n_s, flip)
 
     f = jax.jit(jax.vmap(one, out_axes=-1))
@@ -63,6 +64,27 @@ def make_jax_worldgen():
         return bridge.state_from_numpy(to_np(st))
 
     return worldgen
+
+
+def make_jax_levelgen(jcfg=JCFG):
+    """JAX's generate_world from given keys, vmapped with the world axis
+    last, as a port levelgen callable (checkpoint loads)."""
+    f = jax.jit(jax.vmap(
+        lambda lk, ek, lvl, n_h, n_s, flip: jlevelgen.generate_world(
+            jcfg, lk, ek, lvl, n_h, n_s, flip),
+        in_axes=(1, 1, 0, 0, 0, 0), out_axes=-1))
+
+    def levelgen(level_key, ep_key, level_ids, n_h, n_s, flip):
+        u32 = lambda k: jnp.asarray(k.view(torch.int32).numpy()
+                                    .view(np.uint32))
+        st = f(u32(level_key), u32(ep_key),
+               jnp.asarray(level_ids.numpy().astype(np.int32)),
+               jnp.asarray(n_h.numpy().astype(np.int32)),
+               jnp.asarray(n_s.numpy().astype(np.int32)),
+               jnp.asarray(flip.numpy()))
+        return bridge.state_from_numpy(to_np(st))
+
+    return levelgen
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +129,7 @@ def assert_result_close(tres, jres):
         np.testing.assert_allclose(tres.obs[k].numpy(), np.asarray(v),
                                    atol=OBS_TOL, err_msg=f"obs[{k}]")
     jref = jp.reference_obs(JCFG, jres.obs)
-    tref = tp.reference_obs(TCFG, tres.obs)
+    tref = tobs.reference_obs(TCFG, tres.obs)
     for k, v in jref.items():
         assert tuple(tref[k].shape) == tuple(v.shape), k
     np.testing.assert_array_equal(tres.rewards.numpy(),

@@ -1,5 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version on CUDA tensors, and the env's main path through both kernels.
+"""PyTorch port on the card: each CUDA kernel (K1 raycast, K2 physics, K3
+fused physics + sweep, K4 megastep, K5 RGBD) against its plain PyTorch
+version on CUDA tensors, the packed env's main path through K1 and K4,
+and the classic env through K3, K2 and K1.
 
 Marked ``gpu``; every test skips here without a card (decided in the
 ``cuda`` fixture). On a machine with one:
@@ -15,9 +17,16 @@ import torch
 
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as obs_mod
+from marl_hideandseek_torch.env import packed as tp
+from marl_hideandseek_torch.env.env import HideAndSeekEnv
 from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.ops import fused as ops_fused
+from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rays as ops_rays
+from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import step as ops_step
+from marl_hideandseek_torch.types import unpack_state
+from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
 pytestmark = pytest.mark.gpu
 
@@ -133,3 +142,126 @@ def test_env_main_path_uses_both_kernels(cuda):
             assert bool((torch.isfinite(t) | (t == float("inf"))).all())
     for v in res.obs.values():
         assert bool(torch.isfinite(v.float()).all())
+
+
+def _pre_physics(cfg, ps, g):
+    na, w = cfg.max_agents, ps.step.shape[0]
+    dev = ps.step.device
+    acts = torch.cat([torch.randint(0, 5, (na, 3, w), generator=g, device=dev),
+                      torch.randint(0, 2, (na, 2, w), generator=g,
+                                    device=dev)], 1).to(torch.int32)
+    ext_f, ext_t = tp.movement_packed(cfg, ps, acts)
+    ps = tp.action_system_packed(cfg, ps, acts, ps.act_hit_t, ps.act_hit_id)
+    return ps, ext_f, ext_t
+
+
+@pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
+@pytest.mark.parametrize("entry", ["physics", "fused"])
+def test_physics_and_fused_kernels_match_plain(cuda, kw, entry):
+    """K2 and K3, three chained launches each from the kernel's previous
+    output, at the JAX kernels' bars."""
+    cfg, ps = _state(cuda, kw, 1000, 100)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    counter = ops_physics.PHYSICS if entry == "physics" else ops_fused.FUSED
+    n0 = counter.launches
+    for _ in range(3):
+        ps, ext_f, ext_t = _pre_physics(cfg, ps, g)
+        if entry == "physics":
+            bk = ops_physics.physics_packed(cfg, ps.bodies, ps.statics,
+                                            ps.grab, ext_f, ext_t)
+            bp = ops_physics.physics_plain(cfg, ps.bodies, ps.statics,
+                                           ps.grab, ext_f, ext_t)
+        else:
+            bk, sk = ops_fused.fused_step_packed(cfg, ps, ext_f, ext_t)
+            bp, sp = ops_fused.fused_step_plain(cfg, ps, ext_f, ext_t)
+            assert (sk.vis_seen == sp.vis_seen).float().mean() >= 0.999
+            assert (sk.act_id == sp.act_id).float().mean() >= 0.999
+            lid = ((sk.lidar - sp.lidar).abs() < 1e-3).float().mean()
+            assert lid >= 0.999
+        torch.cuda.synchronize()
+        for name, (tol, need) in KERNEL.items():
+            a, b = getattr(bk, name), getattr(bp, name)
+            assert ((a - b).abs() < tol).float().mean().item() >= need, name
+        ps = ps.replace(bodies=bk)
+    assert counter.launches == n0 + 3
+
+
+def test_world_major_wrappers_match_plain(cuda):
+    """raycast_batch and physics_step_batch transpose around K1 and K2."""
+    cfg, ps = _state(cuda, FULL, 300, 100)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ps, ext_f, ext_t = _pre_physics(cfg, ps, g)
+    st = unpack_state(ps)
+    q = obs_mod.obs_ray_queries(cfg, st)
+    t_k, id_k = ops_rays.raycast_batch(cfg, st, *q)
+    t_p, id_p = ops_rays.raycast_batch(cfg, st.map(lambda x: x.cpu()),
+                                       *[x.cpu() for x in q])
+    assert (id_k.cpu() == id_p).float().mean() >= 0.999
+    wm = lambda x: torch.movedim(x, -1, 0).contiguous()
+    bk = ops_physics.physics_step_batch(cfg, st.bodies, st.statics, st.grab,
+                                        wm(ext_f), wm(ext_t))
+    bp = ops_physics.physics_plain(cfg, ps.bodies, ps.statics, ps.grab,
+                                   ext_f, ext_t)
+    torch.testing.assert_close(bk.pos, wm(bp.pos), atol=1e-4, rtol=1e-4)
+
+
+def test_rgbd_kernel_matches_plain(cuda):
+    """K5 against the plain renderer at the JAX kernel's bar, on level-1
+    worlds and on debug level 8 (locked boxes, a ramp)."""
+    cfg, ps = _state(cuda, FULL, 300, 100)
+    env = PackedEnv(cfg, device=cuda)
+    ps8, _ = env.step(ps, torch.zeros((cfg.max_agents, 5, 300),
+                                      dtype=torch.int32, device=cuda),
+                      torch.full((300,), 8, dtype=torch.int32, device=cuda))
+    for state in (ps, ps8):
+        n0 = ops_rgbd.RGBD.launches
+        rgba, depth = ops_rgbd.render_rgbd_packed_fast(cfg, state, 32, 32)
+        assert ops_rgbd.RGBD.launches == n0 + 1
+        rgb_k, d_k = ops_rgbd.to_reference_layout(cfg, rgba, depth, 32, 32)
+        rgb_p, d_p = plain_rgbd.render_rgbd_packed(cfg, state, 32, 32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(d_k, d_p, atol=1e-3, rtol=1e-4)
+        same = (rgb_k == rgb_p).all(-1)
+        assert same.float().mean().item() >= 0.995
+        sky = d_p[..., 0] == 0
+        assert bool((same | ~sky).all())
+
+
+def test_classic_env_uses_fused_and_raycast(cuda):
+    """The classic env at 512 worlds: init, the full reset at the episode
+    end and a compact reset, through K3 and K1; the unfused env through
+    K2; rgbd through K5."""
+    cfg = EnvConfig(num_worlds=512, min_hiders=3, max_hiders=3,
+                    min_seekers=2, max_seekers=2, reset_budget=128)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for fused in (True, False):
+        env = HideAndSeekEnv(cfg, device=cuda, fused=fused)
+        counts = (ops_fused.FUSED.launches, ops_physics.PHYSICS.launches,
+                  ops_rays.RAYCAST.launches)
+        st, res = env.init()
+        st = st.replace(step=torch.full_like(st.step, 237))
+        for i in range(4):
+            acts = torch.cat([
+                torch.randint(0, 11, (512, 5, 3), generator=g, device=cuda),
+                torch.randint(0, 2, (512, 5, 2), generator=g, device=cuda)],
+                -1)
+            resets = torch.zeros(512, dtype=torch.int32, device=cuda)
+            if i == 3:
+                resets[::64] = 5
+            st, res = env.step(st, acts, resets)
+        torch.cuda.synchronize()
+        assert env.reset_counts == {"full": 1, "compact": 1}
+        fused_n = ops_fused.FUSED.launches - counts[0]
+        phys_n = ops_physics.PHYSICS.launches - counts[1]
+        assert (fused_n, phys_n) == ((4, 0) if fused else (0, 4))
+        ray_n = ops_rays.RAYCAST.launches - counts[2]
+        assert ray_n == (6 if fused else 14)
+        for t in st.leaves():
+            if t.is_floating_point():
+                assert bool((torch.isfinite(t) | (t == float("inf"))).all())
+        for v in res.obs.values():
+            assert bool(torch.isfinite(v.float()).all())
+    n0 = ops_rgbd.RGBD.launches
+    rgb, depth = env.rgbd(st, 16, 16)
+    assert ops_rgbd.RGBD.launches == n0 + 1
+    assert rgb.shape == (512, 5, 16, 16, 4) and depth.shape[-1] == 1

@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels' sources (csrc/raycast.cu,
-csrc/megastep.cu) compiled as plain host C++ (-DMHS_HOST_BUILD, the same
-per-ray / per-world functions in a loop) and held to the plain PyTorch
-versions on CPU tensors. This checks the kernels' arithmetic and their
+csrc/megastep.cu with its megastep, physics and fused entries,
+csrc/rgbd.cu) compiled as plain host C++ (-DMHS_HOST_BUILD, the same
+per-ray / per-world / per-pixel functions in a loop) and held to the
+plain PyTorch versions on CPU tensors. This checks the kernels' arithmetic and their
 argument layout without a card; the launch itself is checked on the card
 (tests/test_torch_gpu.py, chip_smoke.py). Needs a host C++ compiler."""
 
@@ -15,7 +16,12 @@ import torch
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as obs_mod
 from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.ops import build, rays as ops_rays
+from marl_hideandseek_torch.ops import fused as ops_fused
+from marl_hideandseek_torch.ops import physics as ops_physics
+from marl_hideandseek_torch.ops import rgbd as ops_rgbd
+from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.types import body_slot_ranges
 
@@ -36,7 +42,7 @@ def host_libs(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernels' sources")
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
-    for name in ("raycast", "megastep"):
+    for name in ("raycast", "megastep", "rgbd"):
         so = out / f"{name}.so"
         subprocess.run(
             [cxx, "-x", "c++", "-std=c++17", "-DMHS_HOST_BUILD", "-O1",
@@ -79,7 +85,7 @@ def test_raycast_source_matches_plain(host_libs, kw):
 
 def _host_megastep(lib, cfg, ps, acts):
     ptrs, ip, fp, out, _keep = ops_step.megastep_buffers(cfg, ps, acts)
-    pa, ia, fa = ops_step.c_arrays(ptrs, ip, fp)
+    pa, ia, fa = ops_common.c_arrays(ptrs, ip, fp)
     assert lib.mhs_megastep_host(pa, len(ptrs), ia, len(ip), fa,
                                  len(fp)) == 0
     return ops_step.megastep_results(ps, out)
@@ -119,3 +125,74 @@ def test_megastep_source_matches_plain(host_libs, kw, step0):
         assert torch.equal(rh[0].finished_scores, rp[0].finished_scores)
         ps = rp[0].replace(step=rp[0].step + 1, act_hit_t=rp[1].act_t,
                            act_hit_id=rp[1].act_id)
+
+
+def _pre_physics(cfg, ps, g):
+    """Random actions through movement and grab/lock: the K2/K3 inputs."""
+    na, w = cfg.max_agents, cfg.num_worlds
+    acts = torch.cat([torch.randint(0, 5, (na, 3, w), generator=g),
+                      torch.randint(0, 2, (na, 2, w), generator=g)],
+                     1).to(torch.int32)
+    ext_f, ext_t = tp.movement_packed(cfg, ps, acts)
+    ps = tp.action_system_packed(cfg, ps, acts, ps.act_hit_t, ps.act_hit_id)
+    return ps, ext_f, ext_t
+
+
+def _host_call(fn, ptrs, ip, fp):
+    pa, ia, fa = ops_common.c_arrays(ptrs, ip, fp)
+    assert fn(pa, len(ptrs), ia, len(ip), fa, len(fp)) == 0
+
+
+@pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
+@pytest.mark.parametrize("entry", ["physics", "fused"])
+def test_physics_and_fused_sources_match_plain(host_libs, kw, entry):
+    """K2 (physics) and K3 (physics + sweep): three steps, each from the
+    same input on both sides, on a moving state."""
+    cfg, ps = _env_state(kw, 100)
+    g = torch.Generator().manual_seed(7)
+    lib = host_libs["megastep"]
+    for _ in range(3):
+        ps, ext_f, ext_t = _pre_physics(cfg, ps, g)
+        if entry == "physics":
+            bp = ops_physics.physics_plain(cfg, ps.bodies, ps.statics,
+                                           ps.grab, ext_f, ext_t)
+            ptrs, ip, fp, out = ops_physics.physics_buffers(
+                cfg, ps.bodies, ps.statics, ps.grab, ext_f, ext_t)
+            _host_call(lib.mhs_physics_host, ptrs, ip, fp)
+        else:
+            bp, sp = ops_fused.fused_step_plain(cfg, ps, ext_f, ext_t)
+            ptrs, ip, fp, out, sh, _keep = ops_fused.fused_buffers(
+                cfg, ps, ext_f, ext_t)
+            _host_call(lib.mhs_fused_host, ptrs, ip, fp)
+            assert torch.equal(sh.vis_seen, sp.vis_seen)
+            assert torch.equal(sh.act_id, sp.act_id)
+            assert torch.equal(sh.rew_seen, sp.rew_seen)
+            torch.testing.assert_close(sh.act_t, sp.act_t, atol=1e-5,
+                                       rtol=1e-5)
+            torch.testing.assert_close(sh.lidar, sp.lidar, atol=1e-4,
+                                       rtol=1e-5)
+        for name, tol in TIGHT.items():
+            torch.testing.assert_close(out[name], getattr(bp, name),
+                                       atol=tol, rtol=1e-5, msg=name)
+        ps = ps.replace(bodies=bp)
+
+
+@pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
+def test_rgbd_source_matches_plain(host_libs, kw):
+    """K5 at 16x16 on level-1 worlds and on debug level 8 (a ramp, locked
+    and unlocked boxes): the same op order on both sides, so equal
+    colours and depths but for a last-bit difference of a root."""
+    cfg, ps = _env_state(dict(kw, num_worlds=12), 100)
+    env = PackedEnv(cfg, device="cpu")
+    ps8, _ = env.step(ps, torch.zeros((cfg.max_agents, 5, 12),
+                                      dtype=torch.int32),
+                      torch.full((12,), 8, dtype=torch.int32))
+    for state in (ps, ps8):
+        rgba_p, depth_p = ops_rgbd.render_rgbd_packed_fast(cfg, state, 16, 16)
+        out = ops_rgbd.rgbd_buffers(cfg, 12, 16, 16, "cpu")
+        ptrs, ip, fp, (rgba_h, depth_h), _keep = ops_rgbd.rgbd_args(
+            cfg, state, 16, 16, 90.0, 200.0, out)
+        _host_call(host_libs["rgbd"].mhs_rgbd_host, ptrs, ip, fp)
+        same = (rgba_h.view(torch.int32) == rgba_p.view(torch.int32))
+        assert same.float().mean().item() >= 0.999
+        torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)

@@ -13,7 +13,7 @@ import torch
 import test_levelgen_oracle as oracle
 from marl_hideandseek_torch.config import MAX_WALLS, EnvConfig, SimFlags
 from marl_hideandseek_torch.env import geometry, levelgen
-from marl_hideandseek_torch.env.env import draw_episode
+from marl_hideandseek_torch.env.episode import draw_episode, keyed_levelgen
 from marl_hideandseek_torch.types import AGENT_HIDER, body_slot_ranges
 
 N_SEEDS = 256
@@ -72,12 +72,50 @@ def _torch_stats(ps):
     return {k: np.array(v) for k, v in stats.items()}
 
 
-def test_levelgen_distribution_matches_oracle(worlds):
+@pytest.fixture(scope="module")
+def oracle_stats():
+    return oracle._oracle_stats(N_SEEDS)
+
+
+@pytest.fixture(scope="module")
+def keyed():
+    """(level key, episode draws, worlds) from the default keyed levelgen."""
+    gen = torch.Generator().manual_seed(101)
+    ep, lk, nh, ns, flip = draw_episode(CFG, gen, N_SEEDS, "cpu")
+    lvl = torch.ones(N_SEEDS, dtype=torch.long)
+    draws = (lk, ep, lvl, nh, ns, flip)
+    return draws, keyed_levelgen(CFG)(*draws)
+
+
+def test_levelgen_distribution_matches_oracle(worlds, oracle_stats):
     """The oracle file's statistics and tolerances (wall count mean/std,
     total wall length, door count/width, box and elongated counts, the
     overlap-accept rate), 256 seeds per side."""
-    o = oracle._oracle_stats(N_SEEDS)
-    t = _torch_stats(worlds)
+    _assert_stats_close(oracle_stats, _torch_stats(worlds))
+
+
+def test_keyed_levelgen_distribution_matches_oracle(keyed, oracle_stats):
+    """The default levelgen (draws keyed per world by the level key)
+    meets the same statistics."""
+    _assert_stats_close(oracle_stats, _torch_stats(keyed[1]))
+
+
+def test_keyed_levelgen_depends_on_the_key_alone(keyed):
+    """A world regenerated alone, or in another batch, from its level key
+    equals the world of the full batch: what a checkpoint load needs."""
+    draws, ps = keyed
+    sel = torch.tensor([5, 100, 17])
+    sub = keyed_levelgen(CFG)(*(d[..., sel] for d in draws))
+    for a, b in zip(ps.leaves(), sub.leaves()):
+        a = a.view(torch.int32) if a.dtype == torch.uint32 else a
+        b = b.view(torch.int32) if b.dtype == torch.uint32 else b
+        assert torch.equal(a[..., sel], b)
+    assert not torch.equal(ps.statics.wall_pos[..., 5],
+                           ps.statics.wall_pos[..., 100])
+
+
+def _assert_stats_close(o, t):
+    """The oracle file's tolerances on each statistic."""
 
     def close(name, a, b, tol):
         assert abs(a - b) < tol, (name, float(a), float(b))
