@@ -21,6 +21,10 @@ set to 0 just before and read just after:
   steps, each followed by the K5 RGBD kernel at 64x64 into buffers
   allocated once.
 
+After the build it prints each kernel entry's ptxas registers, stack and
+spills, and megastep.cu's worlds per block, shared bytes per world and
+resident worlds per SM.
+
 Every kernel is held against its plain PyTorch version at the path's
 shapes: K1 on an init state; K4, K2 and K3 on an init state at rest and on
 their path's state after 100 steps (one step at the one-step bars, then
@@ -163,6 +167,12 @@ def main() -> int:
     phase("build", t0)
     for name in ("raycast", "megastep", "rgbd"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
+    occ = step.megastep_occupancy()
+    log(f"megastep.cu (K2, K3, K4): one warp per world, "
+        f"{occ['worlds_per_block']} worlds per block, "
+        f"{occ['smem_bytes_per_world']} B of shared memory per world; "
+        f"resident worlds per SM: K4 {occ['megastep_worlds_per_sm']}, K2 "
+        f"{occ['physics_worlds_per_sm']}, K3 {occ['fused_worlds_per_sm']}")
 
     cfg = EnvConfig(
         num_worlds=WORLDS, min_hiders=2, max_hiders=2, min_seekers=2,

@@ -24,20 +24,42 @@
 // episode scores. K3 is the physics step from given forces, then the
 // sweep; K2 the physics step alone.
 //
-// Thread mapping: one thread per world; consecutive worlds in consecutive
-// threads, so every load and store of the packed [..., W] layout is
-// coalesced. The ragged edge is masked: any W works. Capacity is a
-// compile-time maximum (common.cuh) with the live body/agent counts
-// passed at run time, so one build serves every configuration.
+// Mapping: one warp per world, WORLDS_PER_BLOCK worlds per block. The
+// work inside a world is spread over the warp's lanes: a body per lane
+// (predicted pose, candidate preselect, integration, the combination of
+// each solve, grab joints, velocity reconstruction), a (body, vertex)
+// contact slot per lane (manifold, refresh, position solve, velocity
+// passes), an agent per lane (movement, grab/lock, rewards) and a ray per
+// lane (the sweep: every visibility, lidar and grab ray of the world).
+// The ragged edge of W is masked: any W works. Capacity is a compile-time
+// maximum (common.cuh) with the live body/agent counts passed at run time,
+// so one build serves every configuration.
+//
+// State: a world's bodies, statics, grabs, the substep's per-body scratch
+// and each contact slot's impulse terms live in shared memory (World);
+// a contact slot's own manifold and contact data live in the registers
+// of the lane that owns it (at most SLOTS_PER_LANE slots a lane). Sums are
+// gathered, not scattered: each slot's lane writes its terms, and after
+// a warp barrier each body's lane adds its own slots in vertex order,
+// then the terms aimed at it by pair contacts in (body, vertex) order -
+// the plain version's order, with no atomics, so results are
+// deterministic. Loads and stores of the packed [..., W] layout go
+// through the block: consecutive threads take consecutive worlds of one
+// row, so they coalesce.
 //
 // Bound: arithmetic. A world moves about 4.5 KB (state in; state, sweep
 // and scores out) but does about 0.5 MFLOP (the manifold build, 4
 // substeps over 8 contacts per body, ~190 rays against ~50 primitives).
-// The physics and sweep bodies are __noinline__ device functions
-// (physics_step, sweep) shared by the three entries, which keeps one
-// short build. The per-world state (bodies, manifold, contacts) lives in
-// local memory: register pressure is the expected limiter, and spills are
-// accepted in this first, simple version.
+// The physics and sweep bodies (physics_step, sweep) are shared by the
+// three entries and inlined into each, so that their accesses to the
+// World are known to be shared-memory accesses (measured 8-12 % faster
+// than calls through generic pointers, at 3.5 s more build time).
+//
+// Host build (-DMHS_HOST_BUILD): the lane helpers run a warp's lanes one
+// after another in each phase, and the block's worlds one after another;
+// -DMHS_LANES_REVERSE runs the lanes (and the block's load and store
+// items) in reverse order, so a missing barrier shows as a difference
+// between the two orders.
 
 #include <cstddef>
 
@@ -65,6 +87,18 @@ constexpr float VERT_INSET = 0.05f;
 constexpr float MU_S_BODY = 0.5f;
 constexpr float MU_S_STATIC = 2.0f;
 constexpr float WEDGE_RADIUS = 0x1.3988e2p+1f;  // float32(sqrt(6))
+
+constexpr int WARP = 32;
+constexpr int WORLDS_PER_BLOCK = 4;
+constexpr int BLOCK_THREADS = WORLDS_PER_BLOCK * WARP;
+constexpr int N_SLOTS = MAX_BODIES * N_VERTS;           // contact slots
+constexpr int SLOTS_PER_LANE = (N_SLOTS + WARP - 1) / WARP;
+constexpr int SLOT_WORDS = (N_SLOTS + 31) / 32;         // slot bit masks
+// Slot flags of one substep.
+constexpr unsigned char F_MASK = 1;   // a contact this substep
+constexpr unsigned char F_FRIC = 2;   // dynamic friction applied
+constexpr unsigned char F_REST = 4;   // restitution applied
+
 // physics.py WEDGE_VERTS (slots 6-7: midpoints of the sloped edges).
 MHS_HD V3 wedge_vert(int v) {
   switch (v) {
@@ -78,6 +112,102 @@ MHS_HD V3 wedge_vert(int v) {
     default: return V3{-1.0f, -0.5f, 0.0f};
   }
 }
+
+// ---- lanes, barriers and votes ----------------------------------------------
+//
+// lanes(n, f): f(i) for every item i < n, item i on lane i % 32.
+// slots(n, f): f(k, i) likewise, k = i / 32 the lane's k-th item, a
+// compile-time index after unrolling, so per-slot data indexed by k stays
+// in registers (LaneSlots).
+// lanes_any(n, f): f(i) for every item; true on every lane if any f(i).
+// lane0(f): f() on lane 0.
+// warp_sync(): the warp's barrier between phases.
+// block_items(n, f): f(i) for every i < n over the block's threads.
+
+#ifdef MHS_HOST_BUILD
+#ifdef MHS_LANES_REVERSE
+constexpr bool kReverse = true;
+#else
+constexpr bool kReverse = false;
+#endif
+inline int lane_at(int j) { return kReverse ? WARP - 1 - j : j; }
+template <class F>
+inline void lanes(int n, F&& f) {
+  for (int j = 0; j < WARP; ++j)
+    for (int i = lane_at(j); i < n; i += WARP) f(i);
+}
+template <class F>
+inline void slots(int n, F&& f) {
+  for (int j = 0; j < WARP; ++j)
+    for (int k = 0; k < SLOTS_PER_LANE; ++k) {
+      const int i = lane_at(j) + WARP * k;
+      if (i < n) f(k, i);
+    }
+}
+template <class F>
+inline bool lanes_any(int n, F&& f) {
+  bool any = false;
+  lanes(n, [&](int i) {
+    if (f(i)) any = true;
+  });
+  return any;
+}
+template <class F>
+inline void lane0(F&& f) {
+  f();
+}
+inline void warp_sync() {}
+template <class F>
+inline void block_items(int n, F&& f) {
+  for (int j = 0; j < n; ++j) f(kReverse ? n - 1 - j : j);
+}
+inline int low_bit(unsigned int m) { return __builtin_ctz(m); }
+
+// Per-slot data of the lane that owns the slot: indexed by slot on the
+// host, where every lane's items share one loop.
+template <class T>
+struct LaneSlots {
+  T v[N_SLOTS];
+  T& operator()(int, int i) { return v[i]; }
+};
+#else
+__device__ __forceinline__ int lane_id() { return threadIdx.x & (WARP - 1); }
+template <class F>
+__device__ __forceinline__ void lanes(int n, F&& f) {
+  for (int i = lane_id(); i < n; i += WARP) f(i);
+}
+template <class F>
+__device__ __forceinline__ void slots(int n, F&& f) {
+#pragma unroll
+  for (int k = 0; k < SLOTS_PER_LANE; ++k) {
+    const int i = lane_id() + WARP * k;
+    if (i < n) f(k, i);
+  }
+}
+template <class F>
+__device__ __forceinline__ bool lanes_any(int n, F&& f) {
+  bool any = false;
+  for (int i = lane_id(); i < n; i += WARP)
+    if (f(i)) any = true;
+  return __any_sync(0xffffffffu, any);
+}
+template <class F>
+__device__ __forceinline__ void lane0(F&& f) {
+  if (lane_id() == 0) f();
+}
+__device__ __forceinline__ void warp_sync() { __syncwarp(); }
+template <class F>
+__device__ __forceinline__ void block_items(int n, F&& f) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) f(i);
+}
+__device__ __forceinline__ int low_bit(unsigned int m) { return __ffs(m) - 1; }
+
+template <class T>
+struct LaneSlots {
+  T v[SLOTS_PER_LANE];
+  __device__ __forceinline__ T& operator()(int k, int) { return v[k]; }
+};
+#endif
 
 // Pointer order = ops/step.py `ins`, then lidar_cs, then the outputs.
 struct MegaArgs {
@@ -203,25 +333,25 @@ constexpr int N_STEP_FLOATS = 8;
 // Scalars of the physics step and of the sweep, taken from any entry's
 // arguments.
 struct PhysParams {
-  int n_sub;
+  int n_sub, n_wall, n_plane;
   float dt, h, two_over_h, restitution, rest_thresh;
 };
 struct SweepParams {
-  int n_tgt, n_boxes;
+  int n_tgt, n_boxes, n_wall, n_plane, wall_bound;
   float cos_half_fov, interact_len, lidar_range;
   const float* lidar_cs;
 };
 template <class Args>
 MHS_HD PhysParams phys_params(const Args& A) {
-  return PhysParams{A.n_sub, A.dt, A.h, A.two_over_h, A.restitution,
-                    A.rest_thresh};
+  return PhysParams{A.n_sub, A.n_wall, A.n_plane, A.dt, A.h, A.two_over_h,
+                    A.restitution, A.rest_thresh};
 }
 template <class Args>
 MHS_HD SweepParams sweep_params(const Args& A) {
-  return SweepParams{A.n_tgt, A.n_boxes, A.cos_half_fov, A.interact_len,
-                     A.lidar_range, A.lidar_cs};
+  return SweepParams{A.n_tgt, A.n_boxes, A.n_wall, A.n_plane, *A.wall_bound,
+                     A.cos_half_fov, A.interact_len, A.lidar_range,
+                     A.lidar_cs};
 }
-
 // ---- component-form helpers (math3d.qrot / qmul / qconj / qnorm) ---------
 
 // math3d.qrot: v[i] + s * w * c[i] + 2 * d[i], s = -2 (inv) or 2.
@@ -299,686 +429,101 @@ MHS_HD float convex_sdf(V3 p, V3 h, bool is_ramp, V3* n) {
   return is_ramp ? ws : bs;
 }
 
-// ---- per-world state ---------------------------------------------------------
+// ---- per-world state in shared memory ----------------------------------------
 
-struct Bodies {
+// A contact slot's impulse terms for the gathering sums: four aimed at its
+// own body and two at its pair neighbour. Position solve: own = (normal
+// impulse, its rotation, tangential impulse, its rotation), nb = (the
+// neighbour's position term, its rotation term). Velocity passes: own =
+// (friction impulse, its rotation, restitution impulse, its rotation), nb
+// = (the neighbour's friction velocity term, its angular term).
+struct SlotTerms {
+  V3 own[4];
+  V3 nb[2];
+};
+
+// The sweep's outputs of one world, rows in the packed order.
+struct SweepStage {
+  float vis[MAX_AGENTS * MAX_TGT];  // [a * n_tgt + k]
+  float lidar[MAX_AGENTS * N_LIDAR];
+  float act_t[MAX_AGENTS];
+  int act_id[MAX_AGENTS];
+};
+
+// One world. Each input array holds the world's rows of the packed
+// [rows, W] tensor in row order (V3 / Q4 components are rows too).
+struct World {
+  // Bodies.
   V3 pos[MAX_BODIES];
   Q4 quat[MAX_BODIES];
   V3 vel[MAX_BODIES];
   V3 omega[MAX_BODIES];
   V3 half[MAX_BODIES];
-  V3 inv_i[MAX_BODIES];  // effective (0 unless dynamic)
-  float inv_m[MAX_BODIES];  // effective
+  V3 inv_i[MAX_BODIES];     // raw on load, then effective (0 unless dynamic)
+  float inv_m[MAX_BODIES];  // likewise
   float mu[MAX_BODIES];
-  bool active[MAX_BODIES];
-  bool dyn[MAX_BODIES];
-};
-
-struct Statics {
+  V3 ext_f[MAX_BODIES];
+  V3 ext_t[MAX_BODIES];
+  int owner[MAX_BODIES];
+  unsigned char active[MAX_BODIES];
+  unsigned char locked[MAX_BODIES];
+  unsigned char dyn[MAX_BODIES];
+  // Statics.
   V3 wpos[MAX_WALLS];
   V3 whalf[MAX_WALLS];
-  bool wact[MAX_WALLS];
   V3 ppt[MAX_PLANES];
   V3 pn[MAX_PLANES];
-  bool pact[MAX_PLANES];
-  int n_wall, n_plane, wall_bound;
-};
-
-struct Grab {
-  int target[MAX_AGENTS];
-  V3 r2[MAX_AGENTS];
-  Q4 relq[MAX_AGENTS];
-  float sep[MAX_AGENTS];
-};
-
-struct Manifold {
-  signed char kind[MAX_BODIES][N_VERTS];
-  signed char nb[MAX_BODIES][N_VERTS];
-  bool nb_ramp[MAX_BODIES][N_VERTS];
-  V3 flat_n[MAX_BODIES][N_VERTS];
-  V3 flat_pt[MAX_BODIES][N_VERTS];
-  V3 wall_half[MAX_BODIES][N_VERTS];
-  V3 nb_half[MAX_BODIES][N_VERTS];
-  float mu[MAX_BODIES][N_VERTS];
-};
-
-struct Contacts {
-  V3 p[MAX_BODIES][N_VERTS];
-  V3 n[MAX_BODIES][N_VERTS];
-  float lam[MAX_BODIES][N_VERTS];
-  float w_n[MAX_BODIES][N_VERTS];
-  bool mask[MAX_BODIES][N_VERTS];
+  unsigned char wact[MAX_WALLS];
+  unsigned char pact[MAX_PLANES];
+  // Grabs and agents.
+  int g_target[MAX_AGENTS];
+  V3 g_r2[MAX_AGENTS];
+  Q4 g_relq[MAX_AGENTS];
+  float g_sep[MAX_AGENTS];
+  int atype[MAX_AGENTS];
+  int actions[MAX_AGENTS * 5];
+  float hit_t[MAX_AGENTS];
+  int hit_id[MAX_AGENTS];
+  int req_tgt[MAX_AGENTS];   // grab/lock: the agent's lock request
+  int req_kind[MAX_AGENTS];  // 0 none, 1 lock, 2 unlock
+  int req_team[MAX_AGENTS];
+  float rewards[MAX_AGENTS];
+  int dones[MAX_AGENTS];
+  unsigned char aact[MAX_AGENTS];
+  int step, nab, nar;
+  int running[2];
+  float finished[2];
+  float team_r;
+  unsigned char seekers_first, rew_seen;
+  // Physics scratch: the substep's poses and velocities, the candidate
+  // preselect per body, the pair slots aimed at each body, the joints'
+  // corrections per agent and the slots' flags, neighbours and terms.
+  V3 pos_i[MAX_BODIES];
+  Q4 quat_i[MAX_BODIES];
+  V3 vel_i[MAX_BODIES];
+  V3 om_i[MAX_BODIES];
+  V3 pos_c[MAX_BODIES];   // also the predicted pose of the manifold build
+  Q4 quat_c[MAX_BODIES];
+  V3 vel_n[MAX_BODIES];
+  V3 om_n[MAX_BODIES];
+  float wsel_lb[MAX_BODIES][K_WALL];
+  float psel_lb[MAX_BODIES][K_PAIR];
+  int wsel[MAX_BODIES][K_WALL];
+  int psel[MAX_BODIES][K_PAIR];
+  unsigned int pmask[MAX_BODIES][SLOT_WORDS];
+  V3 jt[MAX_AGENTS][4];   // joint: dpos_t, drot_t, dpos_a, drot_a
+  signed char snb[N_SLOTS];
+  unsigned char sflag[N_SLOTS];
+  union {
+    SlotTerms t[N_SLOTS];
+    SweepStage o;  // after the physics
+  } u;
 };
 
 struct Layout {
   int n_body, ramp_lo, ramp_hi, agent_lo, n_agents;
   MHS_HD bool is_ramp(int b) const { return b >= ramp_lo && b < ramp_hi; }
 };
-
-MHS_HD V3 vert_local(const Layout& L, const Bodies& B, int b, int v) {
-  if (L.is_ramp(b)) return wedge_vert(v);
-  // BOX_CORNER_SIGNS: bit 2 -> x, bit 1 -> y, bit 0 -> z.
-  float sx = (v & 4) ? 1.0f : -1.0f;
-  float sy = (v & 2) ? 1.0f : -1.0f;
-  float sz = (v & 1) ? 1.0f : -1.0f;
-  V3 h = B.half[b];
-  return V3{h.x * sx, h.y * sy, h.z * sz};
-}
-
-MHS_HD V3 inset(V3 v) {
-  return V3{v.x - VERT_INSET * sgn(v.x), v.y - VERT_INSET * sgn(v.y),
-            v.z - VERT_INSET * sgn(v.z)};
-}
-
-// k smallest of lb[0..n) in (value, index) order; idx -1 past the end.
-MHS_HD void select_smallest(const float* lb, int n, int k, float* out_lb,
-                            int* out_idx) {
-  float prev_lb = -F_INF;
-  int prev_i = -1;
-  for (int s = 0; s < k; ++s) {
-    float best = F_INF;
-    int best_i = -1;
-    for (int i = 0; i < n; ++i) {
-      bool after = (lb[i] > prev_lb) || (lb[i] == prev_lb && i > prev_i);
-      if (after && (best_i < 0 || lb[i] < best)) {
-        best = lb[i];
-        best_i = i;
-      }
-    }
-    out_lb[s] = best;
-    out_idx[s] = best_i;
-    prev_lb = best;
-    prev_i = best_i;
-  }
-}
-
-// build_manifold: per-vertex nearest surface at the predicted pose.
-__device__ __noinline__ void build_manifold(const Layout& L, const Bodies& B,
-                                            const Statics& S, const V3* pp,
-                                            Manifold& M) {
-  const int nbd = L.n_body;
-  float r_bound[MAX_BODIES];
-  for (int b = 0; b < nbd; ++b)
-    r_bound[b] = L.is_ramp(b) ? WEDGE_RADIUS : norm3(B.half[b]);
-  const int k_pair = K_PAIR < nbd - 1 ? K_PAIR : nbd - 1;
-
-  for (int b = 0; b < nbd; ++b) {
-    // Candidate preselect by centre lower bounds (stable order).
-    float lbw[MAX_WALLS];
-    for (int j = 0; j < S.n_wall; ++j) {
-      lbw[j] = S.wact[j] ? box_sdf(sub(pp[b], S.wpos[j]), S.whalf[j], nullptr) -
-                               r_bound[b]
-                         : 1e9f;
-    }
-    float wsel_lb[K_WALL];
-    int wsel[K_WALL];
-    select_smallest(lbw, S.n_wall, K_WALL, wsel_lb, wsel);
-
-    float lbp[MAX_BODIES];
-    for (int j = 0; j < nbd; ++j) {
-      bool ok = B.active[j] && j != b;
-      lbp[j] = ok ? norm3(sub(pp[b], pp[j])) - r_bound[b] - r_bound[j] : 1e9f;
-    }
-    float psel_lb[K_PAIR];
-    int psel[K_PAIR];
-    select_smallest(lbp, nbd, k_pair, psel_lb, psel);
-
-    const Q4 q = B.quat[b];
-    for (int v = 0; v < N_VERTS; ++v) {
-      V3 vl = vert_local(L, B, b, v);
-      V3 vw = add(pp[b], quat_rotate(q, vl));
-      V3 vw_in = add(pp[b], quat_rotate(q, inset(vl)));
-
-      // Planes.
-      float s_pl = 0.0f;
-      int i_pl = 0;
-      for (int p = 0; p < S.n_plane; ++p) {
-        V3 rel = sub(vw, S.ppt[p]);
-        float sdf = rel.x * S.pn[p].x + rel.y * S.pn[p].y + rel.z * S.pn[p].z;
-        sdf = S.pact[p] ? sdf : 1e9f;
-        if (p == 0 || sdf < s_pl) {
-          s_pl = sdf;
-          i_pl = p;
-        }
-      }
-      // Walls (inset samples).
-      float s_wl = 0.0f;
-      int i_wl = 0;
-      for (int k = 0; k < K_WALL; ++k) {
-        float sdf = 1e9f;
-        int j = wsel[k];
-        if (wsel_lb[k] < 1e8f) sdf = box_sdf(sub(vw_in, S.wpos[j]), S.whalf[j], nullptr);
-        if (k == 0 || sdf < s_wl) {
-          s_wl = sdf;
-          i_wl = k;
-        }
-      }
-      // Pairs (inset samples).
-      float s_pr = 0.0f;
-      int i_pr = 0;
-      for (int k = 0; k < k_pair; ++k) {
-        float sdf = 1e9f;
-        int j = psel[k];
-        if (psel_lb[k] < 1e8f) {
-          V3 pl = quat_rotate_inv(B.quat[j], sub(vw_in, pp[j]));
-          sdf = convex_sdf(pl, B.half[j], L.is_ramp(j), nullptr);
-        }
-        if (k == 0 || sdf < s_pr) {
-          s_pr = sdf;
-          i_pr = k;
-        }
-      }
-      float best = fmin2(fmin2(s_pl, s_wl), s_pr);
-      bool is_plane = s_pl <= best;
-      bool is_wall = !is_plane && (s_wl <= best);
-      bool is_pair = !(is_plane || is_wall);
-      bool valid = (best < CONTACT_MARGIN) && B.active[b];
-      int kind = valid ? (is_plane ? KIND_PLANE : (is_wall ? KIND_WALL : KIND_PAIR))
-                       : KIND_NONE;
-      int wj = wsel[i_wl] < 0 ? 0 : wsel[i_wl];
-      int pj = k_pair > 0 ? psel[i_pr] : -1;
-      M.kind[b][v] = static_cast<signed char>(kind);
-      M.flat_n[b][v] = S.pn[i_pl];
-      M.flat_pt[b][v] = is_wall ? S.wpos[wj] : S.ppt[i_pl];
-      V3 wh = S.whalf[wj];
-      M.wall_half[b][v] = V3{fmax2(wh.x, 1e-3f), fmax2(wh.y, 1e-3f), fmax2(wh.z, 1e-3f)};
-      M.nb[b][v] = static_cast<signed char>((is_pair && valid) ? pj : -1);
-      V3 nh = pj >= 0 ? B.half[pj] : V3{1.0f, 1.0f, 1.0f};
-      M.nb_half[b][v] = V3{fmax2(nh.x, 1e-3f), fmax2(nh.y, 1e-3f), fmax2(nh.z, 1e-3f)};
-      M.nb_ramp[b][v] = pj >= 0 && L.is_ramp(pj);
-      float mu_pr = pj >= 0 ? B.mu[pj] : 0.0f;
-      M.mu[b][v] = is_pair ? fmax2(B.mu[b], mu_pr) : fmax2(B.mu[b], 2.0f);
-    }
-  }
-  for (int b = nbd; b < MAX_BODIES; ++b)
-    for (int v = 0; v < N_VERTS; ++v) M.kind[b][v] = KIND_NONE;
-}
-
-// Contact point, depth and normal of a manifold slot at pose (pos, quat);
-// returns the mask. nb_pos / nb_quat: the neighbour's refreshed pose.
-MHS_HD bool refresh_contact(const Layout& L, const Bodies& B, const Manifold& M,
-                            const V3* pos, const Q4* quat, int b, int v,
-                            V3* p_out, V3* n_out, float* depth_out) {
-  int kind = M.kind[b][v];
-  V3 vl = vert_local(L, B, b, v);
-  V3 p_ex = add(pos[b], quat_rotate(quat[b], vl));
-  V3 p_in = add(pos[b], quat_rotate(quat[b], inset(vl)));
-  float depth;
-  V3 n;
-  if (kind == KIND_PLANE) {
-    V3 dp = sub(p_ex, M.flat_pt[b][v]);
-    V3 fn = M.flat_n[b][v];
-    float d_plane = dp.x * fn.x + dp.y * fn.y + dp.z * fn.z;
-    depth = -d_plane;
-    n = fn;
-    *p_out = p_ex;
-  } else if (kind == KIND_WALL) {
-    float sdf = box_sdf(sub(p_in, M.flat_pt[b][v]), M.wall_half[b][v], &n);
-    depth = -sdf;
-    *p_out = p_in;
-  } else {
-    int j = M.nb[b][v];
-    Q4 nq = quat[j];
-    V3 pl = quat_rotate_inv(nq, sub(p_in, pos[j]));
-    V3 nl;
-    float sdf = convex_sdf(pl, M.nb_half[b][v], M.nb_ramp[b][v], &nl);
-    n = quat_rotate(nq, nl);
-    depth = -sdf;
-    *p_out = p_in;
-  }
-  *n_out = n;
-  *depth_out = depth;
-  return kind > 0 && depth > 0.0f;
-}
-
-// solve_grab_joints; adds the corrections into dpos / drot.
-__device__ __noinline__ void grab_joints(const Layout& L, const Bodies& B,
-                                         const Grab& G, const V3* pos,
-                                         const Q4* quat, V3* dpos, V3* drot) {
-  for (int a = 0; a < L.n_agents; ++a) {
-    const int t = G.target[a];
-    if (t < 0) continue;  // every term of a joint without target is zero
-    const int sa = L.agent_lo + a;
-    V3 x_a = pos[sa];
-    Q4 q_a = quat[sa];
-    V3 x_t = pos[t];
-    Q4 q_t = quat[t];
-    float w_t = B.inv_m[t];
-    V3 ii_t = B.inv_i[t];
-    float w_a = B.inv_m[sa];
-    V3 ii_a = B.inv_i[sa];
-
-    V3 r1 = V3{0.0f, 1.25f + G.sep[a], 0.5f};
-    V3 p_a = add(x_a, quat_rotate(q_a, r1));
-    V3 p_t = add(x_t, quat_rotate(q_t, G.r2[a]));
-    V3 delta = sub(p_t, p_a);
-    float c_len = norm3(delta);
-    float cl = fmax2(c_len, 1e-9f);
-    V3 nrm = V3{delta.x / cl, delta.y / cl, delta.z / cl};
-    V3 r_a = sub(p_a, x_a);
-    V3 r_t = sub(p_t, x_t);
-    V3 ca = cross(r_a, nrm);
-    V3 ct = cross(r_t, nrm);
-    float gw_a = w_a + dot(ca, aii(q_a, ii_a, ca));
-    float gw_t = w_t + dot(ct, aii(q_t, ii_t, ct));
-    float w_sum = gw_a + gw_t;
-    float lam = (w_sum > 1e-9f) ? c_len / fmax2(w_sum, 1e-9f) : 0.0f;
-    V3 imp = scale(nrm, lam);
-
-    V3 dpos_a = scale(imp, w_a);
-    V3 nimp = V3{-imp.x, -imp.y, -imp.z};
-    V3 dpos_t = scale(nimp, w_t);
-    V3 drot_a = aii(q_a, ii_a, cross(r_a, imp));
-    V3 drot_t = aii(q_t, ii_t, cross(r_t, nimp));
-
-    Q4 rel_now = quat_mul(quat_inv(q_t), q_a);
-    Q4 err = quat_mul(rel_now, quat_inv(G.relq[a]));
-    float s = sgn(err.w);
-    V3 th_l = V3{2.0f * err.x * s, 2.0f * err.y * s, 2.0f * err.z * s};
-    V3 theta = quat_rotate(q_t, th_l);
-    V3 ia_th = aii(q_a, ii_a, theta);
-    V3 it_th = aii(q_t, ii_t, theta);
-    float ang_w_a = dot(ia_th, theta);
-    float ang_w_t = dot(it_th, theta);
-    float tn2 = dot(theta, theta);
-    float den = ang_w_a + ang_w_t;
-    float sc = (den > 1e-9f && tn2 > 1e-12f) ? tn2 / fmax2(den, 1e-9f) : 0.0f;
-    drot_a = sub(drot_a, scale(ia_th, sc));
-    drot_t = add(drot_t, scale(it_th, sc));
-
-    dpos[t] = add(dpos[t], dpos_t);
-    drot[t] = add(drot[t], drot_t);
-    dpos[sa] = add(dpos[sa], dpos_a);
-    drot[sa] = add(drot[sa], drot_a);
-  }
-}
-
-// physics_step: the manifold build and the substep loop; B.pos / quat /
-// vel / omega hold the result.
-__device__ __noinline__ void physics_step(const PhysParams& P,
-                                          const Layout& L, Bodies& B,
-                                          const Statics& S, const Grab& G,
-                                          const V3* ext_f, const V3* ext_t,
-                                          Manifold& M, Contacts& C) {
-  const int nbd = L.n_body;
-  const float h = P.h;
-  V3 pp[MAX_BODIES];
-  for (int b = 0; b < nbd; ++b) {
-    // pos + (dt * vel) * dyn
-    float df = B.dyn[b] ? 1.0f : 0.0f;
-    V3 dv = V3{P.dt * B.vel[b].x * df, P.dt * B.vel[b].y * df,
-               P.dt * B.vel[b].z * df};
-    pp[b] = add(B.pos[b], dv);
-  }
-  build_manifold(L, B, S, pp, M);
-
-  V3 pos_i[MAX_BODIES], vel_i[MAX_BODIES], om_i[MAX_BODIES];
-  Q4 quat_i[MAX_BODIES];
-  V3 pos_c[MAX_BODIES];
-  Q4 quat_c[MAX_BODIES];
-  const float half_h = 0.5f * h;
-
-  for (int sub_i = 0; sub_i < P.n_sub; ++sub_i) {
-    // ---- integrate ----
-    for (int b = 0; b < nbd; ++b) {
-      float mk = B.inv_m[b] > 0.0f ? 1.0f : 0.0f;
-      float im = B.inv_m[b];
-      V3 acc = V3{0.0f * mk + ext_f[b].x * im, 0.0f * mk + ext_f[b].y * im,
-                  -9.8f * mk + ext_f[b].z * im};
-      vel_i[b] = add(B.vel[b], scale(acc, h));
-      V3 aa = aii(B.quat[b], B.inv_i[b], ext_t[b]);
-      om_i[b] = add(B.omega[b], scale(aa, h));
-      pos_i[b] = add(B.pos[b], scale(vel_i[b], h));
-      // quat_integrate: normalize(q + (0.5 h) * ((0, omega) * q)).
-      Q4 qm = quat_mul(Q4{0.0f, om_i[b].x, om_i[b].y, om_i[b].z}, B.quat[b]);
-      Q4 q = B.quat[b];
-      quat_i[b] = quat_normalize(Q4{q.w + half_h * qm.w, q.x + half_h * qm.x,
-                                    q.y + half_h * qm.y, q.z + half_h * qm.z});
-    }
-
-    // ---- refresh + Jacobi position solve ----
-    V3 sum_imp[MAX_BODIES], drot_a[MAX_BODIES], sc_pos[MAX_BODIES],
-        sc_rot[MAX_BODIES], sum_imp_t[MAX_BODIES], drot_t[MAX_BODIES];
-    float cnt_a[MAX_BODIES], cnt_s[MAX_BODIES];
-    for (int b = 0; b < nbd; ++b) {
-      sum_imp[b] = drot_a[b] = sc_pos[b] = sc_rot[b] = sum_imp_t[b] =
-          drot_t[b] = V3{0.0f, 0.0f, 0.0f};
-      cnt_a[b] = cnt_s[b] = 0.0f;
-    }
-    for (int b = 0; b < nbd; ++b) {
-      for (int v = 0; v < N_VERTS; ++v) {
-        C.mask[b][v] = false;
-        C.lam[b][v] = 0.0f;
-        C.w_n[b][v] = 0.0f;
-        if (M.kind[b][v] == KIND_NONE) continue;
-        V3 p, n;
-        float depth;
-        bool mask = refresh_contact(L, B, M, pos_i, quat_i, b, v, &p, &n, &depth);
-        C.p[b][v] = p;
-        C.n[b][v] = n;
-        C.mask[b][v] = mask;
-        if (!mask) continue;
-        const int kind = M.kind[b][v];
-        const bool is_pair = kind == KIND_PAIR;
-        const int j = M.nb[b][v];
-        float nb_w = is_pair ? B.inv_m[j] : 0.0f;
-        V3 nb_ii = is_pair ? B.inv_i[j] : V3{0.0f, 0.0f, 0.0f};
-        V3 nb_pos = is_pair ? pos_i[j] : V3{1e6f, 1e6f, 1e6f};
-        Q4 nb_q = is_pair ? quat_i[j] : Q4{1.0f, 0.0f, 0.0f, 0.0f};
-        Q4 q_a = quat_i[b];
-        V3 ii_a = B.inv_i[b];
-        V3 r_a = sub(p, pos_i[b]);
-        V3 r_b = sub(p, nb_pos);
-        V3 rxn_a = cross(r_a, n);
-        float w_ang_a = dot(rxn_a, aii(q_a, ii_a, rxn_a));
-        float w_ang_b = 0.0f;
-        if (is_pair) {
-          V3 rxn_b = cross(r_b, n);
-          w_ang_b = dot(rxn_b, aii(nb_q, nb_ii, rxn_b));
-        }
-        float w_sum = B.inv_m[b] + w_ang_a + nb_w + w_ang_b;
-        float lam = (w_sum > 1e-9f) ? depth / fmax2(w_sum, 1e-9f) : 0.0f;
-        C.lam[b][v] = lam;
-        C.w_n[b][v] = w_sum;
-        V3 imp = scale(n, lam);
-
-        // Positional static friction vs a stationary neighbour.
-        V3 vl = vert_local(L, B, b, v);
-        V3 v_eval = kind == KIND_PLANE ? vl : inset(vl);
-        V3 p_prev_a = add(B.pos[b], quat_rotate(B.quat[b], v_eval));
-        V3 dp = sub(p, p_prev_a);
-        float dpn = dot(dp, n);
-        V3 dpt = sub(dp, scale(n, dpn));
-        float dpt_len = norm3(dpt);
-        float dl = fmax2(dpt_len, 1e-9f);
-        V3 t_dir = V3{dpt.x / dl, dpt.y / dl, dpt.z / dl};
-        V3 rxt_a = cross(r_a, t_dir);
-        float w_t = B.inv_m[b] + nb_w + dot(rxt_a, aii(q_a, ii_a, rxt_a));
-        float lam_t = dpt_len / fmax2(w_t, 1e-9f);
-        float mu_s = is_pair ? MU_S_BODY : MU_S_STATIC;
-        bool static_ok = (lam > 0.0f) && (w_t > 1e-9f);
-        float lam_tc = fmin2(lam_t, mu_s * lam);
-        float nl = -(static_ok ? lam_tc : 0.0f);
-        V3 imp_t = scale(t_dir, nl);
-
-        sum_imp[b] = add(sum_imp[b], imp);
-        drot_a[b] = add(drot_a[b], aii(q_a, ii_a, cross(r_a, imp)));
-        sum_imp_t[b] = add(sum_imp_t[b], imp_t);
-        drot_t[b] = add(drot_t[b], aii(q_a, ii_a, cross(r_a, imp_t)));
-        cnt_a[b] = cnt_a[b] + 1.0f;
-        if (is_pair) {
-          V3 nimp = V3{-imp.x, -imp.y, -imp.z};
-          sc_pos[j] = add(sc_pos[j], scale(nimp, nb_w));
-          sc_rot[j] = add(sc_rot[j], aii(nb_q, nb_ii, cross(r_b, nimp)));
-          cnt_s[j] = cnt_s[j] + 1.0f;
-        }
-      }
-    }
-    for (int b = 0; b < nbd; ++b) {
-      float cnt = cnt_a[b] + cnt_s[b];
-      float nrm = 1.0f / fmax2(cnt, 1.0f);
-      V3 dpos = add(scale(sum_imp[b], B.inv_m[b]), sc_pos[b]);
-      V3 drot = add(drot_a[b], sc_rot[b]);
-      V3 dpos_t = scale(sum_imp_t[b], B.inv_m[b]);
-      pos_c[b] = add(add(pos_i[b], scale(dpos, nrm)), dpos_t);
-      quat_c[b] = apply_rot(quat_i[b], add(scale(drot, nrm), drot_t[b]));
-    }
-
-    // ---- grab joints ----
-    V3 dpos_j[MAX_BODIES], drot_j[MAX_BODIES];
-    for (int b = 0; b < nbd; ++b) dpos_j[b] = drot_j[b] = V3{0.0f, 0.0f, 0.0f};
-    grab_joints(L, B, G, pos_c, quat_c, dpos_j, drot_j);
-    for (int b = 0; b < nbd; ++b) {
-      pos_c[b] = add(pos_c[b], dpos_j[b]);
-      quat_c[b] = apply_rot(quat_c[b], drot_j[b]);
-    }
-
-    // ---- velocities from positions ----
-    V3 vel_n[MAX_BODIES], om_n[MAX_BODIES];
-    for (int b = 0; b < nbd; ++b) {
-      V3 d = sub(pos_c[b], B.pos[b]);
-      vel_n[b] = V3{d.x / h, d.y / h, d.z / h};
-      Q4 dq = quat_mul(quat_c[b], quat_inv(B.quat[b]));
-      float s = sgn(dq.w);
-      om_n[b] = V3{P.two_over_h * dq.x * s, P.two_over_h * dq.y * s,
-                   P.two_over_h * dq.z * s};
-    }
-
-    // ---- velocity passes: dynamic friction + restitution ----
-    V3 fsum[MAX_BODIES], fdom[MAX_BODIES], fsc_v[MAX_BODIES], fsc_o[MAX_BODIES],
-        rsum[MAX_BODIES], rdom[MAX_BODIES];
-    float fcnt_a[MAX_BODIES], fcnt_s[MAX_BODIES];
-    for (int b = 0; b < nbd; ++b) {
-      fsum[b] = fdom[b] = fsc_v[b] = fsc_o[b] = rsum[b] = rdom[b] =
-          V3{0.0f, 0.0f, 0.0f};
-      fcnt_a[b] = fcnt_s[b] = 0.0f;
-    }
-    for (int b = 0; b < nbd; ++b) {
-      for (int v = 0; v < N_VERTS; ++v) {
-        if (!C.mask[b][v]) continue;
-        const float lam = C.lam[b][v];
-        const bool is_pair = M.kind[b][v] == KIND_PAIR;
-        const int j = M.nb[b][v];
-        const V3 p = C.p[b][v];
-        const V3 n = C.n[b][v];
-        float nb_w = is_pair ? B.inv_m[j] : 0.0f;
-        V3 nb_ii = is_pair ? B.inv_i[j] : V3{0.0f, 0.0f, 0.0f};
-        V3 nb_pos = is_pair ? pos_i[j] : V3{1e6f, 1e6f, 1e6f};
-        Q4 nb_q = is_pair ? quat_i[j] : Q4{1.0f, 0.0f, 0.0f, 0.0f};
-        V3 nb_vel = is_pair ? vel_n[j] : V3{0.0f, 0.0f, 0.0f};
-        V3 nb_om = is_pair ? om_n[j] : V3{0.0f, 0.0f, 0.0f};
-        Q4 q_a = quat_c[b];
-        V3 ii_a = B.inv_i[b];
-        V3 r_a = sub(p, pos_c[b]);
-        V3 r_b = sub(p, nb_pos);
-        V3 v_a = add(vel_n[b], cross(om_n[b], r_a));
-        V3 v_b = add(nb_vel, cross(nb_om, r_b));
-
-        if (lam > 0.0f) {  // dynamic friction
-          V3 v_rel = sub(v_a, v_b);
-          float vn = dot(v_rel, n);
-          V3 v_t = sub(v_rel, scale(n, vn));
-          float vt_len = norm3(v_t);
-          float tl = fmax2(vt_len, 1e-9f);
-          V3 t_dir = V3{v_t.x / tl, v_t.y / tl, v_t.z / tl};
-          V3 rxt_a = cross(r_a, t_dir);
-          float w_sum = B.inv_m[b] + nb_w + dot(rxt_a, aii(q_a, ii_a, rxt_a));
-          if (is_pair) {
-            V3 rxt_b = cross(r_b, t_dir);
-            w_sum = w_sum + dot(rxt_b, aii(nb_q, nb_ii, rxt_b));
-          }
-          w_sum = fmax2(w_sum, 1e-9f);
-          float jf = fmin2(vt_len / w_sum, M.mu[b][v] * lam / h);
-          V3 imp = scale(t_dir, -jf);
-          fsum[b] = add(fsum[b], imp);
-          fdom[b] = add(fdom[b], aii(q_a, ii_a, cross(r_a, imp)));
-          fcnt_a[b] = fcnt_a[b] + 1.0f;
-          if (is_pair) {
-            V3 nimp = V3{-imp.x, -imp.y, -imp.z};
-            fsc_v[j] = add(fsc_v[j], scale(nimp, nb_w));
-            fsc_o[j] = add(fsc_o[j], aii(nb_q, nb_ii, cross(r_b, nimp)));
-            fcnt_s[j] = fcnt_s[j] + 1.0f;
-          }
-        }
-
-        // Restitution: pre-solve approach velocity vs the post-solve one.
-        V3 r_pre = sub(p, pos_i[b]);
-        V3 v_pre = add(vel_i[b], cross(om_i[b], r_pre));
-        float vn_pre = dot(v_pre, n);
-        float w_n = C.w_n[b][v];
-        if (lam > 0.0f && vn_pre < -P.rest_thresh && w_n > 1e-9f) {
-          float vn_now = dot(sub(v_a, v_b), n);
-          float jr = ((-P.restitution) * vn_pre - vn_now) / fmax2(w_n, 1e-9f);
-          V3 imp = scale(n, jr);
-          rsum[b] = add(rsum[b], imp);
-          rdom[b] = add(rdom[b], aii(q_a, ii_a, cross(r_a, imp)));
-        }
-      }
-    }
-    for (int b = 0; b < nbd; ++b) {
-      float fcnt = fcnt_a[b] + fcnt_s[b];
-      float fnorm = 1.0f / fmax2(fcnt, 1.0f);
-      V3 dvel = add(scale(fsum[b], B.inv_m[b]), fsc_v[b]);
-      V3 dom = add(fdom[b], fsc_o[b]);
-      V3 dvel_r = scale(rsum[b], B.inv_m[b]);
-      V3 vn = add(add(vel_n[b], scale(dvel, fnorm)), dvel_r);
-      V3 on = add(add(om_n[b], scale(dom, fnorm)), rdom[b]);
-      bool d = B.dyn[b];
-      B.vel[b] = d ? vn : V3{0.0f, 0.0f, 0.0f};
-      B.omega[b] = d ? on : V3{0.0f, 0.0f, 0.0f};
-      if (d) {
-        B.pos[b] = pos_c[b];
-        B.quat[b] = quat_c[b];
-      }
-    }
-  }
-}
-
-// ---- the sweep (standalone_sweep_packed with the plain raycast) ----------
-
-// Nearest hit of one ray over the world's bodies, walls and planes
-// (env/rays.py::raycast_world); returns t, writes id (-1 on a miss).
-MHS_HD float cast_ray(const Layout& L, const Bodies& B, const Statics& S, V3 o,
-                      V3 d, float max_t, int excl, int* id_out) {
-  float tb = F_INF;
-  int ib = -1;
-  for (int b = 0; b < L.n_body; ++b) {
-    if (!B.active[b] || b == excl) continue;
-    float t = ray_body(o, d, B.pos[b], B.quat[b], B.half[b], L.is_ramp(b));
-    if (t <= max_t && t < tb) {
-      tb = t;
-      ib = b;
-    }
-  }
-  for (int k = 0; k < S.wall_bound; ++k) {
-    if (!S.wact[k]) continue;
-    float t = ray_aabb(o, d, sub(S.wpos[k], S.whalf[k]), add(S.wpos[k], S.whalf[k]));
-    if (t <= max_t && t < tb) {
-      tb = t;
-      ib = L.n_body + k;
-    }
-  }
-  for (int p = 0; p < S.n_plane; ++p) {
-    if (!S.pact[p]) continue;
-    float t = ray_plane(o, d, S.ppt[p], S.pn[p]);
-    if (t <= max_t && t < tb) {
-      tb = t;
-      ib = L.n_body + S.n_wall + p;
-    }
-  }
-  *id_out = tb < F_INF ? ib : -1;
-  return tb;
-}
-
-// Other-agent slot of visibility column k of agent a (others_index_matrix).
-MHS_HD int other_of(int a, int k) { return k < a ? k : k + 1; }
-
-struct SweepOut {
-  float vis[MAX_AGENTS][MAX_TGT];
-  float lidar[MAX_AGENTS][N_LIDAR];
-  float act_t[MAX_AGENTS];
-  int act_id[MAX_AGENTS];
-  bool rew_seen;
-};
-
-__device__ __noinline__ void sweep(const SweepParams& P, const Layout& L,
-                                   const Bodies& B, const Statics& S,
-                                   const int* atype, const bool* aact, int nab,
-                                   int nar, SweepOut& O) {
-  const int na = L.n_agents;
-  O.rew_seen = false;
-  for (int a = 0; a < na; ++a) {
-    const int sa = L.agent_lo + a;
-    const V3 ap = B.pos[sa];
-    const Q4 aq = B.quat[sa];
-    const V3 fwd = quat_rotate(aq, V3{0.0f, 1.0f, 0.0f});
-    const V3 right = quat_rotate(aq, V3{1.0f, 0.0f, 0.0f});
-    const float act_f = aact[a] ? 1.0f : 0.0f;
-    const bool is_seeker = aact[a] && atype[a] == AGENT_SEEKER;
-
-    // Visibility columns: other agents (clamped), boxes, ramps.
-    for (int k = 0; k < P.n_tgt; ++k) {
-      int slot;
-      bool valid;
-      bool col_hider = false;
-      if (k < MAX_AGENTS - 1) {
-        int o = other_of(a, k);
-        int oc = o < na ? o : na - 1;
-        slot = L.agent_lo + oc;
-        valid = o < na && aact[oc];
-        col_hider = atype[oc] == AGENT_HIDER;
-      } else if (k < MAX_AGENTS - 1 + P.n_boxes) {
-        int i = k - (MAX_AGENTS - 1);
-        slot = i;
-        valid = i < nab;
-      } else {
-        int i = k - (MAX_AGENTS - 1) - P.n_boxes;
-        slot = L.ramp_lo + i;
-        valid = i < nar;
-      }
-      V3 to = sub(B.pos[slot], ap);
-      int id;
-      cast_ray(L, B, S, ap, to, 1.0f, sa, &id);
-      float dist = norm3(to);
-      float cos_angle = (to.x * fwd.x + to.y * fwd.y + to.z * fwd.z) / fmax2(dist, 1e-9f);
-      bool in_cone = cos_angle >= P.cos_half_fov;
-      bool seen = id == slot && in_cone && valid && aact[a];
-      O.vis[a][k] = seen ? 1.0f : 0.0f;
-      if (k < MAX_AGENTS - 1 && seen && is_seeker && col_hider) O.rew_seen = true;
-    }
-    // Lidar.
-    for (int k = 0; k < N_LIDAR; ++k) {
-      float c = P.lidar_cs[k];
-      float s = P.lidar_cs[N_LIDAR + k];
-      V3 d = V3{c * right.x + s * fwd.x, c * right.y + s * fwd.y,
-                c * right.z + s * fwd.z};
-      float len = fmax2(norm3(d), 1e-9f);
-      d = V3{d.x / len, d.y / len, d.z / len};
-      int id;
-      float t = cast_ray(L, B, S, ap, d, P.lidar_range, sa, &id);
-      O.lidar[a][k] = (id >= 0 ? t : 0.0f) * act_f;
-    }
-    // Next step's grab/lock ray from the eye point.
-    V3 eye = V3{ap.x + 0.0f, ap.y + 0.0f, ap.z + 0.5f};
-    int id;
-    float t = cast_ray(L, B, S, eye, fwd, P.interact_len, sa, &id);
-    O.act_t[a] = t;
-    O.act_id[a] = id;
-  }
-}
-
-// ---- per-world loads and stores (packed [..., W] layout) ---------------
-
-// Offsets of world w in the packed layout.
-struct Idx {
-  long long W;
-  int w;
-  MHS_HD long long i1(int i) const { return static_cast<long long>(i) * W + w; }
-  MHS_HD long long i3(int i, int k) const {
-    return (static_cast<long long>(i) * 3 + k) * W + w;
-  }
-  MHS_HD long long i4(int i, int k) const {
-    return (static_cast<long long>(i) * 4 + k) * W + w;
-  }
-};
-
-MHS_HD V3 ld3(const float* p, const Idx& I, int i) {
-  return V3{p[I.i3(i, 0)], p[I.i3(i, 1)], p[I.i3(i, 2)]};
-}
-MHS_HD Q4 ld4(const float* p, const Idx& I, int i) {
-  return Q4{p[I.i4(i, 0)], p[I.i4(i, 1)], p[I.i4(i, 2)], p[I.i4(i, 3)]};
-}
-MHS_HD void st3(float* p, const Idx& I, int i, V3 v) {
-  p[I.i3(i, 0)] = v.x;
-  p[I.i3(i, 1)] = v.y;
-  p[I.i3(i, 2)] = v.z;
-}
-MHS_HD void st4(float* p, const Idx& I, int i, Q4 q) {
-  p[I.i4(i, 0)] = q.w;
-  p[I.i4(i, 1)] = q.x;
-  p[I.i4(i, 2)] = q.y;
-  p[I.i4(i, 3)] = q.z;
-}
 
 MHS_HD Layout make_layout(int n_boxes, int n_ramps, int n_agents) {
   Layout L;
@@ -990,309 +535,1047 @@ MHS_HD Layout make_layout(int n_boxes, int n_ramps, int n_agents) {
   return L;
 }
 
-// World w's bodies (raw inverse masses), statics and grabs, from an
-// argument struct with MegaArgs' / StepArgs' field names. The wall loop
-// bound defaults to every slot.
-template <class Args>
-MHS_HD void load_world(const Args& A, const Idx& I, const Layout& L,
-                       Bodies& B, bool* locked, float* raw_inv_m,
-                       V3* raw_inv_i, Statics& S, Grab& G) {
-  for (int b = 0; b < L.n_body; ++b) {
-    B.pos[b] = ld3(A.pos, I, b);
-    B.quat[b] = ld4(A.quat, I, b);
-    B.vel[b] = ld3(A.vel, I, b);
-    B.omega[b] = ld3(A.omega, I, b);
-    B.half[b] = ld3(A.half_ext, I, b);
-    raw_inv_m[b] = A.inv_mass[I.i1(b)];
-    raw_inv_i[b] = ld3(A.inv_inertia, I, b);
-    B.mu[b] = A.friction_mu[I.i1(b)];
-    B.active[b] = A.active[I.i1(b)] != 0;
-    locked[b] = A.locked[I.i1(b)] != 0;
+MHS_HD V3 vert_local(const Layout& L, const World& w, int b, int v) {
+  if (L.is_ramp(b)) return wedge_vert(v);
+  // BOX_CORNER_SIGNS: bit 2 -> x, bit 1 -> y, bit 0 -> z.
+  float sx = (v & 4) ? 1.0f : -1.0f;
+  float sy = (v & 2) ? 1.0f : -1.0f;
+  float sz = (v & 1) ? 1.0f : -1.0f;
+  V3 h = w.half[b];
+  return V3{h.x * sx, h.y * sy, h.z * sz};
+}
+
+MHS_HD V3 inset(V3 v) {
+  return V3{v.x - VERT_INSET * sgn(v.x), v.y - VERT_INSET * sgn(v.y),
+            v.z - VERT_INSET * sgn(v.z)};
+}
+
+MHS_HD float r_bound(const Layout& L, const World& w, int b) {
+  return L.is_ramp(b) ? WEDGE_RADIUS : norm3(w.half[b]);
+}
+
+// The 3 smallest (value, index) pairs in lexicographic order, kept in
+// registers while the indices arrive in ascending order: the lower index
+// first among equal values, as physics.py::_stable_smallest orders them;
+// idx -1 (value +inf) past the end.
+struct Top3 {
+  float lb[3];
+  int idx[3];
+};
+MHS_HD void top3_init(Top3& t) {
+  for (int s = 0; s < 3; ++s) {
+    t.lb[s] = F_INF;
+    t.idx[s] = -1;
   }
-  S.n_wall = A.n_wall;
-  S.n_plane = A.n_plane;
-  S.wall_bound = A.n_wall;
-  for (int k = 0; k < S.n_wall; ++k) {
-    S.wpos[k] = ld3(A.wall_pos, I, k);
-    S.whalf[k] = ld3(A.wall_half, I, k);
-    S.wact[k] = A.wall_active[I.i1(k)] != 0;
-  }
-  for (int p = 0; p < S.n_plane; ++p) {
-    S.ppt[p] = ld3(A.plane_point, I, p);
-    S.pn[p] = ld3(A.plane_normal, I, p);
-    S.pact[p] = A.plane_active[I.i1(p)] != 0;
-  }
-  for (int a = 0; a < L.n_agents; ++a) {
-    G.target[a] = A.g_target[I.i1(a)];
-    G.r2[a] = ld3(A.g_r2, I, a);
-    G.relq[a] = ld4(A.g_relq, I, a);
-    G.sep[a] = A.g_sep[I.i1(a)];
+}
+MHS_HD void top3_push(Top3& t, float v, int i) {
+  if (t.idx[0] < 0 || v < t.lb[0]) {
+    t.lb[2] = t.lb[1];
+    t.idx[2] = t.idx[1];
+    t.lb[1] = t.lb[0];
+    t.idx[1] = t.idx[0];
+    t.lb[0] = v;
+    t.idx[0] = i;
+  } else if (t.idx[1] < 0 || v < t.lb[1]) {
+    t.lb[2] = t.lb[1];
+    t.idx[2] = t.idx[1];
+    t.lb[1] = v;
+    t.idx[1] = i;
+  } else if (t.idx[2] < 0 || v < t.lb[2]) {
+    t.lb[2] = v;
+    t.idx[2] = i;
   }
 }
 
-// Effective masses (physics.physics_step): zero unless active and not
-// locked.
-MHS_HD void set_dynamic(const Layout& L, Bodies& B, const bool* locked,
-                        const float* raw_inv_m, const V3* raw_inv_i) {
-  for (int b = 0; b < L.n_body; ++b) {
-    B.dyn[b] = B.active[b] && !locked[b];
-    B.inv_m[b] = B.dyn[b] ? raw_inv_m[b] : 0.0f;
-    B.inv_i[b] = B.dyn[b] ? raw_inv_i[b] : V3{0.0f, 0.0f, 0.0f};
+// ---- the physics step (env/physics.py::physics_step) -------------------------
+
+// A contact slot's manifold entry (build_manifold), kept in registers.
+// a, b by kind: plane (flat point, normal), wall (wall centre, clamped
+// half extents), pair (the neighbour's clamped half extents, unused).
+struct SlotM {
+  int kind, nb, nb_ramp;
+  V3 a, b;
+  float mu;
+};
+// The slot's contact of the current substep, kept in registers.
+struct SlotC {
+  V3 p, n;
+  float lam, w_n;
+};
+
+// Candidate preselect of body b by centre lower bounds (stable order).
+MHS_HD void preselect(const PhysParams& P, const Layout& L, World& w, int b) {
+  const V3 pp = w.pos_c[b];
+  const float rb = r_bound(L, w, b);
+  Top3 ws;
+  top3_init(ws);
+  for (int j = 0; j < P.n_wall; ++j) {
+    float lb = w.wact[j] ? box_sdf(sub(pp, w.wpos[j]), w.whalf[j], nullptr) - rb
+                         : 1e9f;
+    top3_push(ws, lb, j);
+  }
+  Top3 ps;
+  top3_init(ps);
+  for (int j = 0; j < L.n_body; ++j) {
+    bool ok = w.active[j] && j != b;
+    float lb = ok ? norm3(sub(pp, w.pos_c[j])) - rb - r_bound(L, w, j) : 1e9f;
+    top3_push(ps, lb, j);
+  }
+  for (int s = 0; s < 3; ++s) {
+    w.wsel_lb[b][s] = ws.lb[s];
+    w.wsel[b][s] = ws.idx[s];
+    w.psel_lb[b][s] = ps.lb[s];
+    w.psel[b][s] = ps.idx[s];
   }
 }
 
-template <class Args>
-MHS_HD void store_bodies(const Args& A, const Idx& I, const Layout& L,
-                         const Bodies& B) {
-  for (int b = 0; b < L.n_body; ++b) {
-    st3(A.pos_o, I, b, B.pos[b]);
-    st4(A.quat_o, I, b, B.quat[b]);
-    st3(A.vel_o, I, b, B.vel[b]);
-    st3(A.omega_o, I, b, B.omega[b]);
-  }
-}
-
-template <class Args>
-MHS_HD void store_sweep(const Args& A, const Idx& I, const Layout& L,
-                        const SweepOut& O) {
-  for (int a = 0; a < L.n_agents; ++a) {
-    for (int k = 0; k < A.n_tgt; ++k)
-      A.vis_o[(static_cast<long long>(a) * A.n_tgt + k) * I.W + I.w] =
-          O.vis[a][k];
-    for (int k = 0; k < N_LIDAR; ++k)
-      A.lidar_o[(static_cast<long long>(a) * N_LIDAR + k) * I.W + I.w] =
-          O.lidar[a][k];
-    A.act_t_o[I.i1(a)] = O.act_t[a];
-    A.act_id_o[I.i1(a)] = O.act_id[a];
-  }
-  A.rew_seen_o[I.w] = O.rew_seen ? 1 : 0;
-}
-
-__device__ void megastep_world(const MegaArgs& A, int w) {
-  const Idx I{A.W, w};
-  const long long Wl = A.W;
-  auto i1 = [&](int i) { return I.i1(i); };
-  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
+// build_manifold for slot (b, v): the nearest surface of the vertex at
+// the predicted pose (pos_c).
+MHS_HD SlotM manifold_slot(const PhysParams& P, const Layout& L,
+                           const World& w, int b, int v) {
   const int nbd = L.n_body;
-  const int na = A.n_agents;
+  const int k_pair = K_PAIR < nbd - 1 ? K_PAIR : nbd - 1;
+  const V3 pp = w.pos_c[b];
+  const Q4 q = w.quat[b];
+  V3 vl = vert_local(L, w, b, v);
+  V3 vw = add(pp, quat_rotate(q, vl));
+  V3 vw_in = add(pp, quat_rotate(q, inset(vl)));
 
-  // ---- load ----
-  Bodies B;
-  bool locked[MAX_BODIES];
-  int owner[MAX_BODIES];
-  float raw_inv_m[MAX_BODIES];
-  V3 raw_inv_i[MAX_BODIES];
-  Statics S;
-  Grab G;
-  load_world(A, I, L, B, locked, raw_inv_m, raw_inv_i, S, G);
-  S.wall_bound = *A.wall_bound;
-  for (int b = 0; b < nbd; ++b) owner[b] = A.owner[i1(b)];
-  int atype[MAX_AGENTS];
-  bool aact[MAX_AGENTS];
-  for (int a = 0; a < na; ++a) {
-    atype[a] = A.agent_type[i1(a)];
-    aact[a] = A.agent_active[i1(a)] != 0;
+  // Planes.
+  float s_pl = 0.0f;
+  int i_pl = 0;
+  for (int p = 0; p < P.n_plane; ++p) {
+    V3 rel = sub(vw, w.ppt[p]);
+    float sdf = rel.x * w.pn[p].x + rel.y * w.pn[p].y + rel.z * w.pn[p].z;
+    sdf = w.pact[p] ? sdf : 1e9f;
+    if (p == 0 || sdf < s_pl) {
+      s_pl = sdf;
+      i_pl = p;
+    }
   }
-  const int step = A.step[w];
-  const int nab = A.num_boxes[w];
-  const int nar = A.num_ramps[w];
+  // Walls (inset samples).
+  float s_wl = 0.0f;
+  int i_wl = 0;
+  for (int k = 0; k < K_WALL; ++k) {
+    float sdf = 1e9f;
+    int j = w.wsel[b][k];
+    if (w.wsel_lb[b][k] < 1e8f)
+      sdf = box_sdf(sub(vw_in, w.wpos[j]), w.whalf[j], nullptr);
+    if (k == 0 || sdf < s_wl) {
+      s_wl = sdf;
+      i_wl = k;
+    }
+  }
+  // Pairs (inset samples).
+  float s_pr = 0.0f;
+  int i_pr = 0;
+  for (int k = 0; k < k_pair; ++k) {
+    float sdf = 1e9f;
+    int j = w.psel[b][k];
+    if (w.psel_lb[b][k] < 1e8f) {
+      V3 pl = quat_rotate_inv(w.quat[j], sub(vw_in, w.pos_c[j]));
+      sdf = convex_sdf(pl, w.half[j], L.is_ramp(j), nullptr);
+    }
+    if (k == 0 || sdf < s_pr) {
+      s_pr = sdf;
+      i_pr = k;
+    }
+  }
+  float best = fmin2(fmin2(s_pl, s_wl), s_pr);
+  bool is_plane = s_pl <= best;
+  bool is_wall = !is_plane && (s_wl <= best);
+  bool is_pair = !(is_plane || is_wall);
+  bool valid = (best < CONTACT_MARGIN) && w.active[b];
+  SlotM m;
+  m.kind = valid ? (is_plane ? KIND_PLANE : (is_wall ? KIND_WALL : KIND_PAIR))
+                 : KIND_NONE;
+  int wj = w.wsel[b][i_wl] < 0 ? 0 : w.wsel[b][i_wl];
+  int pj = k_pair > 0 ? w.psel[b][i_pr] : -1;
+  m.nb = (is_pair && valid) ? pj : -1;
+  m.nb_ramp = pj >= 0 && L.is_ramp(pj);
+  float mu_pr = pj >= 0 ? w.mu[pj] : 0.0f;
+  m.mu = is_pair ? fmax2(w.mu[b], mu_pr) : fmax2(w.mu[b], 2.0f);
+  if (m.kind == KIND_PLANE) {
+    m.a = w.ppt[i_pl];
+    m.b = w.pn[i_pl];
+  } else if (m.kind == KIND_WALL) {
+    m.a = w.wpos[wj];
+    V3 wh = w.whalf[wj];
+    m.b = V3{fmax2(wh.x, 1e-3f), fmax2(wh.y, 1e-3f), fmax2(wh.z, 1e-3f)};
+  } else {
+    V3 nh = pj >= 0 ? w.half[pj] : V3{1.0f, 1.0f, 1.0f};
+    m.a = V3{fmax2(nh.x, 1e-3f), fmax2(nh.y, 1e-3f), fmax2(nh.z, 1e-3f)};
+    m.b = V3{0.0f, 0.0f, 0.0f};
+  }
+  return m;
+}
 
-  // ---- movement (movement_packed) ----
-  V3 ext_f[MAX_BODIES], ext_t[MAX_BODIES];
-  for (int b = 0; b < nbd; ++b) ext_f[b] = ext_t[b] = V3{0.0f, 0.0f, 0.0f};
-  bool can_act[MAX_AGENTS];
-  for (int a = 0; a < na; ++a) {
+// Contact point, depth and normal of a manifold slot at the substep's
+// integrated pose (pos_i, quat_i); returns the mask.
+MHS_HD bool refresh_contact(const Layout& L, const World& w, const SlotM& m,
+                            int b, int v, V3* p_out, V3* n_out,
+                            float* depth_out) {
+  V3 vl = vert_local(L, w, b, v);
+  V3 p_ex = add(w.pos_i[b], quat_rotate(w.quat_i[b], vl));
+  V3 p_in = add(w.pos_i[b], quat_rotate(w.quat_i[b], inset(vl)));
+  float depth;
+  V3 n;
+  if (m.kind == KIND_PLANE) {
+    V3 dp = sub(p_ex, m.a);
+    V3 fn = m.b;
+    float d_plane = dp.x * fn.x + dp.y * fn.y + dp.z * fn.z;
+    depth = -d_plane;
+    n = fn;
+    *p_out = p_ex;
+  } else if (m.kind == KIND_WALL) {
+    float sdf = box_sdf(sub(p_in, m.a), m.b, &n);
+    depth = -sdf;
+    *p_out = p_in;
+  } else {
+    int j = m.nb;
+    Q4 nq = w.quat_i[j];
+    V3 pl = quat_rotate_inv(nq, sub(p_in, w.pos_i[j]));
+    V3 nl;
+    float sdf = convex_sdf(pl, m.a, m.nb_ramp != 0, &nl);
+    n = quat_rotate(nq, nl);
+    depth = -sdf;
+    *p_out = p_in;
+  }
+  *n_out = n;
+  *depth_out = depth;
+  return depth > 0.0f;
+}
+
+// solve_grab_joints, agent a's terms (into w.jt[a]); a joint without a
+// target has none.
+MHS_HD void joint_terms(const Layout& L, World& w, int a) {
+  const int t = w.g_target[a];
+  if (t < 0) return;
+  const int sa = L.agent_lo + a;
+  V3 x_a = w.pos_c[sa];
+  Q4 q_a = w.quat_c[sa];
+  V3 x_t = w.pos_c[t];
+  Q4 q_t = w.quat_c[t];
+  float w_t = w.inv_m[t];
+  V3 ii_t = w.inv_i[t];
+  float w_a = w.inv_m[sa];
+  V3 ii_a = w.inv_i[sa];
+
+  V3 r1 = V3{0.0f, 1.25f + w.g_sep[a], 0.5f};
+  V3 p_a = add(x_a, quat_rotate(q_a, r1));
+  V3 p_t = add(x_t, quat_rotate(q_t, w.g_r2[a]));
+  V3 delta = sub(p_t, p_a);
+  float c_len = norm3(delta);
+  float cl = fmax2(c_len, 1e-9f);
+  V3 nrm = V3{delta.x / cl, delta.y / cl, delta.z / cl};
+  V3 r_a = sub(p_a, x_a);
+  V3 r_t = sub(p_t, x_t);
+  V3 ca = cross(r_a, nrm);
+  V3 ct = cross(r_t, nrm);
+  float gw_a = w_a + dot(ca, aii(q_a, ii_a, ca));
+  float gw_t = w_t + dot(ct, aii(q_t, ii_t, ct));
+  float w_sum = gw_a + gw_t;
+  float lam = (w_sum > 1e-9f) ? c_len / fmax2(w_sum, 1e-9f) : 0.0f;
+  V3 imp = scale(nrm, lam);
+
+  V3 dpos_a = scale(imp, w_a);
+  V3 nimp = V3{-imp.x, -imp.y, -imp.z};
+  V3 dpos_t = scale(nimp, w_t);
+  V3 drot_a = aii(q_a, ii_a, cross(r_a, imp));
+  V3 drot_t = aii(q_t, ii_t, cross(r_t, nimp));
+
+  Q4 rel_now = quat_mul(quat_inv(q_t), q_a);
+  Q4 err = quat_mul(rel_now, quat_inv(w.g_relq[a]));
+  float s = sgn(err.w);
+  V3 th_l = V3{2.0f * err.x * s, 2.0f * err.y * s, 2.0f * err.z * s};
+  V3 theta = quat_rotate(q_t, th_l);
+  V3 ia_th = aii(q_a, ii_a, theta);
+  V3 it_th = aii(q_t, ii_t, theta);
+  float ang_w_a = dot(ia_th, theta);
+  float ang_w_t = dot(it_th, theta);
+  float tn2 = dot(theta, theta);
+  float den = ang_w_a + ang_w_t;
+  float sc = (den > 1e-9f && tn2 > 1e-12f) ? tn2 / fmax2(den, 1e-9f) : 0.0f;
+  w.jt[a][0] = dpos_t;
+  w.jt[a][1] = add(drot_t, scale(it_th, sc));
+  w.jt[a][2] = dpos_a;
+  w.jt[a][3] = sub(drot_a, scale(ia_th, sc));
+}
+
+// physics_step: the manifold build and the substep loop, across the
+// warp's lanes; w.pos / quat / vel / omega hold the result. Every phase
+// ends at a warp barrier: the next one reads what other lanes wrote.
+__device__ __forceinline__ void physics_step(const PhysParams& P,
+                                          const Layout& L, World& w) {
+  const int nbd = L.n_body;
+  const int ns = nbd * N_VERTS;
+  const float h = P.h;
+
+  // Predicted pose: pos + (dt * vel) * dyn.
+  lanes(nbd, [&](int b) {
+    float df = w.dyn[b] ? 1.0f : 0.0f;
+    V3 dv = V3{P.dt * w.vel[b].x * df, P.dt * w.vel[b].y * df,
+               P.dt * w.vel[b].z * df};
+    w.pos_c[b] = add(w.pos[b], dv);
+  });
+  warp_sync();
+  lanes(nbd, [&](int b) { preselect(P, L, w, b); });
+  warp_sync();
+  LaneSlots<SlotM> M;
+  slots(ns, [&](int k, int i) {
+    M(k, i) = manifold_slot(P, L, w, i / N_VERTS, i % N_VERTS);
+    w.snb[i] = static_cast<signed char>(M(k, i).nb);
+  });
+  warp_sync();
+  // The pair slots aimed at each body, as bits in slot order.
+  lanes(nbd, [&](int b) {
+    for (int q = 0; q < SLOT_WORDS; ++q) w.pmask[b][q] = 0u;
+    for (int i = 0; i < ns; ++i)
+      if (w.snb[i] == b) w.pmask[b][i >> 5] |= 1u << (i & 31);
+  });
+  warp_sync();
+
+  const float half_h = 0.5f * h;
+  LaneSlots<SlotC> C;
+  for (int sub_i = 0; sub_i < P.n_sub; ++sub_i) {
+    // ---- integrate (a body per lane) ----
+    lanes(nbd, [&](int b) {
+      float mk = w.inv_m[b] > 0.0f ? 1.0f : 0.0f;
+      float im = w.inv_m[b];
+      V3 f = w.ext_f[b];
+      V3 acc = V3{0.0f * mk + f.x * im, 0.0f * mk + f.y * im,
+                  -9.8f * mk + f.z * im};
+      V3 vi = add(w.vel[b], scale(acc, h));
+      w.vel_i[b] = vi;
+      V3 aa = aii(w.quat[b], w.inv_i[b], w.ext_t[b]);
+      V3 oi = add(w.omega[b], scale(aa, h));
+      w.om_i[b] = oi;
+      w.pos_i[b] = add(w.pos[b], scale(vi, h));
+      // quat_integrate: normalize(q + (0.5 h) * ((0, omega) * q)).
+      Q4 q = w.quat[b];
+      Q4 qm = quat_mul(Q4{0.0f, oi.x, oi.y, oi.z}, q);
+      w.quat_i[b] = quat_normalize(Q4{q.w + half_h * qm.w, q.x + half_h * qm.x,
+                                      q.y + half_h * qm.y, q.z + half_h * qm.z});
+    });
+    warp_sync();
+
+    // ---- refresh + Jacobi position solve (a slot per lane) ----
+    slots(ns, [&](int k, int i) {
+      const int b = i / N_VERTS, v = i % N_VERTS;
+      const SlotM& m = M(k, i);
+      SlotC& c = C(k, i);
+      c.lam = 0.0f;
+      c.w_n = 0.0f;
+      unsigned char flag = 0;
+      V3 p, n;
+      float depth;
+      if (m.kind != KIND_NONE &&
+          refresh_contact(L, w, m, b, v, &p, &n, &depth)) {
+        flag = F_MASK;
+        c.p = p;
+        c.n = n;
+        const int kind = m.kind;
+        const bool is_pair = kind == KIND_PAIR;
+        const int j = m.nb;
+        float nb_w = is_pair ? w.inv_m[j] : 0.0f;
+        V3 nb_ii = is_pair ? w.inv_i[j] : V3{0.0f, 0.0f, 0.0f};
+        V3 nb_pos = is_pair ? w.pos_i[j] : V3{1e6f, 1e6f, 1e6f};
+        Q4 nb_q = is_pair ? w.quat_i[j] : Q4{1.0f, 0.0f, 0.0f, 0.0f};
+        Q4 q_a = w.quat_i[b];
+        V3 ii_a = w.inv_i[b];
+        V3 r_a = sub(p, w.pos_i[b]);
+        V3 r_b = sub(p, nb_pos);
+        V3 rxn_a = cross(r_a, n);
+        float w_ang_a = dot(rxn_a, aii(q_a, ii_a, rxn_a));
+        float w_ang_b = 0.0f;
+        if (is_pair) {
+          V3 rxn_b = cross(r_b, n);
+          w_ang_b = dot(rxn_b, aii(nb_q, nb_ii, rxn_b));
+        }
+        float w_sum = w.inv_m[b] + w_ang_a + nb_w + w_ang_b;
+        float lam = (w_sum > 1e-9f) ? depth / fmax2(w_sum, 1e-9f) : 0.0f;
+        c.lam = lam;
+        c.w_n = w_sum;
+        V3 imp = scale(n, lam);
+
+        // Positional static friction vs a stationary neighbour.
+        V3 vl = vert_local(L, w, b, v);
+        V3 v_eval = kind == KIND_PLANE ? vl : inset(vl);
+        V3 p_prev_a = add(w.pos[b], quat_rotate(w.quat[b], v_eval));
+        V3 dp = sub(p, p_prev_a);
+        float dpn = dot(dp, n);
+        V3 dpt = sub(dp, scale(n, dpn));
+        float dpt_len = norm3(dpt);
+        float dl = fmax2(dpt_len, 1e-9f);
+        V3 t_dir = V3{dpt.x / dl, dpt.y / dl, dpt.z / dl};
+        V3 rxt_a = cross(r_a, t_dir);
+        float w_t = w.inv_m[b] + nb_w + dot(rxt_a, aii(q_a, ii_a, rxt_a));
+        float lam_t = dpt_len / fmax2(w_t, 1e-9f);
+        float mu_s = is_pair ? MU_S_BODY : MU_S_STATIC;
+        bool static_ok = (lam > 0.0f) && (w_t > 1e-9f);
+        float lam_tc = fmin2(lam_t, mu_s * lam);
+        float nl = -(static_ok ? lam_tc : 0.0f);
+        V3 imp_t = scale(t_dir, nl);
+
+        SlotTerms& t = w.u.t[i];
+        t.own[0] = imp;
+        t.own[1] = aii(q_a, ii_a, cross(r_a, imp));
+        t.own[2] = imp_t;
+        t.own[3] = aii(q_a, ii_a, cross(r_a, imp_t));
+        if (is_pair) {
+          V3 nimp = V3{-imp.x, -imp.y, -imp.z};
+          t.nb[0] = scale(nimp, nb_w);
+          t.nb[1] = aii(nb_q, nb_ii, cross(r_b, nimp));
+        }
+      }
+      w.sflag[i] = flag;
+    });
+    warp_sync();
+
+    // ---- combine the solve (a body per lane; sums in slot order) ----
+    lanes(nbd, [&](int b) {
+      const V3 z = V3{0.0f, 0.0f, 0.0f};
+      V3 sum_imp = z, drot_a = z, sum_imp_t = z, drot_t = z;
+      float cnt_a = 0.0f;
+      for (int v = 0; v < N_VERTS; ++v) {
+        const int i = b * N_VERTS + v;
+        if (!(w.sflag[i] & F_MASK)) continue;
+        const SlotTerms& t = w.u.t[i];
+        sum_imp = add(sum_imp, t.own[0]);
+        drot_a = add(drot_a, t.own[1]);
+        sum_imp_t = add(sum_imp_t, t.own[2]);
+        drot_t = add(drot_t, t.own[3]);
+        cnt_a = cnt_a + 1.0f;
+      }
+      V3 sc_pos = z, sc_rot = z;
+      float cnt_s = 0.0f;
+      for (int q = 0; q < SLOT_WORDS; ++q) {
+        for (unsigned int bits = w.pmask[b][q]; bits != 0u; bits &= bits - 1u) {
+          const int i = q * 32 + low_bit(bits);
+          if (!(w.sflag[i] & F_MASK)) continue;
+          sc_pos = add(sc_pos, w.u.t[i].nb[0]);
+          sc_rot = add(sc_rot, w.u.t[i].nb[1]);
+          cnt_s = cnt_s + 1.0f;
+        }
+      }
+      float cnt = cnt_a + cnt_s;
+      float nrm = 1.0f / fmax2(cnt, 1.0f);
+      V3 dpos = add(scale(sum_imp, w.inv_m[b]), sc_pos);
+      V3 drot = add(drot_a, sc_rot);
+      V3 dpos_t = scale(sum_imp_t, w.inv_m[b]);
+      w.pos_c[b] = add(add(w.pos_i[b], scale(dpos, nrm)), dpos_t);
+      w.quat_c[b] = apply_rot(w.quat_i[b], add(scale(drot, nrm), drot_t));
+    });
+    warp_sync();
+
+    // ---- grab joints (an agent per lane), then each body's corrections
+    // in agent order and its velocities from positions (a body per lane)
+    lanes(L.n_agents, [&](int a) { joint_terms(L, w, a); });
+    warp_sync();
+    lanes(nbd, [&](int b) {
+      V3 dpos = V3{0.0f, 0.0f, 0.0f}, drot = V3{0.0f, 0.0f, 0.0f};
+      for (int a = 0; a < L.n_agents; ++a) {
+        if (w.g_target[a] < 0) continue;
+        if (w.g_target[a] == b) {
+          dpos = add(dpos, w.jt[a][0]);
+          drot = add(drot, w.jt[a][1]);
+        }
+        if (L.agent_lo + a == b) {
+          dpos = add(dpos, w.jt[a][2]);
+          drot = add(drot, w.jt[a][3]);
+        }
+      }
+      V3 pc = add(w.pos_c[b], dpos);
+      Q4 qc = apply_rot(w.quat_c[b], drot);
+      w.pos_c[b] = pc;
+      w.quat_c[b] = qc;
+      V3 d = sub(pc, w.pos[b]);
+      w.vel_n[b] = V3{d.x / h, d.y / h, d.z / h};
+      Q4 dq = quat_mul(qc, quat_inv(w.quat[b]));
+      float s = sgn(dq.w);
+      w.om_n[b] = V3{P.two_over_h * dq.x * s, P.two_over_h * dq.y * s,
+                     P.two_over_h * dq.z * s};
+    });
+    warp_sync();
+
+    // ---- velocity passes: dynamic friction + restitution (a slot per
+    // lane) ----
+    slots(ns, [&](int k, int i) {
+      if (!(w.sflag[i] & F_MASK)) return;
+      const int b = i / N_VERTS;
+      const SlotM& m = M(k, i);
+      const SlotC& c = C(k, i);
+      const float lam = c.lam;
+      const bool is_pair = m.kind == KIND_PAIR;
+      const int j = m.nb;
+      const V3 p = c.p;
+      const V3 n = c.n;
+      float nb_w = is_pair ? w.inv_m[j] : 0.0f;
+      V3 nb_ii = is_pair ? w.inv_i[j] : V3{0.0f, 0.0f, 0.0f};
+      V3 nb_pos = is_pair ? w.pos_i[j] : V3{1e6f, 1e6f, 1e6f};
+      Q4 nb_q = is_pair ? w.quat_i[j] : Q4{1.0f, 0.0f, 0.0f, 0.0f};
+      V3 nb_vel = is_pair ? w.vel_n[j] : V3{0.0f, 0.0f, 0.0f};
+      V3 nb_om = is_pair ? w.om_n[j] : V3{0.0f, 0.0f, 0.0f};
+      Q4 q_a = w.quat_c[b];
+      V3 ii_a = w.inv_i[b];
+      V3 r_a = sub(p, w.pos_c[b]);
+      V3 r_b = sub(p, nb_pos);
+      V3 v_a = add(w.vel_n[b], cross(w.om_n[b], r_a));
+      V3 v_b = add(nb_vel, cross(nb_om, r_b));
+      SlotTerms& t = w.u.t[i];
+      unsigned char flag = F_MASK;
+
+      if (lam > 0.0f) {  // dynamic friction
+        V3 v_rel = sub(v_a, v_b);
+        float vn = dot(v_rel, n);
+        V3 v_t = sub(v_rel, scale(n, vn));
+        float vt_len = norm3(v_t);
+        float tl = fmax2(vt_len, 1e-9f);
+        V3 t_dir = V3{v_t.x / tl, v_t.y / tl, v_t.z / tl};
+        V3 rxt_a = cross(r_a, t_dir);
+        float w_sum = w.inv_m[b] + nb_w + dot(rxt_a, aii(q_a, ii_a, rxt_a));
+        if (is_pair) {
+          V3 rxt_b = cross(r_b, t_dir);
+          w_sum = w_sum + dot(rxt_b, aii(nb_q, nb_ii, rxt_b));
+        }
+        w_sum = fmax2(w_sum, 1e-9f);
+        float jf = fmin2(vt_len / w_sum, m.mu * lam / h);
+        V3 imp = scale(t_dir, -jf);
+        t.own[0] = imp;
+        t.own[1] = aii(q_a, ii_a, cross(r_a, imp));
+        if (is_pair) {
+          V3 nimp = V3{-imp.x, -imp.y, -imp.z};
+          t.nb[0] = scale(nimp, nb_w);
+          t.nb[1] = aii(nb_q, nb_ii, cross(r_b, nimp));
+        }
+        flag |= F_FRIC;
+      }
+
+      // Restitution: pre-solve approach velocity vs the post-solve one.
+      V3 r_pre = sub(p, w.pos_i[b]);
+      V3 v_pre = add(w.vel_i[b], cross(w.om_i[b], r_pre));
+      float vn_pre = dot(v_pre, n);
+      float w_n = c.w_n;
+      if (lam > 0.0f && vn_pre < -P.rest_thresh && w_n > 1e-9f) {
+        float vn_now = dot(sub(v_a, v_b), n);
+        float jr = ((-P.restitution) * vn_pre - vn_now) / fmax2(w_n, 1e-9f);
+        V3 imp = scale(n, jr);
+        t.own[2] = imp;
+        t.own[3] = aii(q_a, ii_a, cross(r_a, imp));
+        flag |= F_REST;
+      }
+      w.sflag[i] = flag;
+    });
+    warp_sync();
+
+    // ---- combine the velocity passes (a body per lane) ----
+    lanes(nbd, [&](int b) {
+      const V3 z = V3{0.0f, 0.0f, 0.0f};
+      V3 fsum = z, fdom = z, rsum = z, rdom = z;
+      float fcnt_a = 0.0f;
+      for (int v = 0; v < N_VERTS; ++v) {
+        const int i = b * N_VERTS + v;
+        const unsigned char f = w.sflag[i];
+        const SlotTerms& t = w.u.t[i];
+        if (f & F_FRIC) {
+          fsum = add(fsum, t.own[0]);
+          fdom = add(fdom, t.own[1]);
+          fcnt_a = fcnt_a + 1.0f;
+        }
+        if (f & F_REST) {
+          rsum = add(rsum, t.own[2]);
+          rdom = add(rdom, t.own[3]);
+        }
+      }
+      V3 fsc_v = z, fsc_o = z;
+      float fcnt_s = 0.0f;
+      for (int q = 0; q < SLOT_WORDS; ++q) {
+        for (unsigned int bits = w.pmask[b][q]; bits != 0u; bits &= bits - 1u) {
+          const int i = q * 32 + low_bit(bits);
+          if (!(w.sflag[i] & F_FRIC)) continue;
+          fsc_v = add(fsc_v, w.u.t[i].nb[0]);
+          fsc_o = add(fsc_o, w.u.t[i].nb[1]);
+          fcnt_s = fcnt_s + 1.0f;
+        }
+      }
+      float fcnt = fcnt_a + fcnt_s;
+      float fnorm = 1.0f / fmax2(fcnt, 1.0f);
+      V3 dvel = add(scale(fsum, w.inv_m[b]), fsc_v);
+      V3 dom = add(fdom, fsc_o);
+      V3 dvel_r = scale(rsum, w.inv_m[b]);
+      V3 vn = add(add(w.vel_n[b], scale(dvel, fnorm)), dvel_r);
+      V3 on = add(add(w.om_n[b], scale(dom, fnorm)), rdom);
+      bool d = w.dyn[b] != 0;
+      w.vel[b] = d ? vn : z;
+      w.omega[b] = d ? on : z;
+      if (d) {
+        w.pos[b] = w.pos_c[b];
+        w.quat[b] = w.quat_c[b];
+      }
+    });
+    warp_sync();
+  }
+}
+
+// ---- the sweep (standalone_sweep_packed with the plain raycast) ----------
+
+// Nearest hit of one ray over the world's bodies, walls and planes
+// (env/rays.py::raycast_world), in id order with a strict "<" (argmin's
+// first occurrence); returns t, writes id (-1 on a miss).
+MHS_HD float cast_ray(const SweepParams& P, const Layout& L, const World& w,
+                      V3 o, V3 d, float max_t, int excl, int* id_out) {
+  float tb = F_INF;
+  int ib = -1;
+  for (int b = 0; b < L.n_body; ++b) {
+    if (!w.active[b] || b == excl) continue;
+    float t = ray_body(o, d, w.pos[b], w.quat[b], w.half[b], L.is_ramp(b));
+    if (t <= max_t && t < tb) {
+      tb = t;
+      ib = b;
+    }
+  }
+  for (int k = 0; k < P.wall_bound; ++k) {
+    if (!w.wact[k]) continue;
+    float t = ray_aabb(o, d, sub(w.wpos[k], w.whalf[k]), add(w.wpos[k], w.whalf[k]));
+    if (t <= max_t && t < tb) {
+      tb = t;
+      ib = L.n_body + k;
+    }
+  }
+  for (int p = 0; p < P.n_plane; ++p) {
+    if (!w.pact[p]) continue;
+    float t = ray_plane(o, d, w.ppt[p], w.pn[p]);
+    if (t <= max_t && t < tb) {
+      tb = t;
+      ib = L.n_body + P.n_wall + p;
+    }
+  }
+  *id_out = tb < F_INF ? ib : -1;
+  return tb;
+}
+
+// Other-agent slot of visibility column k of agent a (others_index_matrix).
+MHS_HD int other_of(int a, int k) { return k < a ? k : k + 1; }
+
+// Every ray of the world, one lane item each: per agent its visibility
+// columns, its lidar and its next-step grab/lock ray, into w.u.o. A warp's
+// items mix the three kinds, so each item first builds its ray, then all
+// lanes cast together (one converged primitive loop), then each item
+// writes its kind's result. Returns the seeker-sees-hider flag (a warp
+// vote), on every lane.
+__device__ __forceinline__ bool sweep(const SweepParams& P, const Layout& L,
+                                   World& w) {
+  const int na = L.n_agents;
+  const int per = P.n_tgt + N_LIDAR + 1;
+  SweepStage& O = w.u.o;
+  return lanes_any(na * per, [&](int i) -> bool {
+    const int a = i / per;
+    const int r = i - a * per;
     const int sa = L.agent_lo + a;
-    bool frozen = atype[a] == AGENT_SEEKER && step < A.num_prep - 1;
-    can_act[a] = aact[a] && !frozen;
-    float gate = can_act[a] ? 1.0f : 0.0f;
-    float fx = A.f_per * static_cast<float>(A.actions[(a * 5LL + 0) * Wl + w] - A.half_bucket);
-    float fy = A.f_per * static_cast<float>(A.actions[(a * 5LL + 1) * Wl + w] - A.half_bucket);
-    float tz = A.t_per * static_cast<float>(A.actions[(a * 5LL + 2) * Wl + w] - A.half_bucket);
-    V3 fw = qrot_c(B.quat[sa], V3{fx, fy, 0.0f}, false);
-    ext_f[sa] = V3{fw.x * gate, fw.y * gate, fw.z * gate};
-    ext_t[sa] = V3{0.0f * gate, 0.0f * gate, tz * gate};
-  }
-
-  // ---- grab / lock (action_system_packed) ----
-  bool locked2[MAX_BODIES];
-  int owner2[MAX_BODIES];
-  {
-    bool lock_any[MAX_BODIES], unlock_any[MAX_BODIES];
-    int lock_team[MAX_BODIES];
-    for (int b = 0; b < nbd; ++b) {
-      lock_any[b] = unlock_any[b] = false;
-      lock_team[b] = 0;
-    }
-    Grab G2 = G;
-    for (int a = 0; a < na; ++a) {
-      const int sa = L.agent_lo + a;
-      const V3 ap = B.pos[sa];
-      const Q4 aq = B.quat[sa];
-      V3 eye = V3{ap.x, ap.y, ap.z + 0.5f};
-      V3 fwd = qrot_c(aq, V3{0.0f, 1.0f, 0.0f}, false);
-      bool want_lock = A.actions[(a * 5LL + 4) * Wl + w] == 1 && can_act[a];
-      bool want_grab = A.actions[(a * 5LL + 3) * Wl + w] == 1 && can_act[a];
-      int hit_id = A.act_hit_id[i1(a)];
-      float hit_t = A.act_hit_t[i1(a)];
-      bool is_obj = hit_id >= 0 && hit_id < L.ramp_hi;
-      int tgt = is_obj ? hit_id : 0;
-      bool t_locked = locked[tgt];
-      int t_owner = owner[tgt];
-      int my_team = atype[a] == AGENT_HIDER ? OWNER_HIDER : OWNER_SEEKER;
-      bool do_unlock = want_lock && is_obj && t_locked && t_owner == my_team;
-      bool do_lock = want_lock && is_obj && !t_locked && t_owner == OWNER_NONE;
-      if (do_lock) {
-        lock_any[tgt] = true;
-        lock_team[tgt] = lock_team[tgt] > my_team ? lock_team[tgt] : my_team;
+    const V3 ap = w.pos[sa];
+    const Q4 aq = w.quat[sa];
+    const V3 fwd = quat_rotate(aq, V3{0.0f, 1.0f, 0.0f});
+    const bool aact = w.aact[a] != 0;
+    const bool is_vis = r < P.n_tgt;
+    const bool is_lidar = !is_vis && r < P.n_tgt + N_LIDAR;
+    // ---- the ray ----
+    V3 o = ap, d;
+    float max_t;
+    int slot = 0;
+    bool valid = false, col_hider = false;
+    if (is_vis) {
+      // Visibility column r: other agents (clamped), boxes, ramps.
+      const int k = r;
+      if (k < MAX_AGENTS - 1) {
+        int oa = other_of(a, k);
+        int oc = oa < na ? oa : na - 1;
+        slot = L.agent_lo + oc;
+        valid = oa < na && w.aact[oc];
+        col_hider = w.atype[oc] == AGENT_HIDER;
+      } else if (k < MAX_AGENTS - 1 + P.n_boxes) {
+        int j = k - (MAX_AGENTS - 1);
+        slot = j;
+        valid = j < w.nab;
+      } else {
+        int j = k - (MAX_AGENTS - 1) - P.n_boxes;
+        slot = L.ramp_lo + j;
+        valid = j < w.nar;
       }
-      if (do_unlock) unlock_any[tgt] = true;
-
-      bool has_grab = G.target[a] >= 0;
-      bool release = want_grab && has_grab;
-      bool grabbable = is_obj && !t_locked && t_owner == OWNER_NONE;
-      bool acquire = want_grab && !has_grab && grabbable;
-      float safe_t = is_obj ? hit_t : 0.0f;
-      V3 hit_pos = V3{eye.x + fwd.x * safe_t, eye.y + fwd.y * safe_t,
-                      eye.z + fwd.z * safe_t};
-      Q4 tq = B.quat[tgt];
-      V3 rel = sub(hit_pos, B.pos[tgt]);
-      V3 r2_new = qrot_c(tq, rel, true);
-      Q4 rq_new = qnorm(quat_mul(qconj(tq), aq));
-      float sep_new = safe_t - 1.25f;
-      G2.target[a] = release ? -1 : (acquire ? tgt : G.target[a]);
-      if (acquire) {
-        G2.r2[a] = r2_new;
-        G2.relq[a] = rq_new;
-        G2.sep[a] = sep_new;
-      }
+      d = sub(w.pos[slot], ap);
+      max_t = 1.0f;
+    } else if (is_lidar) {
+      const int k = r - P.n_tgt;
+      const V3 right = quat_rotate(aq, V3{1.0f, 0.0f, 0.0f});
+      float c = P.lidar_cs[k];
+      float s = P.lidar_cs[N_LIDAR + k];
+      d = V3{c * right.x + s * fwd.x, c * right.y + s * fwd.y,
+             c * right.z + s * fwd.z};
+      float len = fmax2(norm3(d), 1e-9f);
+      d = V3{d.x / len, d.y / len, d.z / len};
+      max_t = P.lidar_range;
+    } else {
+      // Next step's grab/lock ray from the eye point.
+      o = V3{ap.x + 0.0f, ap.y + 0.0f, ap.z + 0.5f};
+      d = fwd;
+      max_t = P.interact_len;
     }
-    for (int b = 0; b < nbd; ++b) {
-      locked2[b] = lock_any[b] ? true : (unlock_any[b] ? false : locked[b]);
-      owner2[b] = lock_any[b] ? lock_team[b] : (unlock_any[b] ? OWNER_NONE : owner[b]);
+    // ---- the cast ----
+    int id;
+    const float t = cast_ray(P, L, w, o, d, max_t, sa, &id);
+    // ---- the result ----
+    if (is_vis) {
+      const int k = r;
+      const bool is_seeker = aact && w.atype[a] == AGENT_SEEKER;
+      float dist = norm3(d);
+      float cos_angle = (d.x * fwd.x + d.y * fwd.y + d.z * fwd.z) / fmax2(dist, 1e-9f);
+      bool in_cone = cos_angle >= P.cos_half_fov;
+      bool seen = id == slot && in_cone && valid && aact;
+      O.vis[a * P.n_tgt + k] = seen ? 1.0f : 0.0f;
+      return k < MAX_AGENTS - 1 && seen && is_seeker && col_hider;
     }
-    G = G2;
-  }
+    if (is_lidar) {
+      const float act_f = aact ? 1.0f : 0.0f;
+      O.lidar[a * N_LIDAR + (r - P.n_tgt)] = (id >= 0 ? t : 0.0f) * act_f;
+      return false;
+    }
+    O.act_t[a] = t;
+    O.act_id[a] = id;
+    return false;
+  });
+}
 
-  // ---- effective masses, physics ----
-  set_dynamic(L, B, locked2, raw_inv_m, raw_inv_i);
-  {
-    Manifold M;
-    Contacts C;
-    physics_step(phys_params(A), L, B, S, G, ext_f, ext_t, M, C);
+// ---- the block's loads and stores (packed [rows, W] layout) --------------
+
+// The block's worlds: w0 .. w0 + nw - 1 of W, in sw[0 .. nw).
+struct Blk {
+  World* sw;
+  long long W;
+  int w0, nw;
+};
+
+#define MHS_AT(f) offsetof(World, f)
+#define MHS_STAGE(f) (offsetof(World, u) + offsetof(SweepStage, f))
+
+// rows x nw elements; consecutive items take consecutive worlds of one
+// row, so a warp's accesses to the packed layout coalesce.
+template <class T>
+MHS_HD void copy_in(const Blk& K, const T* g, int rows, size_t off) {
+  block_items(rows * K.nw, [&](int i) {
+    const int row = i / K.nw, wi = i - row * K.nw;
+    reinterpret_cast<T*>(reinterpret_cast<char*>(K.sw + wi) + off)[row] =
+        g[row * K.W + K.w0 + wi];
+  });
+}
+template <class T>
+MHS_HD void copy_out(const Blk& K, T* g, int rows, size_t off) {
+  block_items(rows * K.nw, [&](int i) {
+    const int row = i / K.nw, wi = i - row * K.nw;
+    g[row * K.W + K.w0 + wi] =
+        reinterpret_cast<const T*>(reinterpret_cast<const char*>(K.sw + wi) +
+                                   off)[row];
+  });
+}
+
+// Bodies, statics and grabs, from an argument struct with MegaArgs' /
+// StepArgs' field names.
+template <class Args>
+MHS_HD void load_physics(const Args& A, const Layout& L, const Blk& K) {
+  const int nb = L.n_body, na = L.n_agents;
+  copy_in(K, A.pos, nb * 3, MHS_AT(pos));
+  copy_in(K, A.quat, nb * 4, MHS_AT(quat));
+  copy_in(K, A.vel, nb * 3, MHS_AT(vel));
+  copy_in(K, A.omega, nb * 3, MHS_AT(omega));
+  copy_in(K, A.inv_mass, nb, MHS_AT(inv_m));
+  copy_in(K, A.inv_inertia, nb * 3, MHS_AT(inv_i));
+  copy_in(K, A.active, nb, MHS_AT(active));
+  copy_in(K, A.locked, nb, MHS_AT(locked));
+  copy_in(K, A.half_ext, nb * 3, MHS_AT(half));
+  copy_in(K, A.friction_mu, nb, MHS_AT(mu));
+  copy_in(K, A.wall_pos, A.n_wall * 3, MHS_AT(wpos));
+  copy_in(K, A.wall_half, A.n_wall * 3, MHS_AT(whalf));
+  copy_in(K, A.wall_active, A.n_wall, MHS_AT(wact));
+  copy_in(K, A.plane_point, A.n_plane * 3, MHS_AT(ppt));
+  copy_in(K, A.plane_normal, A.n_plane * 3, MHS_AT(pn));
+  copy_in(K, A.plane_active, A.n_plane, MHS_AT(pact));
+  copy_in(K, A.g_target, na, MHS_AT(g_target));
+  copy_in(K, A.g_r2, na * 3, MHS_AT(g_r2));
+  copy_in(K, A.g_relq, na * 4, MHS_AT(g_relq));
+  copy_in(K, A.g_sep, na, MHS_AT(g_sep));
+}
+
+template <class Args>
+MHS_HD void load_sweep(const Args& A, const Layout& L, const Blk& K) {
+  copy_in(K, A.agent_type, L.n_agents, MHS_AT(atype));
+  copy_in(K, A.agent_active, L.n_agents, MHS_AT(aact));
+  copy_in(K, A.num_boxes, 1, MHS_AT(nab));
+  copy_in(K, A.num_ramps, 1, MHS_AT(nar));
+}
+
+template <class Args>
+MHS_HD void store_bodies(const Args& A, const Layout& L, const Blk& K) {
+  const int nb = L.n_body;
+  copy_out(K, A.pos_o, nb * 3, MHS_AT(pos));
+  copy_out(K, A.quat_o, nb * 4, MHS_AT(quat));
+  copy_out(K, A.vel_o, nb * 3, MHS_AT(vel));
+  copy_out(K, A.omega_o, nb * 3, MHS_AT(omega));
+}
+
+template <class Args>
+MHS_HD void store_sweep(const Args& A, const Layout& L, const Blk& K) {
+  const int na = L.n_agents;
+  copy_out(K, A.vis_o, na * A.n_tgt, MHS_STAGE(vis));
+  copy_out(K, A.lidar_o, na * N_LIDAR, MHS_STAGE(lidar));
+  copy_out(K, A.act_t_o, na, MHS_STAGE(act_t));
+  copy_out(K, A.act_id_o, na, MHS_STAGE(act_id));
+  copy_out(K, A.rew_seen_o, 1, MHS_AT(rew_seen));
+}
+
+// Effective masses (physics.physics_step) of body b: zero unless active
+// and not locked.
+MHS_HD void set_dynamic(World& w, int b) {
+  bool d = w.active[b] && !w.locked[b];
+  w.dyn[b] = d ? 1 : 0;
+  w.inv_m[b] = d ? w.inv_m[b] : 0.0f;
+  w.inv_i[b] = d ? w.inv_i[b] : V3{0.0f, 0.0f, 0.0f};
+}
+
+// ---- K4: the megastep --------------------------------------------------------
+
+MHS_HD void mega_load(const MegaArgs& A, const Layout& L, const Blk& K) {
+  const int nb = L.n_body, na = L.n_agents;
+  load_physics(A, L, K);
+  load_sweep(A, L, K);
+  copy_in(K, A.owner, nb, MHS_AT(owner));
+  copy_in(K, A.actions, na * 5, MHS_AT(actions));
+  copy_in(K, A.act_hit_t, na, MHS_AT(hit_t));
+  copy_in(K, A.act_hit_id, na, MHS_AT(hit_id));
+  copy_in(K, A.step, 1, MHS_AT(step));
+  copy_in(K, A.seekers_first, 1, MHS_AT(seekers_first));
+  copy_in(K, A.running, 2, MHS_AT(running));
+  copy_in(K, A.finished, 2, MHS_AT(finished));
+}
+
+MHS_HD void mega_store(const MegaArgs& A, const Layout& L, const Blk& K) {
+  const int nb = L.n_body, na = L.n_agents;
+  store_bodies(A, L, K);
+  copy_out(K, A.locked_o, nb, MHS_AT(locked));
+  copy_out(K, A.owner_o, nb, MHS_AT(owner));
+  copy_out(K, A.g_target_o, na, MHS_AT(g_target));
+  copy_out(K, A.g_r2_o, na * 3, MHS_AT(g_r2));
+  copy_out(K, A.g_relq_o, na * 4, MHS_AT(g_relq));
+  copy_out(K, A.g_sep_o, na, MHS_AT(g_sep));
+  store_sweep(A, L, K);
+  copy_out(K, A.rewards_o, na, MHS_AT(rewards));
+  copy_out(K, A.dones_o, na, MHS_AT(dones));
+  copy_out(K, A.team_r_o, 1, MHS_AT(team_r));
+  copy_out(K, A.running_o, 2, MHS_AT(running));
+  copy_out(K, A.finished_o, 2, MHS_AT(finished));
+}
+
+// Agent a's grab/lock (action_system_packed) on its carried ray hit: its
+// own grab is updated in place; its lock request goes to req_*.
+MHS_HD void grab_lock_agent(const MegaArgs& A, const Layout& L, World& w,
+                            int a) {
+  const int sa = L.agent_lo + a;
+  const bool frozen = w.atype[a] == AGENT_SEEKER && w.step < A.num_prep - 1;
+  const bool can_act = w.aact[a] && !frozen;
+  const V3 ap = w.pos[sa];
+  const Q4 aq = w.quat[sa];
+  V3 eye = V3{ap.x, ap.y, ap.z + 0.5f};
+  V3 fwd = qrot_c(aq, V3{0.0f, 1.0f, 0.0f}, false);
+  bool want_lock = w.actions[a * 5 + 4] == 1 && can_act;
+  bool want_grab = w.actions[a * 5 + 3] == 1 && can_act;
+  int hit_id = w.hit_id[a];
+  float hit_t = w.hit_t[a];
+  bool is_obj = hit_id >= 0 && hit_id < L.ramp_hi;
+  int tgt = is_obj ? hit_id : 0;
+  bool t_locked = w.locked[tgt] != 0;
+  int t_owner = w.owner[tgt];
+  int my_team = w.atype[a] == AGENT_HIDER ? OWNER_HIDER : OWNER_SEEKER;
+  bool do_unlock = want_lock && is_obj && t_locked && t_owner == my_team;
+  bool do_lock = want_lock && is_obj && !t_locked && t_owner == OWNER_NONE;
+  w.req_tgt[a] = tgt;
+  w.req_kind[a] = do_lock ? 1 : (do_unlock ? 2 : 0);
+  w.req_team[a] = my_team;
+
+  bool has_grab = w.g_target[a] >= 0;
+  bool release = want_grab && has_grab;
+  bool grabbable = is_obj && !t_locked && t_owner == OWNER_NONE;
+  bool acquire = want_grab && !has_grab && grabbable;
+  float safe_t = is_obj ? hit_t : 0.0f;
+  V3 hit_pos = V3{eye.x + fwd.x * safe_t, eye.y + fwd.y * safe_t,
+                  eye.z + fwd.z * safe_t};
+  Q4 tq = w.quat[tgt];
+  V3 rel = sub(hit_pos, w.pos[tgt]);
+  V3 r2_new = qrot_c(tq, rel, true);
+  Q4 rq_new = qnorm(quat_mul(qconj(tq), aq));
+  float sep_new = safe_t - 1.25f;
+  w.g_target[a] = release ? -1 : (acquire ? tgt : w.g_target[a]);
+  if (acquire) {
+    w.g_r2[a] = r2_new;
+    w.g_relq[a] = rq_new;
+    w.g_sep[a] = sep_new;
   }
+}
+
+// Body b before the physics: its locks from the agents' requests, its
+// movement force and torque (movement_packed), its effective masses.
+MHS_HD void mega_body(const MegaArgs& A, const Layout& L, World& w, int b) {
+  bool lock_any = false, unlock_any = false;
+  int lock_team = 0;
+  for (int a = 0; a < L.n_agents; ++a) {
+    if (w.req_tgt[a] != b) continue;
+    if (w.req_kind[a] == 1) {
+      lock_any = true;
+      lock_team = lock_team > w.req_team[a] ? lock_team : w.req_team[a];
+    }
+    if (w.req_kind[a] == 2) unlock_any = true;
+  }
+  w.locked[b] = lock_any ? 1 : (unlock_any ? 0 : w.locked[b]);
+  w.owner[b] = lock_any ? lock_team : (unlock_any ? OWNER_NONE : w.owner[b]);
+
+  V3 ef = V3{0.0f, 0.0f, 0.0f}, et = V3{0.0f, 0.0f, 0.0f};
+  if (b >= L.agent_lo) {
+    const int a = b - L.agent_lo;
+    bool frozen = w.atype[a] == AGENT_SEEKER && w.step < A.num_prep - 1;
+    float gate = (w.aact[a] && !frozen) ? 1.0f : 0.0f;
+    const int* act = w.actions + a * 5;
+    float fx = A.f_per * static_cast<float>(act[0] - A.half_bucket);
+    float fy = A.f_per * static_cast<float>(act[1] - A.half_bucket);
+    float tz = A.t_per * static_cast<float>(act[2] - A.half_bucket);
+    V3 fw = qrot_c(w.quat[b], V3{fx, fy, 0.0f}, false);
+    ef = V3{fw.x * gate, fw.y * gate, fw.z * gate};
+    et = V3{0.0f * gate, 0.0f * gate, tz * gate};
+  }
+  w.ext_f[b] = ef;
+  w.ext_t[b] = et;
+  set_dynamic(w, b);
+}
+
+__device__ void megastep_world(const MegaArgs& A, World& w) {
+  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
+  const int na = L.n_agents;
+
+  // ---- grab / lock requests (an agent per lane), then each body's locks,
+  // forces and effective masses (a body per lane) ----
+  lanes(na, [&](int a) { grab_lock_agent(A, L, w, a); });
+  warp_sync();
+  lanes(L.n_body, [&](int b) { mega_body(A, L, w, b); });
+  warp_sync();
+
+  physics_step(phys_params(A), L, w);
 
   // ---- sweep on the post-physics pose ----
-  SweepOut O;
-  sweep(sweep_params(A), L, B, S, atype, aact, nab, nar, O);
-
-  // ---- zero agent velocities ----
-  if (A.zero_agent_vel) {
-    for (int a = 0; a < na; ++a) {
-      const int sa = L.agent_lo + a;
-      B.vel[sa] = V3{0.0f, 0.0f, fmin2(B.vel[sa].z, 0.0f)};
-      B.omega[sa] = V3{0.0f, 0.0f, 0.0f};
-    }
-  }
-
-  // ---- rewards, dones, episode results ----
-  const float team_r = O.rew_seen ? -1.0f : 1.0f;
+  const bool rew_seen = sweep(sweep_params(A), L, w);
+  const float team_r = rew_seen ? -1.0f : 1.0f;
+  const int step = w.step;
   const bool at_end = step == A.episode_len - 1;
-  for (int a = 0; a < na; ++a) {
+
+  // ---- zero agent velocities, rewards, dones (an agent per lane) ----
+  lanes(na, [&](int a) {
     const int sa = L.agent_lo + a;
-    float sign = atype[a] == AGENT_SEEKER ? -1.0f : 1.0f;
+    if (A.zero_agent_vel) {
+      w.vel[sa] = V3{0.0f, 0.0f, fmin2(w.vel[sa].z, 0.0f)};
+      w.omega[sa] = V3{0.0f, 0.0f, 0.0f};
+    }
+    float sign = w.atype[a] == AGENT_SEEKER ? -1.0f : 1.0f;
     float reward = sign * team_r;
-    bool oob = fabsf(B.pos[sa].x) >= 18.0f || fabsf(B.pos[sa].y) >= 18.0f;
+    bool oob = fabsf(w.pos[sa].x) >= 18.0f || fabsf(w.pos[sa].y) >= 18.0f;
     reward = reward - 10.0f * (oob ? 1.0f : 0.0f);
     if (step < A.num_prep - 1) reward = 0.0f;
-    reward = reward * (aact[a] ? 1.0f : 0.0f);
-    A.rewards_o[i1(a)] = reward;
-    A.dones_o[i1(a)] = at_end ? 1 : 0;
-  }
-  int scores[2];
-  float fin[2];
-  for (int i = 0; i < 2; ++i) {
-    scores[i] = step == 0 ? 0 : A.running[i1(i)];
-    fin[i] = step == 0 ? 0.0f : A.finished[i1(i)];
-  }
-  int hid_idx = A.seekers_first[w] ? 1 : 0;
-  int winner = team_r > 0.0f ? hid_idx : 1 - hid_idx;
-  if (step >= A.num_prep) scores[winner] += 1;
-  if (at_end) {
-    fin[0] = scores[0] > scores[1] ? 1.0f : (scores[0] < scores[1] ? 0.0f : 0.5f);
-    fin[1] = scores[0] > scores[1] ? 0.0f : (scores[0] < scores[1] ? 1.0f : 0.5f);
-  }
+    reward = reward * (w.aact[a] ? 1.0f : 0.0f);
+    w.rewards[a] = reward;
+    w.dones[a] = at_end ? 1 : 0;
+  });
 
-  // ---- store ----
-  store_bodies(A, I, L, B);
-  for (int b = 0; b < nbd; ++b) {
-    A.locked_o[i1(b)] = locked2[b] ? 1 : 0;
-    A.owner_o[i1(b)] = owner2[b];
-  }
-  for (int a = 0; a < na; ++a) {
-    A.g_target_o[i1(a)] = G.target[a];
-    st3(A.g_r2_o, I, a, G.r2[a]);
-    st4(A.g_relq_o, I, a, G.relq[a]);
-    A.g_sep_o[i1(a)] = G.sep[a];
-  }
-  store_sweep(A, I, L, O);
-  A.team_r_o[w] = team_r;
-  for (int i = 0; i < 2; ++i) {
-    A.running_o[i1(i)] = scores[i];
-    A.finished_o[i1(i)] = fin[i];
-  }
+  // ---- episode results ----
+  lane0([&]() {
+    int scores[2];
+    float fin[2];
+    for (int i = 0; i < 2; ++i) {
+      scores[i] = step == 0 ? 0 : w.running[i];
+      fin[i] = step == 0 ? 0.0f : w.finished[i];
+    }
+    int hid_idx = w.seekers_first ? 1 : 0;
+    int winner = team_r > 0.0f ? hid_idx : 1 - hid_idx;
+    if (step >= A.num_prep) scores[winner] += 1;
+    if (at_end) {
+      fin[0] = scores[0] > scores[1] ? 1.0f : (scores[0] < scores[1] ? 0.0f : 0.5f);
+      fin[1] = scores[0] > scores[1] ? 0.0f : (scores[0] < scores[1] ? 1.0f : 0.5f);
+    }
+    for (int i = 0; i < 2; ++i) {
+      w.running[i] = scores[i];
+      w.finished[i] = fin[i];
+    }
+    w.team_r = team_r;
+    w.rew_seen = rew_seen ? 1 : 0;
+  });
 }
 
-// K2 / K3: one world's physics step from the given external forces, then
-// (kSweep) the sweep on the moved bodies. Locks and grabs are inputs.
+// ---- K2 / K3: the physics step from given forces, then (kSweep) the
+// sweep on the moved bodies. Locks and grabs are inputs. ----------------------
+
 template <bool kSweep>
-__device__ void step_world(const StepArgs& A, int w) {
-  const Idx I{A.W, w};
+MHS_HD void step_load(const StepArgs& A, const Layout& L, const Blk& K) {
+  load_physics(A, L, K);
+  copy_in(K, A.ext_force, L.n_body * 3, MHS_AT(ext_f));
+  copy_in(K, A.ext_torque, L.n_body * 3, MHS_AT(ext_t));
+  if constexpr (kSweep) load_sweep(A, L, K);
+}
+
+template <bool kSweep>
+MHS_HD void step_store(const StepArgs& A, const Layout& L, const Blk& K) {
+  store_bodies(A, L, K);
+  if constexpr (kSweep) store_sweep(A, L, K);
+}
+
+template <bool kSweep>
+__device__ void step_world(const StepArgs& A, World& w) {
   const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
-  Bodies B;
-  bool locked[MAX_BODIES];
-  float raw_inv_m[MAX_BODIES];
-  V3 raw_inv_i[MAX_BODIES];
-  Statics S;
-  Grab G;
-  load_world(A, I, L, B, locked, raw_inv_m, raw_inv_i, S, G);
-  V3 ext_f[MAX_BODIES], ext_t[MAX_BODIES];
-  for (int b = 0; b < L.n_body; ++b) {
-    ext_f[b] = ld3(A.ext_force, I, b);
-    ext_t[b] = ld3(A.ext_torque, I, b);
-  }
-  set_dynamic(L, B, locked, raw_inv_m, raw_inv_i);
-  {
-    Manifold M;
-    Contacts C;
-    physics_step(phys_params(A), L, B, S, G, ext_f, ext_t, M, C);
-  }
-  store_bodies(A, I, L, B);
+  lanes(L.n_body, [&](int b) { set_dynamic(w, b); });
+  warp_sync();
+  physics_step(phys_params(A), L, w);
   if constexpr (kSweep) {
-    S.wall_bound = *A.wall_bound;
-    int atype[MAX_AGENTS];
-    bool aact[MAX_AGENTS];
-    for (int a = 0; a < L.n_agents; ++a) {
-      atype[a] = A.agent_type[I.i1(a)];
-      aact[a] = A.agent_active[I.i1(a)] != 0;
-    }
-    SweepOut O;
-    sweep(sweep_params(A), L, B, S, atype, aact, A.num_boxes[w],
-          A.num_ramps[w], O);
-    store_sweep(A, I, L, O);
+    const bool rew_seen = sweep(sweep_params(A), L, w);
+    lane0([&]() { w.rew_seen = rew_seen ? 1 : 0; });
   }
 }
 
 #ifndef MHS_HOST_BUILD
-__global__ void megastep_kernel(const MegaArgs A) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w < A.W) megastep_world(A, w);
+__device__ __forceinline__ Blk block_worlds(long long W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w0 = blockIdx.x * WORLDS_PER_BLOCK;
+  const long long left = W - w0;
+  return Blk{reinterpret_cast<World*>(smem), W, w0,
+             left < WORLDS_PER_BLOCK ? static_cast<int>(left)
+                                     : WORLDS_PER_BLOCK};
+}
+
+// At most 168 registers a thread, so that 3 blocks (12 worlds) fit an SM
+// by registers as by shared memory.
+__global__ void __launch_bounds__(BLOCK_THREADS, 3)
+    megastep_kernel(const MegaArgs A) {
+  const Blk K = block_worlds(A.W);
+  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
+  mega_load(A, L, K);
+  __syncthreads();
+  const int wi = threadIdx.x / WARP;
+  if (wi < K.nw) megastep_world(A, K.sw[wi]);
+  __syncthreads();
+  mega_store(A, L, K);
 }
 
 template <bool kSweep>
-__global__ void step_kernel(const StepArgs A) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w < A.W) step_world<kSweep>(A, w);
+__global__ void __launch_bounds__(BLOCK_THREADS, 3)
+    step_kernel(const StepArgs A) {
+  const Blk K = block_worlds(A.W);
+  const Layout L = make_layout(A.n_boxes, A.n_ramps, A.n_agents);
+  step_load<kSweep>(A, L, K);
+  __syncthreads();
+  const int wi = threadIdx.x / WARP;
+  if (wi < K.nw) step_world<kSweep>(A, K.sw[wi]);
+  __syncthreads();
+  step_store<kSweep>(A, L, K);
 }
 #endif
 
@@ -1365,16 +1648,34 @@ static_assert(sizeof(void*) * N_PHYS_PTRS == offsetof(StepArgs, agent_type),
               "StepArgs physics block must match N_PHYS_PTRS");
 static_assert(sizeof(void*) * N_FUSED_PTRS == offsetof(StepArgs, W),
               "StepArgs pointer block must match N_FUSED_PTRS");
+static_assert(SLOTS_PER_LANE * WARP >= N_SLOTS, "slots per lane");
+
+constexpr int SMEM_BYTES = WORLDS_PER_BLOCK * static_cast<int>(sizeof(World));
 
 }  // namespace
 
 #ifdef MHS_HOST_BUILD
-// Host rehearsal entries: the same per-world code in a plain loop.
+// Host rehearsal entries: the same code, the block's worlds one after
+// another and each world's lanes one after another in every phase.
+template <class Args, class Load, class Run, class Store>
+static void host_blocks(const Args& a, Load load, Run run, Store store) {
+  World* sw = new World[WORLDS_PER_BLOCK];
+  const Layout L = make_layout(a.n_boxes, a.n_ramps, a.n_agents);
+  for (int w0 = 0; w0 < a.W; w0 += WORLDS_PER_BLOCK) {
+    const int left = a.W - w0;
+    const Blk K{sw, a.W, w0, left < WORLDS_PER_BLOCK ? left : WORLDS_PER_BLOCK};
+    load(a, L, K);
+    for (int j = 0; j < K.nw; ++j) run(a, sw[kReverse ? K.nw - 1 - j : j]);
+    store(a, L, K);
+  }
+  delete[] sw;
+}
+
 extern "C" int mhs_megastep_host(void* const* ptrs, int n_ptrs, const int* ip,
                                  int n_i, const float* fp, int n_f) {
   MegaArgs a;
   if (!fill_args(&a, ptrs, n_ptrs, ip, n_i, fp, n_f)) return 1;
-  for (int w = 0; w < a.W; ++w) megastep_world(a, w);
+  host_blocks(a, mega_load, megastep_world, mega_store);
   return 0;
 }
 
@@ -1383,7 +1684,7 @@ extern "C" int mhs_physics_host(void* const* ptrs, int n_ptrs, const int* ip,
   StepArgs a;
   if (!fill_step_args(&a, ptrs, n_ptrs, N_PHYS_PTRS, ip, n_i, fp, n_f))
     return 1;
-  for (int w = 0; w < a.W; ++w) step_world<false>(a, w);
+  host_blocks(a, step_load<false>, step_world<false>, step_store<false>);
   return 0;
 }
 
@@ -1392,19 +1693,29 @@ extern "C" int mhs_fused_host(void* const* ptrs, int n_ptrs, const int* ip,
   StepArgs a;
   if (!fill_step_args(&a, ptrs, n_ptrs, N_FUSED_PTRS, ip, n_i, fp, n_f))
     return 1;
-  for (int w = 0; w < a.W; ++w) step_world<true>(a, w);
+  host_blocks(a, step_load<true>, step_world<true>, step_store<true>);
   return 0;
 }
 #else
+// Dynamic shared memory above 48 KB must be allowed per kernel (and per
+// device) before a launch.
+template <class Kernel>
+static int allow_smem(Kernel kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
+}
+
 extern "C" int mhs_megastep(void* const* ptrs, int n_ptrs, const int* ip,
                             int n_i, const float* fp, int n_f, void* stream) {
   MegaArgs a;
   if (!fill_args(&a, ptrs, n_ptrs, ip, n_i, fp, n_f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.W <= 0) return 0;
-  const int threads = 64;
-  const int blocks = (a.W + threads - 1) / threads;
-  megastep_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const int attr = allow_smem(megastep_kernel);
+  if (attr != 0) return attr;
+  const int blocks = (a.W + WORLDS_PER_BLOCK - 1) / WORLDS_PER_BLOCK;
+  megastep_kernel<<<blocks, BLOCK_THREADS, SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1416,10 +1727,11 @@ int launch_step(void* const* ptrs, int n_ptrs, const int* ip, int n_i,
                       ip, n_i, fp, n_f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.W <= 0) return 0;
-  const int threads = 64;
-  const int blocks = (a.W + threads - 1) / threads;
-  step_kernel<kSweep>
-      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const int attr = allow_smem(step_kernel<kSweep>);
+  if (attr != 0) return attr;
+  const int blocks = (a.W + WORLDS_PER_BLOCK - 1) / WORLDS_PER_BLOCK;
+  step_kernel<kSweep><<<blocks, BLOCK_THREADS, SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1433,5 +1745,24 @@ extern "C" int mhs_physics(void* const* ptrs, int n_ptrs, const int* ip,
 extern "C" int mhs_fused(void* const* ptrs, int n_ptrs, const int* ip,
                          int n_i, const float* fp, int n_f, void* stream) {
   return launch_step<true>(ptrs, n_ptrs, ip, n_i, fp, n_f, stream);
+}
+
+// Launch shape and occupancy of the three entries: out[0] worlds per
+// block, out[1] shared bytes per world, out[2..4] resident blocks per SM
+// of the megastep, physics and fused kernels.
+extern "C" int mhs_megastep_occupancy(int* out) {
+  out[0] = WORLDS_PER_BLOCK;
+  out[1] = static_cast<int>(sizeof(World));
+  int err = allow_smem(megastep_kernel);
+  err = err ? err : allow_smem(step_kernel<false>);
+  err = err ? err : allow_smem(step_kernel<true>);
+  if (err) return err;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], megastep_kernel, BLOCK_THREADS, SMEM_BYTES));
+  err = err ? err : static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[3], step_kernel<false>, BLOCK_THREADS, SMEM_BYTES));
+  err = err ? err : static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[4], step_kernel<true>, BLOCK_THREADS, SMEM_BYTES));
+  return err;
 }
 #endif

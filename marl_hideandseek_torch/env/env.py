@@ -68,9 +68,9 @@ class HideAndSeekEnv:
     ``device`` defaults to ``"cuda"`` and must exist: asking for CUDA
     without a card raises rather than running on the CPU. ``worldgen``
     replaces the world generator and ``levelgen`` the level generator of
-    checkpoint loads (``env/episode.py``); the defaults draw episodes
-    from the env's ``torch.Generator``, seeded with ``cfg.rand_seed``, and
-    levels from their level keys. ``fused=False`` takes the JAX env's
+    checkpoint loads (``env/episode.py``); the defaults key each
+    episode's draws by (``cfg.rand_seed``, world id, episode counter) and
+    draw levels from their level keys. ``fused=False`` takes the JAX env's
     unfused branch (K2, then the standalone sweep) instead of K3.
     """
 
@@ -85,11 +85,8 @@ class HideAndSeekEnv:
         self.cfg = cfg
         self.device = device
         self.fused = fused
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(cfg.rand_seed)
         self.levelgen = levelgen or keyed_levelgen(cfg)
-        self.worldgen = worldgen or levelgen_worldgen(cfg, self.generator,
-                                                      self.levelgen)
+        self.worldgen = worldgen or levelgen_worldgen(cfg, self.levelgen)
         # Reset branches taken by step(), for runs that must show them.
         self.reset_counts = {"full": 0, "compact": 0}
 
@@ -185,8 +182,9 @@ class HideAndSeekEnv:
 
         The k = reset_budget slots hold the triggered worlds in ascending
         order, padded with the first one; only the first occurrence of a
-        world writes back. Float leaves merge under the finite-or-+inf
-        contract (``packed.canon_float``)."""
+        world writes back. Regenerated values are scattered unchanged, as
+        the JAX classic env does (env.py:470-474); only ``PackedEnv``'s
+        merge applies the finite-or-+inf contract."""
         k = self.cfg.reset_budget
         w = trigger.shape[0]
         dev = trigger.device
@@ -205,7 +203,7 @@ class HideAndSeekEnv:
         @on_bits
         def merge(old, new):
             out = old.clone()
-            out[cols] = P.canon_float(new)[first].to(old.dtype)
+            out[cols] = new[first].to(old.dtype)
             return out
 
         new_sweep = SweepResults(*(merge(o, n) for o, n in

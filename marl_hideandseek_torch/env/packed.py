@@ -1,8 +1,8 @@
 """The packed environment step: ``PackedEnv.init`` / ``PackedEnv.step``.
 
 Port of ``marl_hideandseek_tpu/env/packed.py``. State is packed (every
-leaf's world axis LAST), so a CUDA thread per world reads coalesced
-addresses. A step is:
+leaf's world axis LAST), so consecutive CUDA threads reading one row of
+consecutive worlds read coalesced addresses. A step is:
 
 1. the megastep (``ops/step.py``): movement, grab/lock, XPBD physics,
    agent zero-velocity, the ray sweep, rewards, dones and episode scores
@@ -285,9 +285,9 @@ class PackedEnv:
 
     ``device`` defaults to ``"cuda"`` and must exist: asking for CUDA
     without a card raises rather than running on the CPU. ``worldgen``
-    replaces the world generator (see ``WorldGen``); the default draws
-    episodes from the env's ``torch.Generator``, seeded with
-    ``cfg.rand_seed``, and levels from their level keys.
+    replaces the world generator (see ``WorldGen``); the default keys
+    each episode's draws by (``cfg.rand_seed``, world id, episode
+    counter) and draws levels from their level keys.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda",
@@ -299,9 +299,7 @@ class PackedEnv:
                 "False; pass device='cpu' to run the plain PyTorch path")
         self.cfg = cfg
         self.device = device
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(cfg.rand_seed)
-        self.worldgen = worldgen or levelgen_worldgen(cfg, self.generator)
+        self.worldgen = worldgen or levelgen_worldgen(cfg)
         # Reset branches taken by step(), for runs that must show them.
         self.reset_counts = {"full": 0, "compact": 0}
 

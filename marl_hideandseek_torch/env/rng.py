@@ -6,10 +6,11 @@ Two sources, behind one call (``uniform``):
   draws depend on the other worlds drawn with it;
 * a ``KeyedRNG`` - counter-based draws keyed per world by its two u32
   key words, so a world's draws depend on its key alone, whatever batch
-  it is drawn in. The level generator runs on it by default, so a level
-  regenerates exactly from a checkpoint's level key, as the JAX package's
-  threefry-keyed generator does. The hash is not threefry: the same key
-  gives other numbers than JAX's.
+  it is drawn in. The episode draws run on it (``episode_rng``: keyed by
+  seed, world id and episode counter), and so does the level generator
+  by default, so a level regenerates exactly from a checkpoint's level
+  key, as the JAX package's threefry-keyed generator does. The hash is
+  not threefry: the same key gives other numbers than JAX's.
 
 Every draw takes a shape whose first axis is the batch of worlds.
 """
@@ -68,11 +69,15 @@ class KeyedRNG:
         out, self._buf = self._buf[:, :m], self._buf[:, m:]
         return out
 
-    def rand(self, shape, dtype=torch.float32) -> torch.Tensor:
+    def bits(self, shape) -> torch.Tensor:
+        """The next draws of ``shape`` as int64 bits in [0, 2**32)."""
         if shape[0] != self.k0.shape[0]:
             raise ValueError(f"KeyedRNG of {self.k0.shape[0]} worlds asked "
                              f"for draws of shape {tuple(shape)}")
-        bits = self._take(math.prod(shape[1:])).reshape(shape)
+        return self._take(math.prod(shape[1:])).reshape(shape)
+
+    def rand(self, shape, dtype=torch.float32) -> torch.Tensor:
+        bits = self.bits(shape)
         if dtype == torch.float64:
             return bits.to(torch.float64) * 2.0 ** -32
         return (bits >> 8).to(dtype) * 2.0 ** -24
@@ -94,7 +99,23 @@ def randint(gen, lo, hi, shape, device) -> torch.Tensor:
     return lo + torch.minimum(torch.floor(u * span).long(), span - 1)
 
 
-def random_u32(gen: torch.Generator, shape, device) -> torch.Tensor:
-    x = torch.randint(0, 2 ** 32, shape, generator=gen, device=device,
-                      dtype=torch.long)
+def random_u32(gen, shape, device) -> torch.Tensor:
+    """Uniform u32 words of ``shape`` from a Generator or a KeyedRNG."""
+    if isinstance(gen, KeyedRNG):
+        x = gen.bits(shape)
+    else:
+        x = torch.randint(0, 2 ** 32, shape, generator=gen, device=device,
+                          dtype=torch.long)
     return x.to(torch.uint32)
+
+
+def episode_rng(seed: int, world_ids: torch.Tensor,
+                episode_counter: torch.Tensor) -> KeyedRNG:
+    """The per-world stream of one episode's draws: key word 0 hashes
+    (seed, world id), key word 1 the episode counter, so a world's
+    episode follows from (seed, id, counter) alone, whatever batch draws
+    it (JAX: fold_in(fold_in(base_key, world_id), episode_counter))."""
+    seed_w = torch.full_like(world_ids.long(), seed & _M32)
+    k0 = _mix32(_mix32(seed_w) ^ (world_ids.long() & _M32))
+    k1 = _mix32(episode_counter.long() & _M32)
+    return KeyedRNG(torch.stack([k0, k1]).to(torch.uint32))

@@ -2,7 +2,7 @@
 
 ``fused_step_packed`` (packed state) and ``fused_step`` (world-major,
 pallas_step.py:681) launch ``csrc/megastep.cu``'s ``mhs_fused`` for CUDA
-tensors: one thread per world runs the ``physics_step`` and ``sweep``
+tensors: one warp per world runs the ``physics_step`` and ``sweep``
 device functions that the megastep (K4) runs too - visibility, lidar, the
 next step's grab/lock rays and the seeker-sees-hider flag on the moved
 bodies, with the sweep's wall loop bounded by the batch's largest

@@ -2,7 +2,7 @@
 
 ``physics_packed`` (packed state) and ``physics_step_batch`` (world-major,
 pallas_physics.py:872) launch ``csrc/megastep.cu``'s ``mhs_physics`` for
-CUDA tensors: one thread per world runs the ``physics_step`` device
+CUDA tensors: one warp per world runs the ``physics_step`` device
 function that the megastep (K4) and the fused step (K3) run too. For CPU
 tensors they run the plain version, ``env/physics.py::physics_step``.
 Replaces ``marl_hideandseek_tpu/ops/pallas_physics.py::

@@ -1,7 +1,8 @@
 """K4: the megastep - the whole packed step before resets.
 
 ``megastep_packed`` launches ``csrc/megastep.cu`` for CUDA tensors: one
-thread per world runs movement decode, grab/lock, the XPBD physics step,
+warp per world (its lanes over the world's bodies, contact slots, agents
+and rays) runs movement decode, grab/lock, the XPBD physics step,
 agent zero-velocity, the ray sweep (visibility, lidar, next-step
 grab/lock rays, the seeker-sees-hider flag), rewards, dones and episode
 scores. For CPU tensors it runs the plain version, ``megastep_plain``:
@@ -37,6 +38,31 @@ from marl_hideandseek_torch.ops.common import (
 from marl_hideandseek_torch.types import EnvState, SweepResults
 
 MEGASTEP = CudaKernel("megastep", "mhs_megastep", ARRAY_ENTRY)
+
+
+def megastep_occupancy() -> Dict[str, int]:
+    """Launch shape and occupancy of ``csrc/megastep.cu``'s three kernels
+    on the current card: worlds per block, shared bytes per world, and the
+    blocks and worlds resident per SM of K4 (megastep), K2 (physics) and
+    K3 (fused), as the CUDA runtime reckons them from the registers and
+    shared memory of each."""
+    import ctypes
+
+    from marl_hideandseek_torch.ops.build import load
+
+    fn = load("megastep").mhs_megastep_occupancy
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"mhs_megastep_occupancy failed: cudaError {err}")
+    per_block = out[0]
+    res = {"worlds_per_block": per_block, "smem_bytes_per_world": out[1]}
+    for name, blocks in zip(("megastep", "physics", "fused"), out[2:5]):
+        res[f"{name}_blocks_per_sm"] = blocks
+        res[f"{name}_worlds_per_sm"] = blocks * per_block
+    return res
 
 
 def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor,

@@ -22,6 +22,7 @@ from marl_hideandseek_torch import bridge
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as tobs
 from marl_hideandseek_torch.env import packed as tp
+from marl_hideandseek_torch.env.env import HideAndSeekEnv
 
 W = 8
 KW = dict(num_worlds=W, min_hiders=2, max_hiders=2, min_seekers=2,
@@ -225,6 +226,14 @@ def test_compact_merge_first_occurrence_and_float_contract():
     new_ps, _ = env._compact_resets(ps, sweep, trigger, level_ids,
                                     torch.arange(W))
     np.testing.assert_array_equal(calls[0].numpy(), [2, 5, 2, 2])
+    # The ids reach the default worldgen's draws: worlds 2 and 5 are the
+    # episodes keyed by their own ids (counter 1).
+    fresh = env_default(torch.tensor([2, 5]), torch.ones(2, dtype=torch.long),
+                        torch.ones(2, dtype=torch.long))
+    assert torch.equal(new_ps.level_key.view(torch.int32)[..., [2, 5]],
+                       fresh.level_key.view(torch.int32))
+    assert torch.equal(new_ps.statics.wall_pos[..., [2, 5]],
+                       fresh.statics.wall_pos)
     v = new_ps.bodies.vel
     assert bool(torch.isinf(v[0, 0, [2, 5]]).all())
     assert bool((v[0, 0, [2, 5]] > 0).all())
@@ -235,6 +244,43 @@ def test_compact_merge_first_occurrence_and_float_contract():
     assert bool((new_ps.step[[2, 5]] == 0).all())
     assert bool((new_ps.step[untouched] == ps.step[untouched] + 1).all())
     assert bool((new_ps.episode_counter[[2, 5]].long() == 1).all())
+
+
+def test_classic_compact_merge_scatters_values_unchanged():
+    """The classic env's compact merge writes each triggered world once
+    and scatters regenerated values unchanged, NaN and -inf included, as
+    the JAX classic env does (env.py:470-474)."""
+    cfg = TCFG.replace(reset_budget=4)
+    env = HideAndSeekEnv(cfg, device="cpu")
+    state, _ = env.init()
+    calls = []
+    env_default = env.worldgen
+
+    def worldgen(world_ids, counter, level_ids):
+        calls.append(world_ids.clone())
+        new = env_default(world_ids, counter, level_ids)
+        bad = new.bodies.vel.clone()
+        bad[0, 0, :] = float("nan")
+        bad[0, 1, :] = -float("inf")
+        return new.replace(bodies=new.bodies.replace(vel=bad))
+
+    env.worldgen = worldgen
+    trigger = torch.zeros(W, dtype=torch.bool)
+    trigger[[2, 5]] = True
+    level_ids = torch.ones(W, dtype=torch.long)
+    sweep = env._standalone_sweep(state)
+    adv = state.replace(step=state.step + 1)
+    new, _ = env._compact_resets(state, adv, sweep, trigger, level_ids,
+                                 torch.arange(W))
+    np.testing.assert_array_equal(calls[0].numpy(), [2, 5, 2, 2])
+    v = new.bodies.vel
+    assert bool(torch.isnan(v[[2, 5], 0, 0]).all())
+    assert bool((v[[2, 5], 0, 1] == -float("inf")).all())
+    untouched = [i for i in range(W) if i not in (2, 5)]
+    assert torch.equal(new.bodies.pos[untouched],
+                       state.bodies.pos[untouched])
+    assert bool((new.step[[2, 5]] == 0).all())
+    assert bool((new.episode_counter.long()[[2, 5]] == 1).all())
 
 
 def test_torch_levelgen_env_runs_finite():

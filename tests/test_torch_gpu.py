@@ -73,8 +73,10 @@ def test_raycast_kernel_matches_plain(cuda, w):
 
 
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
-@pytest.mark.parametrize("w", [200, 2048])
+@pytest.mark.parametrize("w", [200, 1001, 2048])
 def test_megastep_kernel_matches_plain(cuda, kw, w):
+    """Three chained launches at the JAX kernels' bars; 1001 worlds leave
+    a ragged last block (4 worlds per block)."""
     cfg, ps = _state(cuda, kw, w, 100)
     g = torch.Generator(device=cuda).manual_seed(0)
     na = cfg.max_agents
@@ -96,6 +98,15 @@ def test_megastep_kernel_matches_plain(cuda, kw, w):
         assert torch.equal(rk[2], rp[2]) and torch.equal(rk[3], rp[3])
         ps = rk[0].replace(step=rk[0].step + 1, act_hit_t=rk[1].act_t,
                            act_hit_id=rk[1].act_id)
+
+
+def test_megastep_occupancy(cuda):
+    """The warp-per-world kernels launch with several worlds resident per
+    SM."""
+    occ = ops_step.megastep_occupancy()
+    assert occ["worlds_per_block"] == 4
+    for name in ("megastep", "physics", "fused"):
+        assert occ[f"{name}_worlds_per_sm"] >= 8, occ
 
 
 def test_wrappers_check_inputs(cuda):
@@ -157,10 +168,12 @@ def _pre_physics(cfg, ps, g):
 
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
 @pytest.mark.parametrize("entry", ["physics", "fused"])
-def test_physics_and_fused_kernels_match_plain(cuda, kw, entry):
+@pytest.mark.parametrize("w", [1000, 1001])
+def test_physics_and_fused_kernels_match_plain(cuda, kw, entry, w):
     """K2 and K3, three chained launches each from the kernel's previous
-    output, at the JAX kernels' bars."""
-    cfg, ps = _state(cuda, kw, 1000, 100)
+    output, at the JAX kernels' bars; 1001 worlds leave a ragged last
+    block."""
+    cfg, ps = _state(cuda, kw, w, 100)
     g = torch.Generator(device=cuda).manual_seed(2)
     counter = ops_physics.PHYSICS if entry == "physics" else ops_fused.FUSED
     n0 = counter.launches

@@ -4,7 +4,14 @@ csrc/rgbd.cu) compiled as plain host C++ (-DMHS_HOST_BUILD, the same
 per-ray / per-world / per-pixel functions in a loop) and held to the
 plain PyTorch versions on CPU tensors. This checks the kernels' arithmetic and their
 argument layout without a card; the launch itself is checked on the card
-(tests/test_torch_gpu.py, chip_smoke.py). Needs a host C++ compiler."""
+(tests/test_torch_gpu.py, chip_smoke.py). Needs a host C++ compiler.
+
+megastep.cu runs a warp per world; as host C++ its lane helpers run the
+lanes of each phase one after another. It is built twice, with the lanes
+in forward and in reverse order (-DMHS_LANES_REVERSE): a phase that reads
+what another lane writes in the same phase - a missing barrier - gives
+different results in the two orders. Its cases also run at a world count
+that is not a multiple of the worlds per block (the ragged last block)."""
 
 import ctypes
 import shutil
@@ -42,15 +49,34 @@ def host_libs(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernels' sources")
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
-    for name in ("raycast", "megastep", "rgbd"):
-        so = out / f"{name}.so"
+    for key, name, defs in (("raycast", "raycast", []),
+                            ("megastep", "megastep", []),
+                            ("megastep-reverse", "megastep",
+                             ["-DMHS_LANES_REVERSE"]),
+                            ("rgbd", "rgbd", [])):
+        so = out / f"{key}.so"
         subprocess.run(
-            [cxx, "-x", "c++", "-std=c++17", "-DMHS_HOST_BUILD", "-O1",
-             "-ffp-contract=off", "-shared", "-fPIC", "-I",
+            [cxx, "-x", "c++", "-std=c++17", "-DMHS_HOST_BUILD", *defs,
+             "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I",
              str(build.CSRC), "-o", str(so), str(build.CSRC / f"{name}.cu")],
             check=True, capture_output=True, timeout=300)
-        libs[name] = ctypes.CDLL(str(so))
+        libs[key] = ctypes.CDLL(str(so))
     return libs
+
+
+# Lane order of the megastep.cu host build, and the world count: the
+# configuration's (a multiple of the 4 worlds per block) or one less.
+LANES = ["forward", "reverse"]
+WORLDS = ["aligned", "ragged"]
+
+
+def _megastep_lib(libs, lanes):
+    return libs["megastep" if lanes == "forward" else "megastep-reverse"]
+
+
+def _sized(kw, worlds):
+    return kw if worlds == "aligned" else dict(
+        kw, num_worlds=kw["num_worlds"] - 1)
 
 
 def _env_state(kw, step):
@@ -93,9 +119,12 @@ def _host_megastep(lib, cfg, ps, acts):
 
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
 @pytest.mark.parametrize("step0", [100, 239])
-def test_megastep_source_matches_plain(host_libs, kw, step0):
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_megastep_source_matches_plain(host_libs, kw, step0, worlds, lanes):
     """Three steps, each from the same input on both sides."""
-    cfg, ps = _env_state(kw, step0)
+    cfg, ps = _env_state(_sized(kw, worlds), step0)
+    lib = _megastep_lib(host_libs, lanes)
     g = torch.Generator().manual_seed(step0)
     na, w = cfg.max_agents, cfg.num_worlds
     for _ in range(3):
@@ -103,7 +132,7 @@ def test_megastep_source_matches_plain(host_libs, kw, step0):
                           torch.randint(0, 2, (na, 2, w), generator=g)],
                          1).to(torch.int32)
         rp = ops_step.megastep_plain(cfg, ps, acts)
-        rh = _host_megastep(host_libs["megastep"], cfg, ps, acts)
+        rh = _host_megastep(lib, cfg, ps, acts)
         for name, tol in TIGHT.items():
             torch.testing.assert_close(getattr(rh[0].bodies, name),
                                        getattr(rp[0].bodies, name),
@@ -145,12 +174,15 @@ def _host_call(fn, ptrs, ip, fp):
 
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
 @pytest.mark.parametrize("entry", ["physics", "fused"])
-def test_physics_and_fused_sources_match_plain(host_libs, kw, entry):
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_physics_and_fused_sources_match_plain(host_libs, kw, entry, worlds,
+                                               lanes):
     """K2 (physics) and K3 (physics + sweep): three steps, each from the
     same input on both sides, on a moving state."""
-    cfg, ps = _env_state(kw, 100)
+    cfg, ps = _env_state(_sized(kw, worlds), 100)
     g = torch.Generator().manual_seed(7)
-    lib = host_libs["megastep"]
+    lib = _megastep_lib(host_libs, lanes)
     for _ in range(3):
         ps, ext_f, ext_t = _pre_physics(cfg, ps, g)
         if entry == "physics":
