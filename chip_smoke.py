@@ -22,14 +22,17 @@ set to 0 just before and read just after:
   allocated once.
 
 After the build it prints each kernel entry's ptxas registers, stack and
-spills, and megastep.cu's worlds per block, shared bytes per world and
-resident worlds per SM.
+spills, megastep.cu's worlds per block, shared bytes per world and
+resident worlds per SM, and raycast.cu's and rgbd.cu's worlds per block,
+shared bytes per block and resident worlds per SM.
 
 Every kernel is held against its plain PyTorch version at the path's
-shapes: K1 on an init state; K4, K2 and K3 on an init state at rest and on
-their path's state after 100 steps (one step at the one-step bars, then
-chained steps at the JAX kernels' bars); K5 on 256 worlds of the render
-path's last step, at the JAX kernel's bar. It checks that everything stays
+shapes: K1 on the packed and the classic path's init states (bench.py's
+2v2, R = 184 rays a world; headless.py's 3v2, R = 230); K4, K2 and K3 on
+an init state at rest and on their path's state after 100 steps (one
+step at the one-step bars, then chained steps at the JAX kernels' bars);
+K5 on 256 worlds of the render path's last step, at the JAX kernel's
+bar. It checks that everything stays
 finite, that each path launched its kernels, and prints one JSON line of
 per-kernel numbers, the card's name and power limit, and a final JSON
 status line.
@@ -149,9 +152,10 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
-    from marl_hideandseek_torch.env import observations as O
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.ops import build, rays, step
+    from marl_hideandseek_torch.ops.common import block_occupancy
+    from marl_hideandseek_torch.types import pack_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -173,6 +177,12 @@ def main() -> int:
         f"{occ['smem_bytes_per_world']} B of shared memory per world; "
         f"resident worlds per SM: K4 {occ['megastep_worlds_per_sm']}, K2 "
         f"{occ['physics_worlds_per_sm']}, K3 {occ['fused_worlds_per_sm']}")
+    for name, label in (("raycast", "K1"), ("rgbd", "K5")):
+        o = block_occupancy(name)
+        log(f"{name}.cu ({label}): one warp per world, "
+            f"{o['worlds_per_block']} worlds per block, "
+            f"{o['smem_bytes_per_block']} B of shared memory per block; "
+            f"resident worlds per SM {o['worlds_per_sm']}")
 
     cfg = EnvConfig(
         num_worlds=WORLDS, min_hiders=2, max_hiders=2, min_seekers=2,
@@ -196,29 +206,7 @@ def main() -> int:
 
     # ---- 2. K1 vs plain ------------------------------------------------------
     t0 = time.perf_counter()
-    st = O.world_first(ps0)
-    q = [torch.movedim(x, 0, -1).contiguous()
-         for x in O.obs_ray_queries(cfg, st)]
-    t_k, id_k = rays.raycast_batch_packed(cfg, ps0, *q)
-    t_p, id_p = rays.raycast_packed_plain(cfg, ps0, *q)
-    torch.cuda.synchronize()
-    id_eq = (id_k == id_p).float().mean().item()
-    both = (id_k == id_p) & (id_k >= 0)
-    k1_err = max_err(t_k[both], t_p[both])
-    log(f"K1 raycast: rays {q[2].shape[0]} x worlds {WORLDS}; id equal "
-        f"{id_eq:.6f}; max |t - t_plain| on equal hits {k1_err:.3g}")
-    require(id_eq >= 0.999, f"K1 ids agree on {id_eq} < 0.999")
-    require(k1_err <= 1e-4, f"K1 t error {k1_err} > 1e-4")
-    k1_ms = cuda_ms(lambda: rays.raycast_batch_packed(cfg, ps0, *q), 20)
-    k1_plain_ms = cuda_ms(lambda: rays.raycast_packed_plain(cfg, ps0, *q), 2)
-    b, s = ps0.bodies, ps0.statics
-    k1_bytes = (nbytes(b.pos, b.quat, b.half_ext, b.active, s.wall_pos,
-                       s.wall_half_ext, s.wall_active, s.plane_point,
-                       s.plane_normal, s.plane_active, *q) +
-                nbytes(t_k, id_k))
-    k1_bound, k1_by = bound(k1_bytes, raycast_ops(cfg, ps0, q[3]))
-    log(f"K1 {k1_ms:.4f} ms/launch, plain {k1_plain_ms:.3f} ms, bound "
-        f"{k1_bound:.5f} ms ({k1_by}: {k1_bytes} B)")
+    k1 = check_k1(cfg, ps0, "packed init")
     phase("k1_check", t0)
 
     # ---- 3. K4 vs plain, on a fresh init state (at rest) --------------------
@@ -317,18 +305,26 @@ def main() -> int:
     classic = classic_path(dev, random_actions, gpu)
     phase("classic_path", t0)
 
-    # ---- 8. K2 and K3 vs plain on the classic init and moving states --------
+    # ---- 8. K2 and K3 vs plain on the classic init and moving states; K1 on
+    # the classic init state's queries ----------------------------------------
     t0 = time.perf_counter()
     steps_k = check_physics_kernels(classic, random_actions)
+    k1_classic = check_k1(classic["cfg"], pack_state(classic["init"]),
+                          "classic init")
     phase("k2_k3_checks", t0)
 
     kernels = [
         dict(name="raycast", route="cuda",
              source="marl_hideandseek_torch/csrc/raycast.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_rays.py:216",
-             launches=launches["raycast"], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=None),
+             launches=launches["raycast"],
+             max_abs_err=max(k1["max_abs_err"], k1_classic["max_abs_err"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None,
+             classic_launches=classic["launches"]["raycast"],
+             classic_ms=k1_classic["ms"],
+             classic_plain_ms=k1_classic["plain_ms"],
+             classic_bound_ms=k1_classic["bound_ms"]),
         dict(name="physics", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_physics.py:812",
@@ -364,6 +360,41 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_k1(cfg, ps, label: str) -> dict:
+    """K1 against its plain version on the visibility and lidar queries
+    of packed state ``ps``: ids equal on >= 99.9 % and t within 1e-4 on
+    equal hits; then its time, the plain version's and its bound."""
+    from marl_hideandseek_torch.env import observations as O
+    from marl_hideandseek_torch.ops import rays
+
+    w = ps.step.shape[-1]
+    q = [torch.movedim(x, 0, -1).contiguous()
+         for x in O.obs_ray_queries(cfg, O.world_first(ps))]
+    t_k, id_k = rays.raycast_batch_packed(cfg, ps, *q)
+    t_p, id_p = rays.raycast_packed_plain(cfg, ps, *q)
+    torch.cuda.synchronize()
+    id_eq = (id_k == id_p).float().mean().item()
+    both = (id_k == id_p) & (id_k >= 0)
+    err = max_err(t_k[both], t_p[both])
+    log(f"K1 raycast on the {label} state: rays {q[2].shape[0]} x worlds "
+        f"{w}; id equal {id_eq:.6f}; max |t - t_plain| on equal hits "
+        f"{err:.3g}")
+    require(id_eq >= 0.999, f"K1 ({label}) ids agree on {id_eq} < 0.999")
+    require(err <= 1e-4, f"K1 ({label}) t error {err} > 1e-4")
+    ms = cuda_ms(lambda: rays.raycast_batch_packed(cfg, ps, *q), 20)
+    plain_ms = cuda_ms(lambda: rays.raycast_packed_plain(cfg, ps, *q), 2)
+    b, s = ps.bodies, ps.statics
+    n_bytes = (nbytes(b.pos, b.quat, b.half_ext, b.active, s.wall_pos,
+                      s.wall_half_ext, s.wall_active, s.plane_point,
+                      s.plane_normal, s.plane_active, *q) +
+               nbytes(t_k, id_k))
+    b_ms, b_by = bound(n_bytes, raycast_ops(cfg, ps, q[3]))
+    log(f"K1 ({label}) {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes} B)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -434,13 +465,19 @@ def render_path(cfg, env, ps, random_actions, gpu):
                       ps.agent_type, s.wall_pos, s.wall_half_ext,
                       s.wall_active, s.plane_point, s.plane_normal,
                       s.plane_active) + nbytes(rgba, depth))
-    k5_bound, k5_by = bound(n_bytes, rgbd_ops(cfg, ps, depth))
+    least = rgbd_least_ops(depth)
+    k5_bound, k5_by = bound(n_bytes, least)
+    exhaustive = rgbd_ops(cfg, ps, depth)
+    ex_bound, _ = bound(n_bytes, exhaustive)
     log(f"K5 {ms:.4f} ms/launch at {WORLDS} worlds, plain {plain_ms:.3f} ms "
-        f"at {k} worlds, bound {k5_bound:.5f} ms ({k5_by}: {n_bytes} B)")
+        f"at {k} worlds, bound {k5_bound:.5f} ms ({k5_by}: {n_bytes} B, "
+        f"{least:.4g} least operations); every pixel testing every "
+        f"primitive: {exhaustive:.4g} operations, {ex_bound:.5f} ms")
     return dict(state=ps, kernel=dict(
         launches=n_launch, max_abs_err=d_err, ms=ms, plain_ms=plain_ms,
         plain_at_worlds=k, bound_ms=k5_bound, bound_by=k5_by,
-        library_ms=None))
+        library_ms=None, exhaustive_ops=exhaustive,
+        exhaustive_bound_ms=ex_bound))
 
 
 def classic_path(dev, random_actions, gpu):
@@ -887,9 +924,10 @@ OPS_PIXEL_RAY, OPS_PIXEL_SHADE = 88, 100
 
 
 def rgbd_ops(cfg, ps, depth: torch.Tensor) -> float:
-    """Operations of one K5 launch on this state: every pixel ray tests
-    every active primitive of its world but its agent's own body, and
-    shades its hit (``depth`` [A, P, W] > 0)."""
+    """Operations of one K5 launch on this state if every pixel ray
+    tested every active primitive of its world but its agent's own body,
+    and shaded its hit (``depth`` [A, P, W] > 0): the exhaustive count,
+    which a kernel that culls may do less than."""
     from marl_hideandseek_torch.types import body_slot_ranges
 
     _, _, (al, ah) = body_slot_ranges(cfg)
@@ -899,6 +937,16 @@ def rgbd_ops(cfg, ps, depth: torch.Tensor) -> float:
     tests = (per_ray[None] - per_body[al:ah]).sum().item() * n_pix
     hits = (depth > 0).sum().item()
     return tests + OPS_PIXEL_RAY * depth.numel() + OPS_PIXEL_SHADE * hits
+
+
+def rgbd_least_ops(depth: torch.Tensor) -> float:
+    """The least operations any kernel must do for one K5 launch: the
+    camera ray of every pixel, and one primitive test (the cheapest, a
+    plane's) and the shading of every hit pixel (``depth`` > 0). It errs
+    low whatever a kernel culls."""
+    hits = (depth > 0).sum().item()
+    return (OPS_PIXEL_RAY * depth.numel() +
+            (OPS_PIXEL_SHADE + OPS_RAY_PLANE) * hits)
 
 
 if __name__ == "__main__":

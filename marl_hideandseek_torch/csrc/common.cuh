@@ -108,51 +108,87 @@ MHS_HD Q4 quat_normalize(Q4 q) {
 }
 
 // ---- rays (env/rays.py) ---------------------------------------------------
+//
+// Each test is split into the terms of the ray's origin and the work of
+// its direction, so that a kernel that casts many rays from one origin
+// (rgbd.cu: every pixel of an agent's eye) computes the origin's terms
+// once. The whole tests are the two halves in turn: the same operations
+// in the same order as the plain version's.
 
-// One slab axis of ray_aabb.
-MHS_HD void slab_axis(float o, float d, float lo, float hi, float* near,
+// An AABB's slab terms relative to a ray origin o: lo - o and hi - o
+// per axis, and whether o lies outside the slab on that axis.
+struct Slab {
+  V3 a, b;
+  bool ox, oy, oz;
+};
+MHS_HD Slab slab_terms(V3 o, V3 lo, V3 hi) {
+  return Slab{sub(lo, o), sub(hi, o), (o.x < lo.x) || (o.x > hi.x),
+              (o.y < lo.y) || (o.y > hi.y), (o.z < lo.z) || (o.z > hi.z)};
+}
+
+// One slab axis of ray_aabb from its origin terms.
+MHS_HD void slab_axis(float a, float b, bool out, float d, float* near,
                       float* far) {
   bool small = fabsf(d) < RAY_EPS;
   float sd = small ? RAY_EPS : d;
-  float t1 = (lo - o) / sd;
-  float t2 = (hi - o) / sd;
+  float t1 = a / sd;
+  float t2 = b / sd;
   float n = fmin2(t1, t2);
   float f = fmax2(t1, t2);
-  bool outside = small && ((o < lo) || (o > hi));
+  bool outside = small && out;
   *near = outside ? F_INF : n;
   *far = outside ? -F_INF : f;
 }
 
-// ray_aabb: entry t, +inf on miss or origin inside.
-MHS_HD float ray_aabb(V3 o, V3 d, V3 lo, V3 hi) {
+// ray_aabb from the origin's slab terms: entry t, +inf on miss or origin
+// inside.
+MHS_HD float ray_slab(const Slab& s, V3 d) {
   float n0, f0, n1, f1, n2, f2;
-  slab_axis(o.x, d.x, lo.x, hi.x, &n0, &f0);
-  slab_axis(o.y, d.y, lo.y, hi.y, &n1, &f1);
-  slab_axis(o.z, d.z, lo.z, hi.z, &n2, &f2);
+  slab_axis(s.a.x, s.b.x, s.ox, d.x, &n0, &f0);
+  slab_axis(s.a.y, s.b.y, s.oy, d.y, &n1, &f1);
+  slab_axis(s.a.z, s.b.z, s.oz, d.z, &n2, &f2);
   float tmin = fmax2(fmax2(n0, n1), n2);
   float tmax = fmin2(fmin2(f0, f1), f2);
   bool hit = (tmax >= tmin) && (tmin > RAY_EPS);
   return hit ? tmin : F_INF;
 }
 
-// ray_convex over the wedge halfspaces, local-frame ray.
-MHS_HD float ray_wedge_local(V3 o, V3 d) {
+// ray_aabb: entry t, +inf on miss or origin inside.
+MHS_HD float ray_aabb(V3 o, V3 d, V3 lo, V3 hi) {
+  return ray_slab(slab_terms(o, lo, hi), d);
+}
+
+// Wedge face f's numerator d_f - n_f . o for a local-frame origin.
+MHS_HD float wedge_num(V3 o, int f) {
+  const V3 wn = wedge_normal(f);
+  return wedge_offset(f) - (o.x * wn.x + o.y * wn.y + o.z * wn.z);
+}
+
+// ray_convex over the wedge halfspaces from the origin's five face
+// numerators, local-frame direction.
+MHS_HD float ray_wedge_nums(const float* num, V3 d) {
   float t_in = -F_INF, t_out = F_INF;
   bool miss = false;
   for (int f = 0; f < 5; ++f) {
     const V3 wn = wedge_normal(f);
     float denom = d.x * wn.x + d.y * wn.y + d.z * wn.z;
-    float num = wedge_offset(f) - (o.x * wn.x + o.y * wn.y + o.z * wn.z);
     bool small = fabsf(denom) < RAY_EPS;
-    float t = num / (small ? RAY_EPS : denom);
+    float t = num[f] / (small ? RAY_EPS : denom);
     float te = (small || denom > 0.0f) ? -F_INF : t;
     float tx = (small || denom < 0.0f) ? F_INF : t;
     t_in = f == 0 ? te : fmax2(t_in, te);
     t_out = f == 0 ? tx : fmin2(t_out, tx);
-    miss = miss || (small && num < 0.0f);
+    miss = miss || (small && num[f] < 0.0f);
   }
   bool hit = (t_out >= t_in) && (t_in > RAY_EPS) && !miss;
   return hit ? t_in : F_INF;
+}
+
+// ray_convex over the wedge halfspaces, local-frame ray.
+MHS_HD float ray_wedge_local(V3 o, V3 d) {
+  float num[5];
+  for (int f = 0; f < 5; ++f) num[f] = wedge_num(o, f);
+  return ray_wedge_nums(num, d);
 }
 
 // Ray against dynamic body b: OBB (boxes, agents) or wedge (ramps).
@@ -163,14 +199,23 @@ MHS_HD float ray_body(V3 o, V3 d, V3 c, Q4 q, V3 h, bool is_ramp) {
   return ray_aabb(ol, dl, V3{-h.x, -h.y, -h.z}, h);
 }
 
-// ray_plane: one-sided.
-MHS_HD float ray_plane(V3 o, V3 d, V3 pt, V3 n) {
-  float denom = d.x * n.x + d.y * n.y + d.z * n.z;
+// ray_plane's numerator (pt - o) . n for origin o.
+MHS_HD float plane_num(V3 o, V3 pt, V3 n) {
   V3 pm = sub(pt, o);
-  float num = pm.x * n.x + pm.y * n.y + pm.z * n.z;
+  return pm.x * n.x + pm.y * n.y + pm.z * n.z;
+}
+
+// ray_plane from the origin's numerator: one-sided.
+MHS_HD float ray_plane_num(float num, V3 d, V3 n) {
+  float denom = d.x * n.x + d.y * n.y + d.z * n.z;
   float t = num / (fabsf(denom) < RAY_EPS ? -RAY_EPS : denom);
   bool hit = (denom < -RAY_EPS) && (t > RAY_EPS);
   return hit ? t : F_INF;
+}
+
+// ray_plane: one-sided.
+MHS_HD float ray_plane(V3 o, V3 d, V3 pt, V3 n) {
+  return ray_plane_num(plane_num(o, pt, n), d, n);
 }
 
 }  // namespace mhs

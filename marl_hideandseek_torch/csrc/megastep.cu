@@ -64,6 +64,7 @@
 #include <cstddef>
 
 #include "common.cuh"
+#include "lanes.cuh"
 
 using namespace mhs;
 
@@ -88,7 +89,6 @@ constexpr float MU_S_BODY = 0.5f;
 constexpr float MU_S_STATIC = 2.0f;
 constexpr float WEDGE_RADIUS = 0x1.3988e2p+1f;  // float32(sqrt(6))
 
-constexpr int WARP = 32;
 constexpr int WORLDS_PER_BLOCK = 4;
 constexpr int BLOCK_THREADS = WORLDS_PER_BLOCK * WARP;
 constexpr int N_SLOTS = MAX_BODIES * N_VERTS;           // contact slots
@@ -113,29 +113,14 @@ MHS_HD V3 wedge_vert(int v) {
   }
 }
 
-// ---- lanes, barriers and votes ----------------------------------------------
+// ---- lanes ------------------------------------------------------------------
 //
-// lanes(n, f): f(i) for every item i < n, item i on lane i % 32.
-// slots(n, f): f(k, i) likewise, k = i / 32 the lane's k-th item, a
+// The lane helpers are lanes.cuh's; slots(n, f) adds f(k, i) for every
+// item i < n on lane i % 32, k = i / 32 the lane's k-th item, a
 // compile-time index after unrolling, so per-slot data indexed by k stays
 // in registers (LaneSlots).
-// lanes_any(n, f): f(i) for every item; true on every lane if any f(i).
-// lane0(f): f() on lane 0.
-// warp_sync(): the warp's barrier between phases.
-// block_items(n, f): f(i) for every i < n over the block's threads.
 
 #ifdef MHS_HOST_BUILD
-#ifdef MHS_LANES_REVERSE
-constexpr bool kReverse = true;
-#else
-constexpr bool kReverse = false;
-#endif
-inline int lane_at(int j) { return kReverse ? WARP - 1 - j : j; }
-template <class F>
-inline void lanes(int n, F&& f) {
-  for (int j = 0; j < WARP; ++j)
-    for (int i = lane_at(j); i < n; i += WARP) f(i);
-}
 template <class F>
 inline void slots(int n, F&& f) {
   for (int j = 0; j < WARP; ++j)
@@ -143,23 +128,6 @@ inline void slots(int n, F&& f) {
       const int i = lane_at(j) + WARP * k;
       if (i < n) f(k, i);
     }
-}
-template <class F>
-inline bool lanes_any(int n, F&& f) {
-  bool any = false;
-  lanes(n, [&](int i) {
-    if (f(i)) any = true;
-  });
-  return any;
-}
-template <class F>
-inline void lane0(F&& f) {
-  f();
-}
-inline void warp_sync() {}
-template <class F>
-inline void block_items(int n, F&& f) {
-  for (int j = 0; j < n; ++j) f(kReverse ? n - 1 - j : j);
 }
 inline int low_bit(unsigned int m) { return __builtin_ctz(m); }
 
@@ -171,11 +139,6 @@ struct LaneSlots {
   T& operator()(int, int i) { return v[i]; }
 };
 #else
-__device__ __forceinline__ int lane_id() { return threadIdx.x & (WARP - 1); }
-template <class F>
-__device__ __forceinline__ void lanes(int n, F&& f) {
-  for (int i = lane_id(); i < n; i += WARP) f(i);
-}
 template <class F>
 __device__ __forceinline__ void slots(int n, F&& f) {
 #pragma unroll
@@ -183,22 +146,6 @@ __device__ __forceinline__ void slots(int n, F&& f) {
     const int i = lane_id() + WARP * k;
     if (i < n) f(k, i);
   }
-}
-template <class F>
-__device__ __forceinline__ bool lanes_any(int n, F&& f) {
-  bool any = false;
-  for (int i = lane_id(); i < n; i += WARP)
-    if (f(i)) any = true;
-  return __any_sync(0xffffffffu, any);
-}
-template <class F>
-__device__ __forceinline__ void lane0(F&& f) {
-  if (lane_id() == 0) f();
-}
-__device__ __forceinline__ void warp_sync() { __syncwarp(); }
-template <class F>
-__device__ __forceinline__ void block_items(int n, F&& f) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) f(i);
 }
 __device__ __forceinline__ int low_bit(unsigned int m) { return __ffs(m) - 1; }
 
@@ -1246,35 +1193,10 @@ __device__ __forceinline__ bool sweep(const SweepParams& P, const Layout& L,
 
 // ---- the block's loads and stores (packed [rows, W] layout) --------------
 
-// The block's worlds: w0 .. w0 + nw - 1 of W, in sw[0 .. nw).
-struct Blk {
-  World* sw;
-  long long W;
-  int w0, nw;
-};
+using Blk = WorldBlock<World>;
 
 #define MHS_AT(f) offsetof(World, f)
 #define MHS_STAGE(f) (offsetof(World, u) + offsetof(SweepStage, f))
-
-// rows x nw elements; consecutive items take consecutive worlds of one
-// row, so a warp's accesses to the packed layout coalesce.
-template <class T>
-MHS_HD void copy_in(const Blk& K, const T* g, int rows, size_t off) {
-  block_items(rows * K.nw, [&](int i) {
-    const int row = i / K.nw, wi = i - row * K.nw;
-    reinterpret_cast<T*>(reinterpret_cast<char*>(K.sw + wi) + off)[row] =
-        g[row * K.W + K.w0 + wi];
-  });
-}
-template <class T>
-MHS_HD void copy_out(const Blk& K, T* g, int rows, size_t off) {
-  block_items(rows * K.nw, [&](int i) {
-    const int row = i / K.nw, wi = i - row * K.nw;
-    g[row * K.W + K.w0 + wi] =
-        reinterpret_cast<const T*>(reinterpret_cast<const char*>(K.sw + wi) +
-                                   off)[row];
-  });
-}
 
 // Bodies, statics and grabs, from an argument struct with MegaArgs' /
 // StepArgs' field names.

@@ -60,3 +60,21 @@ def wall_bound(wall_active: torch.Tensor) -> torch.Tensor:
     slots past it are inactive in every world. Computed on the device,
     without a host sync."""
     return wall_active.sum(0, dtype=torch.int32).amax().reshape(1)
+
+
+def block_occupancy(lib_name: str) -> dict:
+    """Launch shape of ``csrc/<lib_name>.cu``'s kernel, which runs one
+    warp per world: worlds per block, shared bytes per block, and the
+    blocks and worlds resident per SM as the CUDA runtime reckons them
+    (its ``mhs_<lib_name>_occupancy`` entry)."""
+    from marl_hideandseek_torch.ops.build import load
+
+    fn = getattr(load(lib_name), f"mhs_{lib_name}_occupancy")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"mhs_{lib_name}_occupancy failed: cudaError {err}")
+    return {"worlds_per_block": out[0], "smem_bytes_per_block": out[1],
+            "blocks_per_sm": out[2], "worlds_per_sm": out[0] * out[2]}

@@ -1,10 +1,10 @@
 """K5: per-agent RGBD rendering over packed state.
 
 ``render_rgbd_packed_fast`` launches ``csrc/rgbd.cu`` for CUDA tensors:
-one thread per (world, pixel, agent), writing one packed RGBA u32 and
-one f32 depth per pixel in the ``[A, H*W, W]`` layout. For CPU tensors
-it runs the plain renderer (``viz/rgbd.py``) and packs its output the
-same way. ``unpack_rgba`` and ``to_reference_layout`` turn the packed
+one warp per (world, agent) over the world's primitives staged in shared
+memory, writing one packed RGBA u32 and one f32 depth per pixel in the
+``[A, H*W, W]`` layout. For CPU tensors it runs the plain renderer
+(``viz/rgbd.py``) and packs its output the same way. ``unpack_rgba`` and ``to_reference_layout`` turn the packed
 outputs into the reference's ``[W, A, H, W, 4]`` u8 / ``[W, A, H, W, 1]``
 f32 tensors. Replaces ``marl_hideandseek_tpu/ops/pallas_rgbd.py::
 render_rgbd_packed_fast`` (``_rgbd_pallas``), ``unpack_rgba`` and

@@ -20,6 +20,7 @@ from marl_hideandseek_torch.env import observations as obs_mod
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.env.env import HideAndSeekEnv
 from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import fused as ops_fused
 from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rays as ops_rays
@@ -34,6 +35,8 @@ FLAGS = SimFlags.ZeroAgentVelocity | SimFlags.RandomFlipTeams
 REDUCED = dict(min_hiders=1, max_hiders=1, min_seekers=1, max_seekers=1,
                max_boxes=3, max_ramps=1)
 FULL = dict(min_hiders=2, max_hiders=2, min_seekers=2, max_seekers=2)
+# scripts/headless.py's teams: R = 5 x (T + 30) = 230 rays a world.
+CLASSIC = dict(min_hiders=3, max_hiders=3, min_seekers=2, max_seekers=2)
 # The JAX kernels' bars against their own oracles
 # (tests/test_pallas_kernels.py:59-110): value bar, fraction within it.
 KERNEL = dict(pos=(5e-3, 0.995), quat=(5e-3, 0.995), vel=(0.5, 0.995),
@@ -98,6 +101,81 @@ def test_megastep_kernel_matches_plain(cuda, kw, w):
         assert torch.equal(rk[2], rp[2]) and torch.equal(rk[3], rp[3])
         ps = rk[0].replace(step=rk[0].step + 1, act_hit_t=rk[1].act_t,
                            act_hit_id=rk[1].act_id)
+
+
+def _check_raycast(cfg, ps):
+    """K1 on ``ps``'s visibility + lidar and grab/lock queries against
+    the plain version at the JAX kernel's bars; one launch each."""
+    st = obs_mod.world_first(ps)
+    for queries in (obs_mod.obs_ray_queries(cfg, st),
+                    obs_mod.action_ray_queries(cfg, st)):
+        q = [torch.movedim(x, 0, -1).contiguous() for x in queries]
+        n0 = ops_rays.RAYCAST.launches
+        t_k, id_k = ops_rays.raycast_batch_packed(cfg, ps, *q)
+        t_p, id_p = ops_rays.raycast_packed_plain(cfg, ps, *q)
+        torch.cuda.synchronize()
+        assert ops_rays.RAYCAST.launches == n0 + 1
+        eq = id_k == id_p
+        assert eq.float().mean().item() >= 0.999
+        hit = eq & (id_k >= 0)
+        torch.testing.assert_close(t_k[hit], t_p[hit], atol=1e-4, rtol=1e-4)
+
+
+def _check_rgbd(cfg, state, img):
+    """K5 on packed ``state`` into ``rgbd_buffers`` through ``out=``,
+    against the plain renderer at the JAX kernel's bar; one launch."""
+    w = state.step.shape[-1]
+    out = ops_rgbd.rgbd_buffers(cfg, w, img, img, state.step.device)
+    n0 = ops_rgbd.RGBD.launches
+    rgba, depth = ops_rgbd.render_rgbd_packed_fast(cfg, state, img, img,
+                                                   out=out)
+    assert ops_rgbd.RGBD.launches == n0 + 1
+    assert rgba.data_ptr() == out[0].data_ptr()
+    assert depth.data_ptr() == out[1].data_ptr()
+    rgb_k, d_k = ops_rgbd.to_reference_layout(cfg, rgba, depth, img, img)
+    rgb_p, d_p = plain_rgbd.render_rgbd_packed(cfg, state, img, img)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d_k, d_p, atol=1e-3, rtol=1e-4)
+    same = (rgb_k == rgb_p).all(-1)
+    assert same.float().mean().item() >= 0.995
+    sky = d_p[..., 0] == 0
+    assert bool((same | ~sky).all())
+
+
+@pytest.mark.parametrize("kw", [FULL, CLASSIC], ids=["2v2", "3v2"])
+def test_raycast_and_rgbd_kernels_ragged(cuda, kw):
+    """K1 and K5 at 1,001 worlds (a ragged last block of 8 worlds), at
+    bench.py's 2v2 (R = 184 rays a world) and headless.py's 3v2
+    (R = 230), on an init state and after a level-8 reset (a ramp,
+    locked boxes)."""
+    cfg, ps = _state(cuda, kw, 1001, 100)
+    env = PackedEnv(cfg, device=cuda)
+    ps8, _ = env.step(ps, torch.zeros((cfg.max_agents, 5, 1001),
+                                      dtype=torch.int32, device=cuda),
+                      torch.full((1001,), 8, dtype=torch.int32, device=cuda))
+    for state in (ps, ps8):
+        _check_raycast(cfg, state)
+        _check_rgbd(cfg, state, 32)
+
+
+def test_raycast_and_rgbd_kernels_without_walls(cuda):
+    """A batch whose wall bound is 0: K5's wall loop and K1's wall list
+    are empty."""
+    cfg, ps = _state(cuda, FULL, 300, 100)
+    s = ps.statics
+    ps = ps.replace(statics=s.replace(
+        wall_active=torch.zeros_like(s.wall_active)))
+    assert int(ops_common.wall_bound(ps.statics.wall_active)) == 0
+    _check_raycast(cfg, ps)
+    _check_rgbd(cfg, ps, 32)
+
+
+def test_raycast_and_rgbd_occupancy(cuda):
+    """K1 runs 4 worlds a block and K5 8, with several blocks per SM."""
+    for name, per_block in (("raycast", 4), ("rgbd", 8)):
+        occ = ops_common.block_occupancy(name)
+        assert occ["worlds_per_block"] == per_block
+        assert occ["worlds_per_sm"] >= 16, (name, occ)
 
 
 def test_megastep_occupancy(cuda):

@@ -6,14 +6,17 @@ plain PyTorch versions on CPU tensors. This checks the kernels' arithmetic and t
 argument layout without a card; the launch itself is checked on the card
 (tests/test_torch_gpu.py, chip_smoke.py). Needs a host C++ compiler.
 
-megastep.cu runs a warp per world; as host C++ its lane helpers run the
-lanes of each phase one after another. It is built twice, with the lanes
-in forward and in reverse order (-DMHS_LANES_REVERSE): a phase that reads
-what another lane writes in the same phase - a missing barrier - gives
-different results in the two orders. Its cases also run at a world count
-that is not a multiple of the worlds per block (the ragged last block)."""
+All three sources run a warp per world (rgbd.cu: per world and agent);
+as host C++ their lane helpers (csrc/lanes.cuh) run the lanes of each
+phase, the block's load and store items and the block's warps one after
+another. Each source is built twice, in forward and in reverse order
+(-DMHS_LANES_REVERSE): a phase that reads what another lane writes in the
+same phase - a missing barrier - gives different results in the two
+orders. The cases also run at a world count that is not a multiple of
+the worlds per block (the ragged last block)."""
 
 import ctypes
+import math
 import shutil
 import subprocess
 
@@ -42,6 +45,18 @@ FLAGS = SimFlags.ZeroAgentVelocity | SimFlags.RandomFlipTeams
 TIGHT = dict(pos=1e-5, quat=1e-5, vel=1e-3, omega=2e-3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch thread for this file's small CPU tensors: the suite
+    runs it on one of several busy workers, where PyTorch's intra-op
+    threads would spin against the others' (each case takes 10-50x its
+    time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -49,11 +64,11 @@ def host_libs(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernels' sources")
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
-    for key, name, defs in (("raycast", "raycast", []),
-                            ("megastep", "megastep", []),
-                            ("megastep-reverse", "megastep",
-                             ["-DMHS_LANES_REVERSE"]),
-                            ("rgbd", "rgbd", [])):
+    for key, name, defs in [
+            (f"{name}{suffix}", name, defs)
+            for name in ("raycast", "megastep", "rgbd")
+            for suffix, defs in (("", []),
+                                 ("-reverse", ["-DMHS_LANES_REVERSE"]))]:
         so = out / f"{key}.so"
         subprocess.run(
             [cxx, "-x", "c++", "-std=c++17", "-DMHS_HOST_BUILD", *defs,
@@ -64,14 +79,19 @@ def host_libs(tmp_path_factory):
     return libs
 
 
-# Lane order of the megastep.cu host build, and the world count: the
-# configuration's (a multiple of the 4 worlds per block) or one less.
+# Lane order of the host builds, and the world count: the configuration's
+# (a multiple of the 4 worlds per block of megastep.cu and of the 8 of
+# raycast.cu and rgbd.cu) or one less.
 LANES = ["forward", "reverse"]
 WORLDS = ["aligned", "ragged"]
 
 
+def _lib(libs, name, lanes):
+    return libs[name if lanes == "forward" else f"{name}-reverse"]
+
+
 def _megastep_lib(libs, lanes):
-    return libs["megastep" if lanes == "forward" else "megastep-reverse"]
+    return _lib(libs, "megastep", lanes)
 
 
 def _sized(kw, worlds):
@@ -86,8 +106,10 @@ def _env_state(kw, step):
 
 
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
-def test_raycast_source_matches_plain(host_libs, kw):
-    cfg, ps = _env_state(kw, 0)
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_raycast_source_matches_plain(host_libs, kw, worlds, lanes):
+    cfg, ps = _env_state(_sized(kw, worlds), 0)
     st = obs_mod.world_first(ps)
     for q in (obs_mod.obs_ray_queries(cfg, st),
               obs_mod.action_ray_queries(cfg, st)):
@@ -100,7 +122,7 @@ def test_raycast_source_matches_plain(host_libs, kw):
         args = [b.pos, b.quat, b.half_ext, b.active, s.wall_pos,
                 s.wall_half_ext, s.wall_active, s.plane_point,
                 s.plane_normal, s.plane_active, o, d, m, e, t_h, id_h]
-        rc = host_libs["raycast"].mhs_raycast_host(
+        rc = _lib(host_libs, "raycast", lanes).mhs_raycast_host(
             *[ctypes.c_void_p(a.data_ptr()) for a in args],
             cfg.num_worlds, m.shape[0], cfg.num_dyn_bodies, rl, rh,
             s.wall_active.shape[0], s.plane_active.shape[0])
@@ -209,22 +231,82 @@ def test_physics_and_fused_sources_match_plain(host_libs, kw, entry, worlds,
         ps = ps.replace(bodies=bp)
 
 
+def _host_rgbd(lib, cfg, state, img):
+    """K5's host build on packed ``state``: (rgba, depth)."""
+    w = state.step.shape[-1]
+    out = ops_rgbd.rgbd_buffers(cfg, w, img, img, "cpu")
+    ptrs, ip, fp, (rgba_h, depth_h), _keep = ops_rgbd.rgbd_args(
+        cfg, state, img, img, 90.0, 200.0, out)
+    _host_call(lib.mhs_rgbd_host, ptrs, ip, fp)
+    return rgba_h, depth_h
+
+
 @pytest.mark.parametrize("kw", [REDUCED, FULL], ids=["reduced", "full"])
-def test_rgbd_source_matches_plain(host_libs, kw):
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_rgbd_source_matches_plain(host_libs, kw, worlds, lanes):
     """K5 at 16x16 on level-1 worlds and on debug level 8 (a ramp, locked
     and unlocked boxes): the same op order on both sides, so equal
     colours and depths but for a last-bit difference of a root."""
-    cfg, ps = _env_state(dict(kw, num_worlds=12), 100)
+    cfg, ps = _env_state(_sized(dict(kw, num_worlds=16), worlds), 100)
+    w = cfg.num_worlds
     env = PackedEnv(cfg, device="cpu")
-    ps8, _ = env.step(ps, torch.zeros((cfg.max_agents, 5, 12),
+    ps8, _ = env.step(ps, torch.zeros((cfg.max_agents, 5, w),
                                       dtype=torch.int32),
-                      torch.full((12,), 8, dtype=torch.int32))
+                      torch.full((w,), 8, dtype=torch.int32))
     for state in (ps, ps8):
         rgba_p, depth_p = ops_rgbd.render_rgbd_packed_fast(cfg, state, 16, 16)
-        out = ops_rgbd.rgbd_buffers(cfg, 12, 16, 16, "cpu")
-        ptrs, ip, fp, (rgba_h, depth_h), _keep = ops_rgbd.rgbd_args(
-            cfg, state, 16, 16, 90.0, 200.0, out)
-        _host_call(host_libs["rgbd"].mhs_rgbd_host, ptrs, ip, fp)
+        rgba_h, depth_h = _host_rgbd(_lib(host_libs, "rgbd", lanes), cfg,
+                                     state, 16)
         same = (rgba_h.view(torch.int32) == rgba_p.view(torch.int32))
         assert same.float().mean().item() >= 0.999
         torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)
+
+
+def _cull_scene(cfg, ps):
+    """Agent 0 of every world looks along +y from its eye e, with: box 0
+    wholly behind e; box 1 straddling the eye plane, partly in view; box
+    2 beside e, whose bounding sphere holds e; box 3 near, straight ahead,
+    and box 4 behind it, hidden; box 5 far beyond the walls. Agent 1 is
+    upside down and agent 2 pitched by 30 degrees, so that their
+    cameras' axes are not a yaw of the world's."""
+    (box_lo, _), _, (agent_lo, _) = body_slot_ranges(cfg)
+    b = ps.bodies
+    pos, quat, half = b.pos.clone(), b.quat.clone(), b.half_ext.clone()
+    active = b.active.clone()
+    eye = pos[agent_lo] + torch.tensor([0.0, 0.0, 0.5])[:, None]
+    quat[agent_lo] = torch.tensor([1.0, 0.0, 0.0, 0.0])[:, None]
+    quat[agent_lo + 1] = torch.tensor([0.0, 0.0, 1.0, 0.0])[:, None]
+    quat[agent_lo + 2] = torch.tensor(
+        [math.cos(math.pi / 12), math.sin(math.pi / 12), 0.0, 0.0])[:, None]
+    boxes = [((0.0, -3.0, 0.0), 0.5), ((-0.8, 0.0, 0.0), 0.5),
+             ((0.9, 0.5, 0.0), 0.6), ((0.0, 1.5, 0.0), 0.3),
+             ((0.0, 6.0, 0.0), 0.3), ((0.0, 150.0, 0.0), 0.5)]
+    for i, (off, h) in enumerate(boxes):
+        pos[box_lo + i] = eye + torch.tensor(off)[:, None]
+        quat[box_lo + i] = torch.tensor([1.0, 0.0, 0.0, 0.0])[:, None]
+        half[box_lo + i] = h
+        active[box_lo + i] = True
+    return ps.replace(bodies=b.replace(pos=pos, quat=quat, half_ext=half,
+                                       active=active))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_rgbd_source_culls_exactly(host_libs, lanes):
+    """K5's culls on a scene edited by hand (``_cull_scene``), at 20x20
+    (partial 16 x 8 pixel tiles at the right and bottom edges) over 9
+    worlds (a ragged second block): colours and depths equal the
+    plain renderer's (depths but for a last-bit difference of a root, as
+    in ``test_rgbd_source_matches_plain``), and both culls dropped
+    work."""
+    cfg, ps = _env_state(dict(FULL, num_worlds=9), 0)
+    ps = _cull_scene(cfg, ps)
+    lib = _lib(host_libs, "rgbd", lanes)
+    counts = (ctypes.c_longlong * 2)()
+    lib.mhs_rgbd_host_culls(counts)
+    rgba_p, depth_p = ops_rgbd.render_rgbd_packed_fast(cfg, ps, 20, 20)
+    rgba_h, depth_h = _host_rgbd(lib, cfg, ps, 20)
+    lib.mhs_rgbd_host_culls(counts)
+    assert torch.equal(rgba_h.view(torch.int32), rgba_p.view(torch.int32))
+    torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)
+    assert counts[0] > 0 and counts[1] > 0, list(counts)
