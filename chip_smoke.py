@@ -19,7 +19,18 @@ set to 0 just before and read just after:
   and K1;
 * the render path - bench.py's BENCH_RENDER=1 protocol: 20 more packed
   steps, each followed by the K5 RGBD kernel at 64x64 into buffers
-  allocated once.
+  allocated once;
+* the serve path - the inference loop of ``python -m
+  marl_hideandseek_torch.infer`` (``infer.run_inference``) on
+  ``PackedEnv`` at 16,384 worlds, 2 hiders and 2 seekers, UseFixedWorld
+  | ZeroAgentVelocity, seed 5, with the flagship ``make_policy()`` at full
+  width, 4 policies seeded from a ``torch.Generator``, for 250 stochastic
+  steps across the episode-end reset: K4 on every step, K1 on the reset
+  steps; the ensemble forward on step 100's observations is held to the
+  same modules on the CPU for 512 agents, with TF32 off;
+* the eval path - ``train.evaluate.eval_policies`` with the same 4
+  policies on the classic env at headless.py's configuration, 2,048
+  worlds, 250 steps: K3 and K1, the ELOs moving at the episode end.
 
 After the build it prints each kernel entry's ptxas registers, stack and
 spills, megastep.cu's worlds per block, shared bytes per world and
@@ -39,7 +50,8 @@ status line.
 
 ``--profile`` adds a last phase: torch.profiler over 20 main-path steps
 without resets and 5 steps with 1 % resets, printing each window's wall
-time per step, device kernel time per step, busy share and top kernels.
+time per step, device kernel time per step, busy share and top kernels,
+then over 3 of the serve path's ensemble forwards.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. Imports torch, numpy and the port only.
@@ -69,6 +81,14 @@ UNFUSED_STEPS = 10        # the classic env's unfused branch: K2 + K1
 RENDER_STEPS = 20         # bench.py BENCH_RENDER=1: a render every step
 RENDER_HW = 64
 RENDER_CHECK_WORLDS = 256  # K5 against the plain renderer on these
+SERVE_STEPS = 250         # crosses step 239: the episode-end full reset
+SERVE_POLICIES = 4
+SERVE_CHECK_AT = 100      # step whose forward is held to the CPU's
+SERVE_CHECK_AGENTS = 512
+SERVE_BAR = 1e-4          # card vs CPU forward, float32 without TF32
+SERVE_BEST_SHARE = 0.999  # best() equal on at least this share
+EVAL_WORLDS = 2048
+EVAL_STEPS = 250
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 outside the tensor cores, FLOP/s.
@@ -313,6 +333,16 @@ def main() -> int:
                           "classic init")
     phase("k2_k3_checks", t0)
 
+    # ---- 9. serve path: the inference loop on the packed env (K4, K1) -------
+    t0 = time.perf_counter()
+    serve = serve_path(dev, gpu)
+    phase("serve_path", t0)
+
+    # ---- 10. eval path: eval_policies on the classic env (K3, K1) -----------
+    t0 = time.perf_counter()
+    evaluation = eval_path(dev, serve["policy"], serve["params"], gpu)
+    phase("eval_path", t0)
+
     kernels = [
         dict(name="raycast", route="cuda",
              source="marl_hideandseek_torch/csrc/raycast.cu",
@@ -322,6 +352,8 @@ def main() -> int:
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              classic_launches=classic["launches"]["raycast"],
+             serve_launches=serve["launches"]["raycast"],
+             eval_launches=evaluation["launches"]["raycast"],
              classic_ms=k1_classic["ms"],
              classic_plain_ms=k1_classic["plain_ms"],
              classic_bound_ms=k1_classic["bound_ms"]),
@@ -332,11 +364,14 @@ def main() -> int:
         dict(name="fused", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:554",
-             launches=classic["launches"]["fused"], **steps_k["fused"]),
+             launches=classic["launches"]["fused"],
+             eval_launches=evaluation["launches"]["fused"], **steps_k["fused"]),
         dict(name="megastep", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:1064",
-             launches=launches["megastep"], max_abs_err=k4_err, ms=k4_ms,
+             launches=launches["megastep"],
+             serve_launches=serve["launches"]["megastep"],
+             max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None),
         dict(name="rgbd", route="cuda",
@@ -352,6 +387,7 @@ def main() -> int:
                             "no resets")
         profile_window(env, ps, 5, random_actions, gen, RESET_FRACTION,
                        "1 % resets")
+        profile_forward(serve["forward"], 3)
         phase("profile", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": kernels}))
@@ -360,6 +396,263 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def seeded_policy(dev, gen):
+    """The flagship policy at full width, SERVE_POLICIES policies drawn
+    from ``gen``; the zero-initialised leaves (biases, the critic's
+    kernel) moved off zero from the same generator so that they take part.
+    Returns (policy, params)."""
+    from marl_hideandseek_torch.policy import make_policy
+
+    policy = make_policy(num_policies=SERVE_POLICIES, device=dev,
+                         generator=gen)
+    params = dict(policy.actor_critic.named_parameters())
+    with torch.no_grad():
+        for p in params.values():
+            if not bool(p.any()):
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    return policy, params
+
+
+def seeded_stats(norm, obs, gen):
+    """Normalizer statistics for observations ``obs`` ([N, ...] prepped):
+    means drawn around 0 and variances in [0.5, 2) from ``gen``."""
+    st = norm.init_state(obs)
+    for k in st.mean:
+        f = st.mean[k].shape
+        st.mean[k] = (0.1 * torch.randn(f, generator=gen)).to(obs[k].device)
+        st.var[k] = (0.5 + 1.5 * torch.rand(f, generator=gen)).to(
+            obs[k].device)
+    return st
+
+
+def flat_obs(norm, obs):
+    """[W, A, ...] observations -> prepped [W * A, ...]."""
+    return {k: v.flatten(0, 1) for k, v in norm.prep(obs).items()}
+
+
+def dense_macs(module, fn) -> int:
+    """Multiply-adds of the dense products (``models/layers.py::Dense``)
+    that ``fn()`` runs through ``module``, counted from each call's shapes
+    by forward hooks."""
+    from marl_hideandseek_torch.models.layers import Dense
+
+    total = [0]
+
+    def hook(mod, args, out):
+        n_in = math.prod(mod.in_shape)
+        rows = args[0].numel() // (args[0].shape[0] * n_in)
+        total[0] += (mod.kernel.shape[0] * rows * n_in *
+                     math.prod(mod.out_shape))
+
+    hs = [m.register_forward_hook(hook) for m in module.modules()
+          if isinstance(m, Dense)]
+    try:
+        fn()
+    finally:
+        for h in hs:
+            h.remove()
+    return total[0]
+
+
+def serve_path(dev, gpu):
+    """The inference loop (``infer.run_inference``) for SERVE_STEPS
+    stochastic steps on the packed env with SERVE_POLICIES seeded flagship
+    policies; per step finite logits, values and LSTM states, actions in
+    their buckets, and a zero LSTM state for every agent whose episode
+    ended; K4 on every step and K1 on the reset step; the ensemble forward
+    on step SERVE_CHECK_AT's inputs against the same modules on the CPU
+    for SERVE_CHECK_AGENTS agents; the forward's time and FLOP/s."""
+    from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env.packed import PackedEnv
+    from marl_hideandseek_torch.infer import run_inference
+    from marl_hideandseek_torch.models import DiscreteActionDistributions
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.ops import rays, step
+    from marl_hideandseek_torch.policy import make_policy
+    from marl_hideandseek_torch.train.rollout import apply_ensemble
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and
+            not torch.backends.cudnn.allow_tf32 and
+            torch.get_float32_matmul_precision() == "highest",
+            "TF32 must be off for the float32 forward")
+    cfg = EnvConfig(
+        num_worlds=WORLDS, min_hiders=2, max_hiders=2, min_seekers=2,
+        max_seekers=2, rand_seed=SEED,
+        sim_flags=SimFlags.UseFixedWorld | SimFlags.ZeroAgentVelocity)
+    n = WORLDS * cfg.max_agents
+    gen = torch.Generator().manual_seed(SEED)
+    policy, params = seeded_policy(dev, gen)
+    norm = policy.obs_preprocess
+    small = PackedEnv(cfg.replace(num_worlds=8), device=dev)
+    stats = seeded_stats(norm, flat_obs(norm, small.init()[1].obs), gen)
+    buckets = torch.tensor(policy.actor_critic.actor.buckets, device=dev)
+    env = PackedEnv(cfg, device=dev)
+    ok = {"finite": torch.ones((), dtype=torch.bool, device=dev),
+          "in_buckets": torch.ones((), dtype=torch.bool, device=dev),
+          "cleared": torch.ones((), dtype=torch.bool, device=dev),
+          "done_agents": torch.zeros((), dtype=torch.long, device=dev)}
+    saved = {}
+    pick = torch.randperm(n, generator=gen)[:SERVE_CHECK_AGENTS].to(dev)
+
+    def on_step(d):
+        leaves = [d["logits"], d["values"]] + [
+            x for enc in d["rnn_next"] for x in enc]
+        ok["finite"] &= torch.stack([torch.isfinite(x).all()
+                                     for x in leaves]).all()
+        ok["in_buckets"] &= ((d["actions"] >= 0) &
+                             (d["actions"] < buckets)).all()
+        done = d["result"].dones.T.reshape(-1).to(torch.float32)
+        for x in (x for enc in d["rnn_next"] for x in enc):
+            ok["cleared"] &= (x.abs() * done[None, :, None]).amax() == 0
+        ok["done_agents"] += done.sum().to(torch.long)
+        if d["step"] == cfg.episode_len - 2:
+            torch.cuda.synchronize()
+            saved["k1_before_reset"] = rays.RAYCAST.launches
+        if d["step"] == SERVE_CHECK_AT:
+            saved.update(
+                obs={k: v.clone() for k, v in d["obs"].items()},
+                rnn=tree_map(torch.clone, d["rnn"]),
+                assignments=d["assignments"].clone(),
+                logits=d["logits"][pick].clone(),
+                values=d["values"][pick].clone(),
+                rnn_next=tree_map(lambda x: x[:, pick].clone(),
+                                  d["rnn_next"]),
+                dones=int(d["dones"].sum()))
+
+    rays.RAYCAST.launches = 0
+    step.MEGASTEP.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_inference(env, policy, params, stats, SERVE_STEPS,
+                        iter_cb=on_step, timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"megastep": step.MEGASTEP.launches,
+                "raycast": rays.RAYCAST.launches}
+    require(launches["megastep"] == SERVE_STEPS,
+            f"serve path: K4 launches {launches['megastep']}, expected "
+            f"{SERVE_STEPS}")
+    require(launches["raycast"] > saved["k1_before_reset"],
+            f"serve path: no K1 launch on the reset step ({launches})")
+    require(env.reset_counts["full"] >= 1, "serve path: no episode end")
+    require(bool(ok["finite"]), "serve path: non-finite logits, values or "
+            "LSTM states")
+    require(bool(ok["in_buckets"]), "serve path: an action outside its "
+            "bucket")
+    require(bool(ok["cleared"]) and int(ok["done_agents"]) >= n,
+            f"serve path: LSTM state of done agents not zero after the "
+            f"clear ({int(ok['done_agents'])} done agents)")
+    require(saved["dones"] == 0, "serve path: an episode ended at the "
+            "checked step")
+
+    # Step SERVE_CHECK_AT's forward: card against the CPU, then timed.
+    cpu_policy = make_policy(num_policies=SERVE_POLICIES, device="cpu")
+    cpu_params = {k: v.detach().cpu() for k, v in params.items()}
+    sub = lambda x: x[pick].cpu()
+    cpu_obs = {k: sub(v) for k, v in saved["obs"].items()}
+    cpu_rnn = tree_map(lambda x: x[:, pick].cpu(), saved["rnn"])
+    cpu_stats = stats.to("cpu")
+    with torch.no_grad():
+        cpu_fwd = lambda: apply_ensemble(
+            cpu_policy, cpu_params, cpu_rnn,
+            norm.normalize(cpu_stats, cpu_obs), sub(saved["assignments"]),
+            SERVE_POLICIES)
+        lg, val, rnn_c = cpu_fwd()
+        macs = dense_macs(cpu_policy.actor_critic, cpu_fwd)
+    macs_agent = macs // (SERVE_CHECK_AGENTS * SERVE_POLICIES)
+    errs = {"logits": max_err(saved["logits"].cpu(), lg),
+            "values": max_err(saved["values"].cpu(), val),
+            "rnn": max(max_err(a.cpu(), b) for a, b in zip(
+                [x for enc in saved["rnn_next"] for x in enc],
+                [x for enc in rnn_c for x in enc]))}
+    buck = tuple(policy.actor_critic.actor.buckets)
+    best_eq = (DiscreteActionDistributions(buck, saved["logits"].cpu())
+               .best() == DiscreteActionDistributions(buck, lg).best()
+               ).all(-1).float().mean().item()
+    log(f"serve forward, card vs CPU on {SERVE_CHECK_AGENTS} agents of step "
+        f"{SERVE_CHECK_AT}: max abs err {errs}; best() equal on {best_eq:.6f};"
+        f" TF32 off")
+    require(max(errs.values()) <= SERVE_BAR,
+            f"serve forward: card vs CPU {errs} > {SERVE_BAR}")
+    require(best_eq >= SERVE_BEST_SHARE,
+            f"serve forward: best() equal on {best_eq} < {SERVE_BEST_SHARE}")
+
+    full_obs = norm.normalize(stats, saved["obs"])
+    fwd = lambda: apply_ensemble(policy, params, saved["rnn"], full_obs,
+                                 saved["assignments"], SERVE_POLICIES)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd, 10)
+    flop = 2.0 * macs_agent * n * SERVE_POLICIES
+    step_ms = out["forward_ms"] + out["env_ms"]
+    log(f"serve path: {SERVE_STEPS} steps x {WORLDS} worlds x "
+        f"{SERVE_POLICIES} policies; per step (CUDA events in the loop) "
+        f"forward {out['forward_ms']:.3f} ms (normalize, ensemble, draw) + "
+        f"env step {out['env_ms']:.3f} ms = {step_ms:.3f} ms, serve rate "
+        f"{WORLDS / step_ms * 1e3:.1f} steps x worlds / s, "
+        f"{WORLDS * cfg.max_agents / step_ms * 1e3:.1f} agent steps / s; "
+        f"wall with init and checks {wall:.3f} s = "
+        f"{SERVE_STEPS * WORLDS / wall:.1f} steps x worlds / s; resets "
+        f"{env.reset_counts}; launches {launches}; {gpu}")
+    log(f"serve forward alone: {fwd_ms:.3f} ms per step of {n} agents x "
+        f"{SERVE_POLICIES} policies = "
+        f"{n * SERVE_POLICIES / fwd_ms * 1e3:.4g} agent-policy forwards / s;"
+        f" {macs_agent} multiply-adds per agent per policy, "
+        f"{flop / 1e12:.4f} TFLOP a step, {flop / fwd_ms / 1e9:.4g} TFLOP/s "
+        f"= {flop / fwd_ms / 1e9 / (PEAK_F32 / 1e12):.4f} of the "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s FP32 peak (least time "
+        f"{flop / PEAK_F32 * 1e3:.3f} ms); {gpu}")
+    return dict(policy=policy, params=params, launches=launches,
+                forward=fwd)
+
+
+def eval_path(dev, policy, params, gpu):
+    """``eval_policies`` for EVAL_STEPS competitive steps with the serve
+    path's policies on the classic env at headless.py's configuration and
+    EVAL_WORLDS worlds: K3 on every step, K1 on the reset steps, at least
+    one finished episode, and ELOs moved from 1,500 and finite."""
+    from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env.env import HideAndSeekEnv
+    from marl_hideandseek_torch.ops import fused, rays
+    from marl_hideandseek_torch.train import (
+        ActionsConfig,
+        EvalConfig,
+        eval_policies,
+    )
+    from marl_hideandseek_torch.train.elo import ELO_START
+
+    cfg = EnvConfig(num_worlds=EVAL_WORLDS, min_hiders=3, max_hiders=3,
+                    min_seekers=2, max_seekers=2,
+                    sim_flags=SimFlags.Default, rand_seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    norm = policy.obs_preprocess
+    small = HideAndSeekEnv(cfg.replace(num_worlds=4), device=dev)
+    stats = seeded_stats(norm, flat_obs(norm, small.init()[1].obs), gen)
+    env = HideAndSeekEnv(cfg, device=dev)
+    ecfg = EvalConfig(num_worlds=EVAL_WORLDS, num_teams=2, team_size=3,
+                      num_eval_steps=EVAL_STEPS, actions=ActionsConfig())
+    fused.FUSED.launches = 0
+    rays.RAYCAST.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eval_policies(dev, ecfg, env, policy, params, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused": fused.FUSED.launches,
+                "raycast": rays.RAYCAST.launches}
+    elo = out["elo"].cpu()
+    log(f"eval path: {EVAL_STEPS} steps x {EVAL_WORLDS} worlds in "
+        f"{wall:.3f} s = {EVAL_STEPS * EVAL_WORLDS / wall:.1f} steps x "
+        f"worlds / s; episodes finished {out['episodes_finished']}; ELOs "
+        f"{[round(float(e), 3) for e in elo]}; launches {launches}; {gpu}")
+    require(launches["fused"] == EVAL_STEPS and launches["raycast"] > 0,
+            f"eval path launches {launches}")
+    require(out["episodes_finished"] >= 1, "eval path: no episode finished")
+    require(bool(torch.isfinite(elo).all()) and
+            float((elo - ELO_START).abs().max()) > 0.0,
+            f"eval path: ELOs {elo.tolist()} did not move or are not finite")
+    return dict(launches=launches)
 
 
 def check_k1(cfg, ps, label: str) -> dict:
@@ -782,6 +1075,40 @@ def k4_outputs(rk) -> list:
             ps2.running_scores, ps2.finished_scores]
 
 
+def device_rows(prof) -> list:
+    """(name, device time in us, calls) of the device's own events -
+    kernels and copies - by device time. The operator rows that launched
+    them are left out: they carry the same device time again."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.key, e.device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and
+                   e.device_time_total > 0), key=lambda r: -r[1])
+
+
+def profile_forward(fwd, reps: int) -> None:
+    """torch.profiler over ``reps`` of the serve path's ensemble forward:
+    device kernel time per forward and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows) / 1e3
+    log(f"profile [serve forward] {reps} forwards: {wall / reps * 1e3:.3f} "
+        f"ms wall each (under the profiler); device kernel time "
+        f"{busy / reps:.3f} ms each")
+    for key, t, n in rows[:15]:
+        log(f"  {t / 1e3 / reps:9.4f} ms/fwd {n:7d} calls  {key[:90]}")
+
+
 def profile_window(env, ps, steps, random_actions, gen, reset_frac, label):
     """torch.profiler over ``steps`` main-path steps: wall and device
     kernel time per step, busy share (kernel-time sum over wall time) and
@@ -799,9 +1126,7 @@ def profile_window(env, ps, steps, random_actions, gen, reset_frac, label):
             ps, _ = env.step(ps, random_actions(), resets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted(((e.key, e.device_time_total, e.count)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  key=lambda r: -r[1])
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows) / 1e3                     # ms
     log(f"profile [{label}] {steps} steps: {wall / steps * 1e3:.3f} ms/step "
         f"wall (under the profiler); device kernel time "

@@ -7,19 +7,30 @@ on its leaves, and this module builds the port's ``EnvState`` from it, or
 turns an ``EnvState`` back into one. The layout (world axis first for the
 classic env, last for the packed one) is whatever the arrays carry;
 dtypes are kept, including the u32 key leaves. A ``Checkpoint`` crosses
-as a flat mapping of its fields, the RGBD tensors as a pair of arrays. No
-JAX object is accepted here.
+as a flat mapping of its fields, the RGBD tensors as a pair of arrays.
+
+Policy weights cross as the flax parameter tree, nested dicts of numpy
+arrays (``policy_params_from_numpy``), and the normalizer statistics as
+``{"mean": {...}, "var": {...}, "count": ...}``
+(``normalizer_state_from_numpy``). The port's policy checkpoint is a
+``torch.save`` file of a dict - ``params`` and ``past_params`` (flat
+parameter dicts with the leading policy axis), ``obs_stats`` and ``elo``
+(``save_policy_checkpoint`` / ``load_policy_checkpoint``); reading an
+orbax checkpoint stays on the JAX side (README.md). No JAX object is
+accepted here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from marl_hideandseek_torch.env.checkpoint import Checkpoint
+from marl_hideandseek_torch.models import Policy
+from marl_hideandseek_torch.models.normalizer import NormalizerState
 from marl_hideandseek_torch.types import (
     EnvState,
     GrabState,
@@ -92,3 +103,118 @@ def rgbd_from_numpy(rgb, depth, device="cpu"):
 def rgbd_to_numpy(rgb: torch.Tensor, depth: torch.Tensor):
     """RGBD tensors -> (rgb, depth) numpy arrays (host copies)."""
     return rgb.cpu().numpy(), depth.cpu().numpy()
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """Nested mapping -> ``{"a.b.c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def check_policy_params(params: Mapping[str, torch.Tensor],
+                        policy: Policy) -> int:
+    """Raise unless ``params`` (flat, leading policy axis) names exactly
+    the policy's parameters with their per-policy shapes and one policy
+    count; return that count."""
+    expected = {k: tuple(v.shape[1:]) for k, v in
+                policy.actor_critic.named_parameters()}
+    missing = sorted(set(expected) - set(params))
+    extra = sorted(set(params) - set(expected))
+    if missing or extra:
+        raise ValueError(f"policy parameters: missing {missing}, "
+                         f"extra {extra}")
+    counts = set()
+    for k, v in params.items():
+        if tuple(v.shape[1:]) != expected[k]:
+            raise ValueError(f"policy parameter {k}: shape {tuple(v.shape)},"
+                             f" expected [P, {expected[k]}]")
+        counts.add(v.shape[0])
+    if len(counts) != 1:
+        raise ValueError(f"policy parameters disagree on the policy count: "
+                         f"{sorted(counts)}")
+    return counts.pop()
+
+
+def policy_params_from_numpy(tree: Mapping, policy: Policy,
+                             device="cpu") -> Dict[str, torch.Tensor]:
+    """The flax parameter tree (``{"params": {...}}`` or the bare tree;
+    nested dicts of numpy arrays, every leaf with or without a leading
+    policy axis P) -> the port's flat parameter dict ``{"backbone.
+    actor_encoder.net.MLP_0.Dense_0.kernel": [P, ...], ...}`` on
+    ``device``, loaded into ``policy.actor_critic`` as well. Raises on a
+    missing, extra or mis-shaped leaf. Dense kernels keep flax's ``[in,
+    out]`` layout."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = {k: np.asarray(v) for k, v in flatten_tree(tree).items()}
+    module = dict(policy.actor_critic.named_parameters())
+    has_p = [v.ndim == module[k].ndim for k, v in flat.items()
+             if k in module]
+    stacked = all(has_p)
+    if not stacked and any(has_p):
+        raise ValueError("flax tree: some leaves have the policy axis and "
+                         "some do not")
+    params = {}
+    for k, v in flat.items():
+        t = torch.from_numpy(np.ascontiguousarray(v).copy())
+        params[k] = t if stacked else t.unsqueeze(0)
+    check_policy_params(params, policy)
+    params = {k: v.to(device=device, dtype=module[k].dtype)
+              for k, v in params.items()}
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(policy.actor_critic.get_submodule(owner), leaf,
+                torch.nn.Parameter(t, requires_grad=False))
+    return params
+
+
+def normalizer_state_from_numpy(tree: Mapping,
+                                device="cpu") -> NormalizerState:
+    """``{"mean": {key: [F]}, "var": {key: [F]}, "count": scalar}`` of
+    numpy arrays -> ``NormalizerState`` on ``device``."""
+    if set(tree) != {"mean", "var", "count"}:
+        raise ValueError(f"normalizer state keys {sorted(tree)}, expected "
+                         f"count, mean, var")
+    if set(tree["mean"]) != set(tree["var"]):
+        raise ValueError("normalizer state: mean and var keys differ")
+    return NormalizerState(
+        mean={k: _to_tensor(v, device) for k, v in tree["mean"].items()},
+        var={k: _to_tensor(v, device) for k, v in tree["var"].items()},
+        count=_to_tensor(tree["count"], device))
+
+
+def save_policy_checkpoint(path, params: Mapping[str, torch.Tensor],
+                           obs_stats: NormalizerState, elo,
+                           past_params: Optional[Mapping] = None) -> None:
+    """Write the port's policy checkpoint: ``params`` and ``past_params``
+    (flat dicts, leading policy axis; ``past_params`` may be empty), the
+    normalizer statistics and one ELO per train policy, then per past
+    policy."""
+    def cpu(d):
+        return {k: v.detach().cpu() for k, v in d.items()}
+
+    torch.save({
+        "params": cpu(params),
+        "past_params": cpu(past_params or {}),
+        "obs_stats": {"mean": cpu(obs_stats.mean), "var": cpu(obs_stats.var),
+                      "count": obs_stats.count.detach().cpu()},
+        "elo": torch.tensor(np.asarray(elo, dtype=np.float32)),
+    }, path)
+
+
+def load_policy_checkpoint(path, device="cpu") -> dict:
+    """Read a file of ``save_policy_checkpoint`` onto ``device``: a dict
+    with ``params``, ``past_params``, ``obs_stats`` (a
+    ``NormalizerState``) and ``elo``."""
+    raw = torch.load(path, map_location=device, weights_only=True)
+    st = raw["obs_stats"]
+    return {"params": raw["params"], "past_params": raw["past_params"],
+            "obs_stats": NormalizerState(mean=st["mean"], var=st["var"],
+                                         count=st["count"]),
+            "elo": raw["elo"]}

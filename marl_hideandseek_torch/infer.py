@@ -1,0 +1,173 @@
+"""Inference entry point: a policy checkpoint's policies act in the packed
+env (port of scripts/infer.py).
+
+    python -m marl_hideandseek_torch.infer --ckpt-path FILE
+        [--num-worlds 16] [--num-steps 3600] [--num-hiders 3]
+        [--num-seekers 3] [--deterministic] [--single-policy K]
+        [--train-only] [--bf16] [--print-obs] [--device cuda|cpu]
+
+Loads a checkpoint written by ``bridge.save_policy_checkpoint`` (any
+ensemble size; a JAX orbax checkpoint converts to one, README.md), runs
+episodes on a fixed world (``UseFixedWorld | ZeroAgentVelocity``, seed
+5) with round-robin team-against-team matchups, and prints the episode
+scores, the wins per team slot and the policies' ELOs. The loop is
+``run_inference``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
+from marl_hideandseek_torch.policy import make_policy
+from marl_hideandseek_torch.train.elo import print_elos
+from marl_hideandseek_torch.train.evaluate import eval_load_ckpt
+from marl_hideandseek_torch.train.rollout import apply_ensemble
+from marl_hideandseek_torch.types import AGENT_HIDER
+
+
+def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
+                  num_steps: int, *, deterministic: bool = False,
+                  iter_cb: Optional[Callable] = None,
+                  timing: bool = False) -> dict:
+    """``num_steps`` steps of the packed env from ``env.init()``, the
+    policies' actions from ``apply_ensemble`` (``best()`` when
+    ``deterministic``, else drawn from a generator seeded 7 on the env's
+    device). Matchups are round robin over the policy axis and
+    keyed by team membership at each step: a world's hiders play
+    ``t0``, its seekers ``t1``. Recurrent state is cleared for agents
+    whose episode ended.
+
+    ``iter_cb(step_data)`` gets, per step: the forward's inputs (``obs``,
+    prepped but not normalized, ``rnn``, ``assignments``), its outputs
+    (``logits``, ``values``), the ``actions``, the recurrent state after
+    the clear (``rnn_next``), the per-world ``dones`` and the env's
+    ``result``. With ``timing`` (CUDA only), CUDA events time each step's
+    forward (normalize, ensemble, action draw) and env step.
+
+    Returns the wins per team slot ``[2]``, the episodes finished, and
+    with ``timing`` the mean forward and env-step milliseconds."""
+    cfg = env.cfg
+    w, a = cfg.num_worlds, cfg.max_agents
+    n = w * a
+    dev = env.device
+    norm = policy.obs_preprocess
+    ac = policy.actor_critic
+    buckets = ac.actor.buckets
+    n_pol = next(iter(params.values())).shape[0]
+    gen = torch.Generator(dev).manual_seed(7)
+    w_idx = torch.arange(w, device=dev)
+    t0 = w_idx % n_pol
+    t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
+
+    def flat(o):
+        return {k: v.reshape((n,) + v.shape[2:])
+                for k, v in norm.prep(o).items()}
+
+    wins = torch.zeros(2, device=dev)
+    finished = torch.zeros((), dtype=torch.long, device=dev)
+    events = []
+    with torch.no_grad():
+        env_state, result = env.init()
+        obs = flat(result.obs)
+        rnn = ac.init_recurrent_state(n, dev)
+        for i in range(num_steps):
+            if timing:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+            normalized = norm.normalize(obs_stats, obs)
+            is_h = (env_state.agent_type == AGENT_HIDER).T       # [W, A]
+            assignments = torch.where(is_h, t0[:, None],
+                                      t1[:, None]).reshape(-1)
+            logits, values, new_rnn = apply_ensemble(
+                policy, params, rnn, normalized, assignments, n_pol)
+            dists = DiscreteActionDistributions(buckets, logits)
+            actions = dists.best() if deterministic else dists.sample(gen)
+            if timing:
+                ev[1].record()
+            env_state, result = env.step(
+                env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
+            if timing:
+                ev[2].record()
+                events.append(ev)
+            dones = result.dones.T.reshape(-1).to(torch.bool)
+            rnn_next = ac.clear_recurrent_state(new_rnn, dones)
+            dones_w = result.dones[0].to(torch.bool)              # [W]
+            wins += (result.episode_results.T * dones_w[:, None]).sum(0)
+            finished += dones_w.sum()
+            if iter_cb is not None:
+                iter_cb({"step": i, "obs": obs, "rnn": rnn,
+                         "assignments": assignments, "logits": logits,
+                         "values": values, "actions": actions,
+                         "rnn_next": rnn_next, "dones": dones_w,
+                         "result": result})
+            obs, rnn = flat(result.obs), rnn_next
+    out = {"wins": wins, "episodes_finished": int(finished)}
+    if timing:
+        torch.cuda.synchronize(dev)
+        out["forward_ms"] = float(np.mean(
+            [e[0].elapsed_time(e[1]) for e in events]))
+        out["env_ms"] = float(np.mean(
+            [e[1].elapsed_time(e[2]) for e in events]))
+    return out
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--ckpt-path", type=str, required=True)
+    p.add_argument("--num-worlds", type=int, default=16)
+    p.add_argument("--num-steps", type=int, default=3600)
+    p.add_argument("--num-hiders", type=int, default=3)
+    p.add_argument("--num-seekers", type=int, default=3)
+    p.add_argument("--print-obs", action="store_true")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--deterministic", action="store_true")
+    p.add_argument("--single-policy", type=int, default=None,
+                   help="evaluate one policy against itself")
+    p.add_argument("--train-only", action="store_true",
+                   help="drop past policies from the eval population")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    cfg = EnvConfig(
+        num_worlds=args.num_worlds,
+        min_hiders=args.num_hiders, max_hiders=args.num_hiders,
+        min_seekers=args.num_seekers, max_seekers=args.num_seekers,
+        sim_flags=SimFlags.UseFixedWorld | SimFlags.ZeroAgentVelocity,
+        rand_seed=5,
+    )
+    env = PackedEnv(cfg, device=args.device)
+    policy = make_policy(dtype=dtype, device=env.device)
+    params, obs_stats, elo = eval_load_ckpt(
+        policy, args.ckpt_path, single_policy=args.single_policy,
+        train_only=args.train_only, device=env.device)
+
+    def report(d):
+        dones = d["dones"].cpu().numpy()
+        if dones.any():
+            scores = d["result"].episode_results.T.cpu().numpy()
+            print(f"step {d['step']}: episode scores {scores[dones]}")
+        if args.print_obs:
+            print({k: v[0, 0].cpu().numpy()
+                   for k, v in d["result"].obs.items()})
+
+    out = run_inference(env, policy, params, obs_stats, args.num_steps,
+                        deterministic=args.deterministic, iter_cb=report)
+    print(f"total wins by team slot: {out['wins'].cpu().numpy()}")
+    print_elos(elo)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (K1 raycast, K2 physics, K3
 fused physics + sweep, K4 megastep, K5 RGBD) against its plain PyTorch
 version on CUDA tensors, the packed env's main path through K1 and K4,
-and the classic env through K3, K2 and K1.
+the classic env through K3, K2 and K1, the flagship policy ensemble's
+forward against the CPU's, and the inference loop through K4 and K1.
 
 Marked ``gpu``; every test skips here without a card (decided in the
 ``cuda`` fixture). On a machine with one:
@@ -20,12 +21,15 @@ from marl_hideandseek_torch.env import observations as obs_mod
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.env.env import HideAndSeekEnv
 from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.infer import run_inference
 from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import fused as ops_fused
 from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rays as ops_rays
 from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import step as ops_step
+from marl_hideandseek_torch.policy import make_policy
+from marl_hideandseek_torch.train.rollout import apply_ensemble
 from marl_hideandseek_torch.types import unpack_state
 from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
@@ -356,3 +360,77 @@ def test_classic_env_uses_fused_and_raycast(cuda):
     rgb, depth = env.rgbd(st, 16, 16)
     assert ops_rgbd.RGBD.launches == n0 + 1
     assert rgb.shape == (512, 5, 16, 16, 4) and depth.shape[-1] == 1
+
+
+def _policy_inputs(cuda, w):
+    """A 4-policy flagship ensemble on the card with seeded weights and
+    statistics, and the packed env's observations of ``w`` 2v2 worlds."""
+    gen = torch.Generator().manual_seed(0)
+    pol = make_policy(num_policies=4, device=cuda, generator=gen)
+    params = dict(pol.actor_critic.named_parameters())
+    with torch.no_grad():
+        for p in params.values():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen).to(cuda))
+    cfg = EnvConfig(num_worlds=w, **FULL, rand_seed=3,
+                    sim_flags=SimFlags.UseFixedWorld |
+                    SimFlags.ZeroAgentVelocity)
+    norm = pol.obs_preprocess
+    obs = {k: v.flatten(0, 1) for k, v in
+           norm.prep(PackedEnv(cfg, device=cuda).init()[1].obs).items()}
+    stats = norm.init_state(obs)
+    for k in stats.mean:
+        stats.mean[k] += 0.1
+    return cfg, pol, params, obs, stats
+
+
+def test_ensemble_forward_matches_cpu(cuda):
+    """4 policies, 1,024 agents: logits, values and LSTM states on the
+    card within 1e-4 of the same modules on the CPU, float32 without
+    TF32."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, pol, params, obs, stats = _policy_inputs(cuda, 256)
+    n = obs["self_data"].shape[0]
+    g = torch.Generator().manual_seed(1)
+    rnn = tuple(tuple(0.5 * torch.randn(1, n, 256, generator=g)
+                      for _ in range(2)) for _ in range(2))
+    assign = torch.randint(0, 4, (n,), generator=g)
+    norm = pol.obs_preprocess
+    with torch.no_grad():
+        card = apply_ensemble(
+            pol, params, tuple(tuple(x.to(cuda) for x in e) for e in rnn),
+            norm.normalize(stats, obs), assign.to(cuda), 4)
+        cpu_pol = make_policy(num_policies=4, device="cpu")
+        cpu = apply_ensemble(
+            cpu_pol, {k: v.cpu() for k, v in params.items()}, rnn,
+            norm.normalize(stats.to("cpu"),
+                           {k: v.cpu() for k, v in obs.items()}),
+            assign, 4)
+    torch.testing.assert_close(card[0].cpu(), cpu[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(card[1].cpu(), cpu[1], atol=1e-4, rtol=0)
+    for a, b in zip([x for e in card[2] for x in e],
+                    [x for e in cpu[2] for x in e]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def test_inference_loop_uses_megastep_and_raycast(cuda):
+    """``run_inference`` at 512 worlds over a 20-step episode and 5 more
+    steps: K4 on every step, K1 on the reset, finite outputs, every
+    world's episode finished and its agents' LSTM state cleared."""
+    cfg, pol, params, _, stats = _policy_inputs(cuda, 512)
+    env = PackedEnv(cfg.replace(episode_len=20), device=cuda)
+    k4, k1 = ops_step.MEGASTEP.launches, ops_rays.RAYCAST.launches
+    seen = []
+
+    def on_step(d):
+        if d["step"] == 19:
+            seen.append([x.abs().max().item() for e in d["rnn_next"]
+                         for x in e])
+        assert bool(torch.isfinite(d["logits"]).all())
+
+    out = run_inference(env, pol, params, stats, 25, iter_cb=on_step,
+                        timing=True)
+    assert ops_step.MEGASTEP.launches - k4 == 25
+    assert ops_rays.RAYCAST.launches - k1 >= 4        # init + the reset
+    assert out["episodes_finished"] == 512
+    assert seen == [[0.0] * 4]
+    assert out["forward_ms"] > 0 and out["env_ms"] > 0
