@@ -30,7 +30,19 @@ set to 0 just before and read just after:
   same modules on the CPU for 512 agents, with TF32 off;
 * the eval path - ``train.evaluate.eval_policies`` with the same 4
   policies on the classic env at headless.py's configuration, 2,048
-  worlds, 250 steps: K3 and K1, the ELOs moving at the episode end.
+  worlds, 250 steps: K3 and K1, the ELOs moving at the episode end;
+* the train path - ``python -m marl_hideandseek_torch.train``'s
+  ``build`` at train.sh's recipe (1,024 worlds, 2v2, RandomFlipTeams |
+  UseFixedWorld | ZeroAgentVelocity, seed 5, PBT 2 train + 2 past
+  policies with grouped PPO, lr and entropy coefficient explored, the
+  Dreamer critic, the flagship policy at full width) in float32 with TF32
+  off, then ``init_training``, 7 ``update_iter`` (280 steps, across the
+  episode end), ``eval_elo`` (240 steps), ``explore_exploit`` and
+  ``refresh_past_policies``, and a checkpoint round trip: K4 on every
+  step, K1 on the init and reset steps; the first update's
+  ``ppo_update`` on 64 worlds of its buffer against the CPU's at the CPU
+  tests' bars (tests/test_torch_train.py); the training rate, rollout and
+  PPO ms per update and the PPO update's FLOP/s.
 
 After the build it prints each kernel entry's ptxas registers, stack and
 spills, megastep.cu's worlds per block, shared bytes per world and
@@ -51,7 +63,8 @@ status line.
 ``--profile`` adds a last phase: torch.profiler over 20 main-path steps
 without resets and 5 steps with 1 % resets, printing each window's wall
 time per step, device kernel time per step, busy share and top kernels,
-then over 3 of the serve path's ensemble forwards.
+then over 3 of the serve path's ensemble forwards and over one more
+training update of the train path.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. Imports torch, numpy and the port only.
@@ -62,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -89,6 +103,9 @@ SERVE_BAR = 1e-4          # card vs CPU forward, float32 without TF32
 SERVE_BEST_SHARE = 0.999  # best() equal on at least this share
 EVAL_WORLDS = 2048
 EVAL_STEPS = 250
+TRAIN_WORLDS = 1024       # train.sh's recipe
+TRAIN_UPDATES = 7         # 280 steps: crosses the 240-step episode end
+TRAIN_CHECK_WORLDS = 64   # update 1's PPO held to the CPU's on these
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 outside the tensor cores, FLOP/s.
@@ -343,6 +360,11 @@ def main() -> int:
     evaluation = eval_path(dev, serve["policy"], serve["params"], gpu)
     phase("eval_path", t0)
 
+    # ---- 11. train path: train.sh's recipe at 1,024 worlds (K4, K1) ---------
+    t0 = time.perf_counter()
+    training = train_path(dev, gpu)
+    phase("train_path", t0)
+
     kernels = [
         dict(name="raycast", route="cuda",
              source="marl_hideandseek_torch/csrc/raycast.cu",
@@ -354,6 +376,7 @@ def main() -> int:
              classic_launches=classic["launches"]["raycast"],
              serve_launches=serve["launches"]["raycast"],
              eval_launches=evaluation["launches"]["raycast"],
+             train_launches=training["launches"]["raycast"],
              classic_ms=k1_classic["ms"],
              classic_plain_ms=k1_classic["plain_ms"],
              classic_bound_ms=k1_classic["bound_ms"]),
@@ -371,6 +394,7 @@ def main() -> int:
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:1064",
              launches=launches["megastep"],
              serve_launches=serve["launches"]["megastep"],
+             train_launches=training["launches"]["megastep"],
              max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None),
@@ -388,6 +412,7 @@ def main() -> int:
         profile_window(env, ps, 5, random_actions, gen, RESET_FRACTION,
                        "1 % resets")
         profile_forward(serve["forward"], 3)
+        profile_update(training["mgr"])
         phase("profile", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": kernels}))
@@ -653,6 +678,314 @@ def eval_path(dev, policy, params, gpu):
             float((elo - ELO_START).abs().max()) > 0.0,
             f"eval path: ELOs {elo.tolist()} did not move or are not finite")
     return dict(launches=launches)
+
+
+def train_path(dev, gpu):
+    """Training at train.sh's recipe through the entry points of ``python
+    -m marl_hideandseek_torch.train`` (its ``build``, ``init_training``,
+    ``update_iter``, ``eval_elo``, PBT and checkpoints), float32 with TF32
+    off: TRAIN_UPDATES updates, one ELO pass, ``explore_exploit`` and
+    ``refresh_past_policies`` on the card state, a checkpoint round trip,
+    and the first update's ``ppo_update`` on a TRAIN_CHECK_WORLDS slice of
+    its buffer against the CPU's. K4 on every rollout and eval step, K1 on
+    the init and reset steps. Prints the training rate over updates 2 to
+    TRAIN_UPDATES, rollout and PPO ms per update and the PPO update's
+    FLOP/s against the FP32 peak."""
+    import tempfile
+
+    from marl_hideandseek_torch.ops import rays, step
+    from marl_hideandseek_torch.policy import make_policy
+    from marl_hideandseek_torch.train import (
+        TrainHooks,
+        eval_elo,
+        init_training,
+    )
+    from marl_hideandseek_torch.train import __main__ as cli
+    from marl_hideandseek_torch.train import pbt, ppo
+    from marl_hideandseek_torch.train.elo import ELO_START
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cli.parse_args([
+            "--ckpt-dir", tmp, "--tb-dir", tmp, "--run-name", "smoke",
+            "--num-worlds", str(TRAIN_WORLDS), "--num-updates",
+            str(TRAIN_UPDATES), "--pbt-ensemble-size", "2",
+            "--pbt-past-policies", "2", "--num-hiders", "2",
+            "--num-seekers", "2", "--device", dev.type])
+        env, cfg, policy = cli.build(args)
+        require(ppo.use_grouped_ppo(cfg) and cfg.dreamer_v3_critic and
+                cfg.total_policies == 4, "train path: not the recipe's "
+                "grouped PBT 2 + 2 with the Dreamer critic")
+
+        class Hooks(TrainHooks):
+            def __init__(self):
+                self.seen = {"t": [], "buffer": None}
+
+            def post_rollout(self, update_idx, buffer, metrics):
+                torch.cuda.synchronize()
+                self.seen["t"].append(time.perf_counter())
+                if update_idx == 0:
+                    self.seen["buffer"] = buffer
+                return metrics
+
+        hooks = Hooks()
+        rays.RAYCAST.launches = 0
+        step.MEGASTEP.launches = 0
+        mgr = init_training(dev, cfg, env, policy, hooks=hooks)
+        k1_init = rays.RAYCAST.launches
+        states = [mgr.state]
+        marks = []
+        for _ in range(TRAIN_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr = mgr.update_iter()
+            torch.cuda.synchronize()
+            marks.append((t0, hooks.seen["t"][-1], time.perf_counter()))
+            states.append(mgr.state)
+        k1_train = rays.RAYCAST.launches
+        k4_train = step.MEGASTEP.launches
+        elo_train = mgr.state.elo.clone()
+        mgr = eval_elo(mgr)
+        launches = {"megastep": step.MEGASTEP.launches,
+                    "raycast": rays.RAYCAST.launches}
+        st = mgr.state
+        n_steps = TRAIN_UPDATES * cfg.steps_per_update
+        eval_steps = cfg.steps_per_update * 6
+        log(f"train path launches: K4 {k4_train} in {n_steps} rollout steps, "
+            f"{launches['megastep'] - k4_train} in {eval_steps} eval_elo "
+            f"steps; K1 {k1_init} at init, {k1_train - k1_init} in training, "
+            f"{launches['raycast'] - k1_train} in eval_elo; resets "
+            f"{env.reset_counts}")
+        require(k4_train == n_steps and
+                launches["megastep"] == n_steps + eval_steps,
+                f"train path: K4 launches {k4_train} and "
+                f"{launches['megastep']}, expected {n_steps} and "
+                f"{n_steps + eval_steps}")
+        require(k1_init > 0 and k1_train > k1_init and
+                launches["raycast"] > k1_train,
+                f"train path: K1 not launched on the init and reset steps "
+                f"({k1_init}, {k1_train}, {launches['raycast']})")
+
+        metrics = {k: v.cpu() for k, v in st.metrics.items()}
+        require(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+                f"train path: non-finite metrics {metrics}")
+        require(float(metrics["loss"][:TRAIN_UPDATES].abs().min()) > 0.0,
+                "train path: an update with a zero loss")
+        moved = {k: float((v - states[0].params[k]).abs().amax(
+            dim=tuple(range(1, v.dim()))).min()) for k, v in st.params.items()}
+        require(min(moved.values()) > 0.0, "train path: a train policy's "
+                f"parameter did not move: {min(moved, key=moved.get)}")
+        count = st.opt_states.count.tolist()
+        require(count == [cfg.algo.num_epochs * TRAIN_UPDATES] * 2,
+                f"train path: Adam counts {count}")
+        require(float((elo_train - ELO_START).abs().max()) > 0.0 and
+                float((st.elo - elo_train).abs().max()) > 0.0 and
+                bool(torch.isfinite(st.elo).all()),
+                f"train path: ELOs did not move ({elo_train.tolist()}, "
+                f"{st.elo.tolist()})")
+
+        # PBT on the card state.
+        elo = st.elo
+        require(float(elo[0]) != float(elo[1]), "train path: the train "
+                "policies' ELOs tie, so explore_exploit copies nothing")
+        best, worst = int(torch.argmax(elo[:2])), int(torch.argmin(elo[:2]))
+        p2, o2, h2 = pbt.explore_exploit(cfg, st.gen, elo, st.params,
+                                         st.opt_states, st.hyper_params)
+        copied = all(torch.equal(v[worst], v[best]) for v in p2.values()) and \
+            all(torch.equal(m[k][worst], m[k][best])
+                for m in (o2.mu, o2.nu) for k in m) and \
+            int(o2.count[worst]) == int(o2.count[best])
+        require(copied, "train path: explore_exploit did not copy the best "
+                "policy's parameters and Adam state into the worst")
+        past2, elo2 = pbt.refresh_past_policies(
+            cfg, cfg.pbt.past_policy_update_interval, p2, st.past_params, elo)
+        require(all(torch.equal(past2[k][1], p2[k][best]) for k in past2) and
+                float(elo2[3]) == float(elo[best]),
+                "train path: refresh_past_policies did not snapshot the best "
+                "policy into past slot 1")
+        log(f"train path PBT: best {best}, worst {worst}, lr "
+            f"{st.hyper_params['lr'].tolist()} -> {h2['lr'].tolist()}, "
+            f"entropy coef {st.hyper_params['entropy_coef'].tolist()} -> "
+            f"{h2['entropy_coef'].tolist()}")
+
+        # Checkpoint round trip.
+        path = mgr.save_ckpt(tmp)
+        back = mgr.restore_ckpt(path)
+        a, b = flat_tree(mgr.state_tree()), flat_tree(back.state_tree())
+        require(a.keys() == b.keys() and all(same(a[k], b[k]) for k in a),
+                "train path: the restored checkpoint differs")
+        log(f"train path checkpoint: {len(a)} leaves equal after save_ckpt "
+            f"and restore_ckpt ({os.path.getsize(path)} B)")
+
+    # Rates: scripts/train.py's FPS over updates 2..TRAIN_UPDATES.
+    fps = (TRAIN_WORLDS * cfg.steps_per_update * (TRAIN_UPDATES - 1) /
+           (marks[-1][2] - marks[0][2]))
+    roll_ms = [(m[1] - m[0]) * 1e3 for m in marks[1:]]
+    ppo_ms = [(m[2] - m[1]) * 1e3 for m in marks[1:]]
+
+    # The first update's PPO on a slice of its buffer, card against CPU.
+    buf = hooks.seen["buffer"]
+    s0, s1 = states[0], states[1]
+    got = slice_update(cfg, policy, s0, s1, buf, TRAIN_CHECK_WORLDS * 4, dev)
+    cpu_policy = make_policy(device="cpu")
+    want = slice_update(cfg, cpu_policy, s0, s1, buf, TRAIN_CHECK_WORLDS * 4,
+                        torch.device("cpu"))
+    errs = update_errors(got, want)
+    lr_max = float(s0.hyper_params["lr"].max())
+    log(f"train path PPO update, card vs CPU on {TRAIN_CHECK_WORLDS} worlds "
+        f"({TRAIN_CHECK_WORLDS * 4} agents) of update 1's buffer: params "
+        f"within 1e-6 on {errs['params_share']:.6f} of the worst leaf, max "
+        f"{errs['params_max']:.3g} (bar "
+        f"{2 * lr_max * cfg.algo.num_epochs:.3g});"
+        f" mu {errs['mu']:.3g}, nu {errs['nu']:.3g} of the leaf's largest; "
+        f"losses at {errs['metrics']:.3g} of their bar; counts and dropped "
+        f"fractions equal {errs['exact']}; TF32 off")
+    require(errs["params_ok"] and
+            errs["params_max"] <= 2 * lr_max * cfg.algo.num_epochs and
+            errs["mu"] <= 1e-4 and errs["nu"] <= 2e-4 and
+            errs["metrics"] <= 1.0 and errs["exact"],
+            f"train path: card and CPU PPO updates disagree: {errs}")
+
+    # FLOP of one update: the forward's multiply-adds over the gathered
+    # batch, the backward twice the forward, per epoch.
+    macs = ppo_forward_macs(cfg, policy, s0, s1, buf)
+    flop = 2.0 * macs * 3 * cfg.algo.num_epochs
+    ppo_mean = sum(ppo_ms) / len(ppo_ms)
+    log(f"train path: {TRAIN_UPDATES} updates x {cfg.steps_per_update} steps "
+        f"x {TRAIN_WORLDS} worlds, 2v2, PBT 2 + 2 grouped, float32: "
+        f"{fps:.1f} steps x worlds / s over updates 2-{TRAIN_UPDATES} "
+        f"(scripts/train.py's FPS); per update rollout "
+        f"{sum(roll_ms) / len(roll_ms):.1f} ms, PPO (normalizer update, PPO, "
+        f"ELO) {ppo_mean:.1f} ms; rollout ms {[round(x, 1) for x in roll_ms]}"
+        f", PPO ms {[round(x, 1) for x in ppo_ms]}; {gpu}")
+    log(f"train path PPO update: {macs} forward multiply-adds an epoch, "
+        f"{flop / 1e12:.4f} TFLOP an update (backward 2x forward), "
+        f"{flop / ppo_mean / 1e9:.4g} TFLOP/s = "
+        f"{flop / ppo_mean / 1e9 / (PEAK_F32 / 1e12):.4f} of the "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s FP32 peak (least time "
+        f"{flop / PEAK_F32 * 1e3:.3f} ms); ELOs {st.elo.tolist()}; "
+        f"metrics {ring_means(metrics, TRAIN_UPDATES)}; {gpu}")
+    return dict(launches=launches, mgr=mgr)
+
+
+def profile_update(mgr) -> None:
+    """torch.profiler over one training update (``update_iter``): wall and
+    device kernel time, busy share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mgr.update_iter()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows) / 1e3                     # ms
+    log(f"profile [train update] {wall * 1e3:.3f} ms wall (under the "
+        f"profiler); device kernel time {busy:.3f} ms; busy share "
+        f"{busy / (wall * 1e3):.3f}; {sum(r[2] for r in rows)} device "
+        f"events")
+    for key, t, n in rows[:20]:
+        log(f"  {t / 1e3:9.4f} ms {n:7d} calls  {key[:90]}")
+
+
+def flat_tree(tree, prefix="") -> dict:
+    """Nested dicts, tuples and lists -> {"a.b.0": leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def same(a, b) -> bool:
+    """Leaves equal bit for bit (u32 leaves through their i32 view)."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if a.dtype == torch.uint32:
+        a = a.view(torch.int32)
+    if b.dtype == torch.uint32:
+        b = b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def ring_means(metrics, n: int) -> dict:
+    """Each metric's mean over the ring's first n slots."""
+    return {k: round(float(v[:n].mean()), 5) for k, v in metrics.items()}
+
+
+def buffer_slice(buf, n, dev):
+    """The first n agents of a RolloutBuffer, on ``dev``."""
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.train.rollout import RolloutBuffer
+
+    cut = lambda x: x[:, :, :n].to(dev)
+    return RolloutBuffer(
+        obs={k: cut(v) for k, v in buf.obs.items()},
+        actions=cut(buf.actions), log_probs=cut(buf.log_probs),
+        values=cut(buf.values), rewards=cut(buf.rewards),
+        dones=cut(buf.dones), assignments=cut(buf.assignments),
+        rnn_start_states=tree_map(cut, buf.rnn_start_states),
+        bootstrap_value=buf.bootstrap_value[:n].to(dev))
+
+
+def slice_update(cfg, policy, s0, s1, buf, n, dev):
+    """``ppo_update`` of the first update on its buffer's first n agents,
+    from the state before it (parameters, Adam, return statistics,
+    hyperparameters) with the normalizer statistics it used, on ``dev``."""
+    from marl_hideandseek_torch.train import ppo
+
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    opt = ppo.AdamState(mu=to(s0.opt_states.mu), nu=to(s0.opt_states.nu),
+                        count=s0.opt_states.count.to(dev))
+    return ppo.ppo_update(cfg, policy, to(s0.params), opt,
+                          s1.obs_stats.to(dev), to(s0.value_stats),
+                          to(s0.hyper_params), buffer_slice(buf, n, dev),
+                          torch.Generator(dev))
+
+
+def update_errors(got, want) -> dict:
+    """The CPU tests' measures of a ppo_update result against another."""
+    params_g, opt_g, vs_g, met_g = got
+    params_w, opt_w, vs_w, met_w = want
+    # Within 1e-6 on all but 0.1 % of each leaf's elements, rounded up.
+    share, pmax, params_ok = 1.0, 0.0, True
+    for k, v in params_w.items():
+        d = (params_g[k].cpu() - v).abs()
+        share = min(share, float((d <= 1e-6).float().mean()))
+        pmax = max(pmax, float(d.max()))
+        params_ok &= int((d > 1e-6).sum()) <= math.ceil(0.001 * d.numel())
+    mom = {}
+    for name in ("mu", "nu"):
+        mom[name] = max(float((getattr(opt_g, name)[k].cpu() - v).abs().max()
+                              / v.abs().max().clamp(min=1e-30))
+                        for k, v in getattr(opt_w, name).items())
+    # Each loss within 1e-6 + 1e-5 |loss| (the CPU tests' rtol and atol):
+    # this ratio at most 1.
+    rel = max(float(((met_g[k].cpu() - met_w[k]).abs() /
+                     (1e-6 + 1e-5 * met_w[k].abs())).max())
+              for k in ("loss", "action_loss", "value_loss", "entropy"))
+    exact = bool(torch.equal(opt_g.count.cpu(), opt_w.count) and torch.equal(
+        met_g["dropped_agent_frac"].cpu(), met_w["dropped_agent_frac"]))
+    return dict(params_ok=params_ok, params_share=share, params_max=pmax,
+                mu=mom["mu"], nu=mom["nu"], metrics=rel, exact=exact)
+
+
+def ppo_forward_macs(cfg, policy, s0, s1, buf) -> int:
+    """Dense multiply-adds of one epoch's forward of the first update's PPO
+    over its whole (grouped) batch, counted by ``dense_macs`` over a rerun
+    of that update."""
+    from marl_hideandseek_torch.train import ppo
+
+    dev = buf.log_probs.device
+    macs = dense_macs(policy.actor_critic, lambda: ppo.ppo_update(
+        cfg, policy, s0.params, s0.opt_states, s1.obs_stats, s0.value_stats,
+        s0.hyper_params, buf, torch.Generator(dev)))
+    return macs // cfg.algo.num_epochs
 
 
 def check_k1(cfg, ps, label: str) -> dict:

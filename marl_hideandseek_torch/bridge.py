@@ -15,9 +15,12 @@ arrays (``policy_params_from_numpy``), and the normalizer statistics as
 (``normalizer_state_from_numpy``). The port's policy checkpoint is a
 ``torch.save`` file of a dict - ``params`` and ``past_params`` (flat
 parameter dicts with the leading policy axis), ``obs_stats`` and ``elo``
-(``save_policy_checkpoint`` / ``load_policy_checkpoint``); reading an
-orbax checkpoint stays on the JAX side (README.md). No JAX object is
-accepted here.
+(``save_policy_checkpoint`` / ``load_policy_checkpoint``). The port's
+training checkpoint is a ``torch.save`` file of the whole training state
+as a nested dict (``save_training_checkpoint`` /
+``load_training_checkpoint``); ``training_state_from_numpy`` builds one
+from a JAX training state. Reading an orbax checkpoint stays on the JAX
+side (README.md). No JAX object is accepted here.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from marl_hideandseek_torch.env.checkpoint import Checkpoint
 from marl_hideandseek_torch.models import Policy
+from marl_hideandseek_torch.models.actor_critic import tree_map
 from marl_hideandseek_torch.models.normalizer import NormalizerState
 from marl_hideandseek_torch.types import (
     EnvState,
@@ -42,12 +46,15 @@ _SUBTREES = {"bodies": RigidBodies, "statics": StaticGeom, "grab": GrabState}
 
 
 def _to_tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     a = np.ascontiguousarray(np.asarray(x))
     return torch.from_numpy(a.copy()).to(device)
 
 
 def state_from_numpy(tree: Mapping, device="cpu") -> EnvState:
-    """Nested mapping of numpy arrays -> ``EnvState`` on ``device``."""
+    """Nested mapping of numpy arrays (or tensors) -> ``EnvState`` on
+    ``device``."""
     kwargs = {}
     for f in dataclasses.fields(EnvState):
         v = tree[f.name]
@@ -150,6 +157,18 @@ def policy_params_from_numpy(tree: Mapping, policy: Policy,
     ``device``, loaded into ``policy.actor_critic`` as well. Raises on a
     missing, extra or mis-shaped leaf. Dense kernels keep flax's ``[in,
     out]`` layout."""
+    params = _flat_policy_tree(tree, policy, device)
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(policy.actor_critic.get_submodule(owner), leaf,
+                torch.nn.Parameter(t, requires_grad=False))
+    return params
+
+
+def _flat_policy_tree(tree: Mapping, policy: Policy,
+                      device) -> Dict[str, torch.Tensor]:
+    """``policy_params_from_numpy`` without loading the module: any tree
+    laid out as the parameters (the parameters, or Adam's moments)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = {k: np.asarray(v) for k, v in flatten_tree(tree).items()}
@@ -165,13 +184,8 @@ def policy_params_from_numpy(tree: Mapping, policy: Policy,
         t = torch.from_numpy(np.ascontiguousarray(v).copy())
         params[k] = t if stacked else t.unsqueeze(0)
     check_policy_params(params, policy)
-    params = {k: v.to(device=device, dtype=module[k].dtype)
-              for k, v in params.items()}
-    for name, t in params.items():
-        owner, _, leaf = name.rpartition(".")
-        setattr(policy.actor_critic.get_submodule(owner), leaf,
-                torch.nn.Parameter(t, requires_grad=False))
-    return params
+    return {k: v.to(device=device, dtype=module[k].dtype)
+            for k, v in params.items()}
 
 
 def normalizer_state_from_numpy(tree: Mapping,
@@ -218,3 +232,60 @@ def load_policy_checkpoint(path, device="cpu") -> dict:
             "obs_stats": NormalizerState(mean=st["mean"], var=st["var"],
                                          count=st["count"]),
             "elo": raw["elo"]}
+
+
+def state_to_tree(state: EnvState) -> dict:
+    """``EnvState`` -> nested dict of its tensors (the layout
+    ``state_from_numpy`` reads), without copies."""
+    return {f.name: (state_to_tree(getattr(state, f.name))
+                     if dataclasses.is_dataclass(getattr(state, f.name))
+                     else getattr(state, f.name))
+            for f in dataclasses.fields(state)}
+
+
+def save_training_checkpoint(path, tree: Mapping) -> None:
+    """Write the port's training checkpoint: a nested dict of tensors and
+    ints (``TrainingManager.state_tree``, or ``training_state_from_numpy``
+    of a JAX one) as one ``torch.save`` file of host copies."""
+    torch.save(tree_map(lambda x: x.detach().cpu()
+                        if isinstance(x, torch.Tensor) else x, dict(tree)),
+               path)
+
+
+def load_training_checkpoint(path, device="cpu") -> dict:
+    """Read a file of ``save_training_checkpoint`` onto ``device``."""
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def training_state_from_numpy(tree: Mapping, policy: Policy,
+                              device="cpu") -> dict:
+    """A JAX ``TrainingState`` tree read without a target from orbax (nested
+    dicts and lists of numpy arrays) -> the training checkpoint's tree on
+    ``device``: the parameters and past parameters, optax's Adam state
+    (``opt_states[1]``: ``count`` ``[P]``, ``mu`` and ``nu`` under
+    ``params/...`` with flax names), the normalizer statistics, the
+    return statistics, the hyperparameters, ELOs, update count and metric
+    ring, every value unchanged. The rollout and the JAX keys are not
+    carried: the port starts its rollout from its own seed."""
+    def tensors(d):
+        return {k: _to_tensor(v, device) for k, v in d.items()}
+
+    adam = tree["opt_states"][1]
+    past = tree.get("past_params") or {}
+    stats = tree["obs_stats"]
+    return {
+        "params": _flat_policy_tree(tree["params"], policy, device),
+        "past_params": (_flat_policy_tree(past, policy, device)
+                        if flatten_tree(past) else {}),
+        "opt_states": {"mu": _flat_policy_tree(adam["mu"], policy, device),
+                       "nu": _flat_policy_tree(adam["nu"], policy, device),
+                       "count": _to_tensor(adam["count"], device)},
+        "obs_stats": {"mean": tensors(stats["mean"]),
+                      "var": tensors(stats["var"]),
+                      "count": _to_tensor(stats["count"], device)},
+        "value_stats": tensors(tree["value_stats"]),
+        "hyper_params": tensors(tree["hyper_params"]),
+        "elo": _to_tensor(tree["elo"], device),
+        "update_idx": int(np.asarray(tree["update_idx"])),
+        "metrics": tensors(tree["metrics"]),
+    }

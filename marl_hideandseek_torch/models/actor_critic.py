@@ -195,10 +195,16 @@ class ActorCritic(nn.Module):
             _shared(rnn_states), _shared(obs), train)
         return self.actor(a_feat), new_states
 
-    def sequence(self, start_states, seq_ends, seq_obs, train: bool = True):
-        """BPTT replay over stored ``[T, N, ...]`` sequences."""
-        a_feat, c_feat = self.backbone.sequence(
-            _shared(start_states), seq_ends, _shared(seq_obs), train)
+    def sequence(self, start_states, seq_ends, seq_obs, train: bool = True,
+                 per_policy: bool = False):
+        """BPTT replay over stored ``[T, N, ...]`` sequences. With
+        ``per_policy`` every input carries the policy axis in front
+        (``[P, T, N, ...]``, states ``[P, L, N, C]``): each policy replays
+        its own agents."""
+        if not per_policy:
+            start_states, seq_obs = _shared(start_states), _shared(seq_obs)
+        a_feat, c_feat = self.backbone.sequence(start_states, seq_ends,
+                                                seq_obs, train)
         return self.actor(a_feat), self.critic(c_feat)
 
 

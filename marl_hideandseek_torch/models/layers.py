@@ -92,14 +92,22 @@ class Stacked(nn.Module):
         self.register_parameter(name, nn.Parameter(t))
         self._inits[name] = init
 
+    def draw(self, name: str, num_policies: int,
+             gen: torch.Generator) -> torch.Tensor:
+        """``num_policies`` fresh slices of parameter ``name`` from its
+        initialiser, on the CPU."""
+        p = getattr(self, name)
+        out = torch.empty((num_policies, *p.shape[1:]), dtype=p.dtype)
+        for i in range(num_policies):
+            tmp = torch.empty(p.shape[1:], dtype=torch.float32)
+            self._inits[name](tmp, gen)
+            out[i].copy_(tmp)
+        return out
+
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        for name, init in self._inits.items():
-            p = getattr(self, name)
-            for i in range(p.shape[0]):
-                tmp = torch.empty(p.shape[1:], dtype=torch.float32)
-                init(tmp, gen)
-                p[i].copy_(tmp)
+        for name in self._inits:
+            getattr(self, name).copy_(self.draw(name, self.num_policies, gen))
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:
@@ -108,6 +116,20 @@ def init_params(module: nn.Module, gen: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, Stacked):
             m.reset_parameters(gen)
+
+
+def draw_params(module: nn.Module, num_policies: int, gen: torch.Generator,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Fresh parameters of ``module``'s layout for ``num_policies``
+    policies, drawn as ``init_params`` draws them, as a flat dict keyed
+    like ``named_parameters`` on ``device``."""
+    out = {}
+    for prefix, m in module.named_modules():
+        if isinstance(m, Stacked):
+            for name in m._inits:
+                key = f"{prefix}.{name}" if prefix else name
+                out[key] = m.draw(name, num_policies, gen).to(device)
+    return out
 
 
 def _policy_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -209,9 +231,26 @@ class FlaxLayerNorm(Stacked):
         return (x32 - mu) * mul + _policy_view(self.bias, n)
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` with JAX's gradient at 0: flax writes the function
+    as ``where(x >= 0, x, 0.01 * x)``, whose slope at 0 is 1, where
+    PyTorch's is 0.01. A zero input is common: a masked entity's embedding
+    is exactly 0 while the biases are 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.leaky_relu(x, 0.01)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, 0.01 * grad)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.leaky_relu``: slope 0.01."""
-    return F.leaky_relu(x, 0.01)
+    """flax ``nn.leaky_relu``: slope 0.01, and 1 at 0."""
+    return _LeakyReLU.apply(x)
 
 
 class MLP(nn.Module):

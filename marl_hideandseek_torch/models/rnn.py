@@ -86,12 +86,16 @@ class LSTM(nn.Module):
     def sequence(self, start_states: State, seq_ends: torch.Tensor,
                  seq_x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Replay a stored sequence for BPTT. seq_x ``[P|1, T, N, F]``,
-        seq_ends ``[T, N]``: the state is cleared after each step where
-        the episode ended. Returns ``[P, T, N, C]``."""
+        seq_ends ``[T, N]``, or ``[P, T, N]`` when each policy replays its
+        own agents: the state is cleared (multiplied by 1 - end) after each
+        step where the episode ended. Returns ``[P, T, N, C]``."""
+        keep = 1.0 - seq_ends.reshape((-1,) + seq_ends.shape[-2:]).to(
+            torch.float32)                                     # [P|1, T, N]
         states = start_states
         outs = []
         for t in range(seq_x.shape[1]):
-            out, states = self(states, seq_x[:, t], train)
-            states = self.clear_recurrent_state(states, seq_ends[t])
+            out, (h, c) = self(states, seq_x[:, t], train)
+            k = keep[:, t, None, :, None]
+            states = (h * k, c * k)
             outs.append(out)
         return torch.stack(outs, 1)

@@ -1,8 +1,9 @@
 """ELO tracking for policy populations.
 
-Port of ``marl_hideandseek_tpu/train/elo.py`` (``eval_elo`` waits for the
-training manager): a bounded per-pair ELO update from batches of finished
-matches, and the conversion of episode results into matches.
+Port of ``marl_hideandseek_tpu/train/elo.py``: a bounded per-pair ELO
+update from batches of finished matches, the conversion of episode results
+into matches, and ``eval_elo``, the module-level spelling of
+``TrainingManager.eval_elo``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ def matches_from_episode_results(episode_results: torch.Tensor,
     valid = dones_w.reshape(-1) & (flat_pol[:, 0] >= 0) & \
         (flat_pol[:, 1] >= 0)
     return flat_pol[:, 0], flat_pol[:, 1], flat_res[:, 0], valid
+
+
+def eval_elo(training_mgr):
+    """A dedicated ELO evaluation pass of the training population
+    (reference: madrona_learn.eval_elo, jax_train.py:243-244)."""
+    return training_mgr.eval_elo()
 
 
 def print_elos(elos) -> None:

@@ -1,0 +1,364 @@
+"""Training manager: the actor-learner loop's state and its update.
+
+Port of ``marl_hideandseek_tpu/train/manager.py``. ``TrainingManager``
+holds the whole training state and ``update_iter`` runs one update: a
+rollout on the packed env, the observation normalizer's update from it,
+the PPO update of the train policies, ELO from the finished episodes and,
+every ``explore_interval`` updates, PBT. ``eval_elo`` plays the whole
+population round robin for a dedicated ELO pass. Checkpoints are the
+port's ``torch.save`` files (``bridge.save_training_checkpoint``); a JAX
+orbax training checkpoint converts to one (``bridge.
+training_state_from_numpy``, README.md).
+
+JAX compiles an update into one program with ``aot_compile``; here each
+update is eager PyTorch on the env's device, so ``aot_compile`` and
+``cfg_jax_mem`` have no counterpart. The state's generators advance in
+place: a manager returned by ``update_iter`` shares them with the one it
+came from.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import torch
+
+from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.models import Policy
+from marl_hideandseek_torch.models.layers import draw_params
+from marl_hideandseek_torch.models.normalizer import NormalizerState
+from marl_hideandseek_torch.policy import resolve_device
+from marl_hideandseek_torch.train import elo as elo_mod
+from marl_hideandseek_torch.train import pbt as pbt_mod
+from marl_hideandseek_torch.train.cfg import TrainConfig
+from marl_hideandseek_torch.train.ppo import (
+    AdamState,
+    init_opt_state,
+    init_value_stats,
+    ppo_update,
+)
+from marl_hideandseek_torch.train.rollout import (
+    RolloutState,
+    _resample_assignments,
+    collect_rollout,
+)
+from marl_hideandseek_torch.types import AGENT_HIDER
+
+METRIC_KEYS = ("loss", "action_loss", "value_loss", "entropy",
+               "dropped_agent_frac", "mean_reward", "hidden_frac",
+               "lock_rate", "grab_rate", "ramp_lock_rate", "ramp_move_rate")
+
+
+def ring_scalar(buf) -> float:
+    """The scalar to log for one ring-buffered metric: the mean over every
+    slot, not the last one (manager.py:30-44). With 240-step episodes (6
+    updates) a 10-update log cadence aliases against the episode cycle,
+    and every third last slot lies wholly in the prep phase."""
+    return float(torch.as_tensor(buf, dtype=torch.float32).mean())
+
+
+class TrainHooks:
+    """Extension hooks of ``update_iter`` (manager.py:55-76).
+
+    post_rollout(update_idx, buffer, metrics) -> metrics
+        after the rollout, before the PPO update;
+    post_update(update_idx, metrics, train_state) -> metrics
+        at the end of the update; the returned dict's scalars go into the
+        ring-buffered metrics under the keys that exist there.
+    """
+
+    def post_rollout(self, update_idx, buffer, metrics):
+        return metrics
+
+    def post_update(self, update_idx, metrics, train_state):
+        return metrics
+
+
+@dataclasses.dataclass
+class TrainingState:
+    """The whole training state (manager.py:97-112)."""
+
+    params: Dict[str, torch.Tensor]       # leading axis: train policies
+    opt_states: AdamState
+    past_params: Dict[str, torch.Tensor]  # leading axis: past policies
+    obs_stats: NormalizerState
+    value_stats: Dict[str, torch.Tensor]  # plain critic's return stats
+    rollout: RolloutState
+    hyper_params: Dict[str, torch.Tensor]  # per train policy
+    elo: torch.Tensor                     # [P_total]
+    update_idx: int
+    gen: torch.Generator                  # PPO permutations, PBT draws
+    metrics: Dict[str, torch.Tensor]      # ring buffers
+
+    def replace(self, **kwargs) -> "TrainingState":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass
+class TrainingManager:
+    """The training state with the env, policy, config and hooks it runs
+    with (manager.py:115-150): ``update_iter``, ``eval_elo``,
+    ``save_ckpt`` / ``restore_ckpt`` and ``log_metrics_tensorboard``."""
+
+    state: TrainingState
+    env: PackedEnv
+    policy: Policy
+    cfg: TrainConfig
+    hooks: Optional[TrainHooks] = None
+
+    def replace(self, **kwargs) -> "TrainingManager":
+        return dataclasses.replace(self, **kwargs)
+
+    @property
+    def update_idx(self) -> int:
+        return self.state.update_idx
+
+    def all_params(self) -> Dict[str, torch.Tensor]:
+        """Train then past policies along the policy axis."""
+        st = self.state
+        if not st.past_params:
+            return st.params
+        return {k: torch.cat([v, st.past_params[k]], 0)
+                for k, v in st.params.items()}
+
+    def update_iter(self) -> "TrainingManager":
+        """One training update (manager.py:152-247): rollout, the
+        observation normalizer updated from the fresh buffer (so the
+        loss normalizes with the new statistics), PPO, ELO from the
+        rollout's finished episodes, then PBT on the incremented update
+        count."""
+        cfg, st = self.cfg, self.state
+        norm = self.policy.obs_preprocess
+        new_rollout, buffer, roll_metrics = collect_rollout(
+            cfg, self.env, self.policy, self.all_params(), st.obs_stats,
+            st.rollout, st.value_stats)
+        if self.hooks is not None:
+            roll_metrics = self.hooks.post_rollout(st.update_idx, buffer,
+                                                   roll_metrics)
+        obs_stats = norm.update_state(st.obs_stats, {
+            k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()})
+        params, opt_states, value_stats, ppo_metrics = ppo_update(
+            cfg, self.policy, st.params, st.opt_states, obs_stats,
+            st.value_stats, st.hyper_params, buffer, st.gen)
+
+        elo = elo_mod.update_elo_pairwise(
+            st.elo, *elo_mod.matches_from_episode_results(
+                roll_metrics["episode_results"], roll_metrics["team_pol"],
+                roll_metrics["dones_w"]))
+        update_idx = st.update_idx + 1
+        past_params, hyper_params = st.past_params, st.hyper_params
+        if cfg.pbt is not None and update_idx % cfg.pbt.explore_interval == 0:
+            params, opt_states, hyper_params = pbt_mod.explore_exploit(
+                cfg, st.gen, elo, params, opt_states, hyper_params)
+            past_params, elo = pbt_mod.refresh_past_policies(
+                cfg, update_idx, params, past_params, elo)
+
+        scalars = {k: v.mean() for k, v in ppo_metrics.items()}
+        scalars.update({k: v for k, v in roll_metrics.items()
+                        if k in METRIC_KEYS})
+        new_state = st.replace(
+            params=params, opt_states=opt_states, past_params=past_params,
+            obs_stats=obs_stats, value_stats=value_stats,
+            rollout=new_rollout, hyper_params=hyper_params, elo=elo,
+            update_idx=update_idx)
+        if self.hooks is not None:
+            scalars = self.hooks.post_update(st.update_idx, scalars,
+                                             new_state)
+        slot = st.update_idx % cfg.metrics_buffer_size
+        metrics = {k: v.clone() for k, v in st.metrics.items()}
+        for k, v in scalars.items():
+            if k in metrics:
+                metrics[k][slot] = v
+        return self.replace(state=new_state.replace(metrics=metrics))
+
+    def eval_elo(self, num_steps: Optional[int] = None) -> "TrainingManager":
+        """A dedicated ELO pass (manager.py:251-289): ``num_steps``
+        (default 6 updates' worth) of the whole population in fresh round
+        robin matchups (hiders play ``t0``, seekers ``t1``), frozen
+        parameters, from the rollout's state; only the ELOs are kept. The
+        rollout's generator is copied, not advanced."""
+        cfg, st = self.cfg, self.state
+        steps = num_steps or cfg.steps_per_update * 6
+        n_pol = cfg.total_policies
+        dev = self.env.device
+        w_idx = torch.arange(self.env.cfg.num_worlds, device=dev)
+        t0 = w_idx % n_pol
+        t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
+        is_h = (st.rollout.env_state.agent_type == AGENT_HIDER).T   # [W, A]
+        fresh = torch.where(is_h, t0[:, None], t1[:, None]).reshape(-1)
+        gen = torch.Generator(dev)
+        gen.set_state(st.rollout.gen.get_state())
+        eval_cfg = dataclasses.replace(cfg, steps_per_update=steps,
+                                       num_bptt_chunks=1)
+        _, _, metrics = collect_rollout(
+            eval_cfg, self.env, self.policy, self.all_params(), st.obs_stats,
+            st.rollout.replace(assignments=fresh.to(torch.int32), gen=gen),
+            st.value_stats)
+        elo = elo_mod.update_elo_pairwise(
+            st.elo, *elo_mod.matches_from_episode_results(
+                metrics["episode_results"], metrics["team_pol"],
+                metrics["dones_w"]))
+        return self.replace(state=st.replace(elo=elo))
+
+    # -- checkpoints and logging ------------------------------------------
+
+    def state_tree(self) -> dict:
+        """The state as a nested dict of tensors, the training
+        checkpoint's format (``bridge.save_training_checkpoint``)."""
+        st = self.state
+        ro = st.rollout
+        return {
+            "params": st.params, "past_params": st.past_params,
+            "opt_states": {"mu": st.opt_states.mu, "nu": st.opt_states.nu,
+                           "count": st.opt_states.count},
+            "obs_stats": {"mean": st.obs_stats.mean, "var": st.obs_stats.var,
+                          "count": st.obs_stats.count},
+            "value_stats": st.value_stats, "hyper_params": st.hyper_params,
+            "elo": st.elo, "update_idx": st.update_idx,
+            "metrics": st.metrics, "gen": st.gen.get_state(),
+            "rollout": {"env_state": bridge.state_to_tree(ro.env_state),
+                        "obs": ro.obs, "rnn_states": ro.rnn_states,
+                        "assignments": ro.assignments,
+                        "gen": ro.gen.get_state()},
+        }
+
+    def save_ckpt(self, ckpt_dir: str) -> str:
+        """Write the training state to ``<ckpt_dir>/<update_idx>.pt``
+        (reference: training_mgr.save_ckpt, jax_train.py:277); returns
+        the path."""
+        path = os.path.join(ckpt_dir, f"{self.state.update_idx}.pt")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        bridge.save_training_checkpoint(path, self.state_tree())
+        return path
+
+    def restore_ckpt(self, path: str) -> "TrainingManager":
+        """The state of a training checkpoint over this manager's. A
+        checkpoint without a rollout (one converted from JAX) keeps this
+        manager's rollout and generators; one whose metric ring lacks
+        newer keys keeps their current values. Raises on parameters that
+        do not fit the policy or the config's policy counts, and on
+        metric keys this code does not know."""
+        cfg, st = self.cfg, self.state
+        dev = self.env.device
+        tree = bridge.load_training_checkpoint(path, dev)
+        n_train = bridge.check_policy_params(tree["params"], self.policy)
+        n_past = (bridge.check_policy_params(tree["past_params"], self.policy)
+                  if tree["past_params"] else 0)
+        if (n_train, n_past) != (cfg.num_train_policies,
+                                 cfg.total_policies - cfg.num_train_policies):
+            raise ValueError(
+                f"{path}: {n_train} train and {n_past} past policies, the "
+                f"config has {cfg.num_train_policies} and "
+                f"{cfg.total_policies - cfg.num_train_policies}")
+        extra = set(tree["metrics"]) - set(st.metrics)
+        if extra:
+            raise ValueError(f"{path}: unknown metrics {sorted(extra)}")
+        opt = tree["opt_states"]
+        stats = tree["obs_stats"]
+        new = st.replace(
+            params=tree["params"], past_params=tree["past_params"],
+            opt_states=AdamState(mu=opt["mu"], nu=opt["nu"],
+                                 count=opt["count"]),
+            obs_stats=NormalizerState(mean=stats["mean"], var=stats["var"],
+                                      count=stats["count"]),
+            value_stats=tree["value_stats"],
+            hyper_params=tree["hyper_params"], elo=tree["elo"],
+            update_idx=int(tree["update_idx"]),
+            metrics={**st.metrics, **tree["metrics"]})
+        # Generator states load as byte tensors on the device; set_state
+        # takes them on the CPU.
+        if "gen" in tree:
+            new.gen.set_state(tree["gen"].cpu())
+        if "rollout" in tree:
+            ro = tree["rollout"]
+            gen = torch.Generator(dev)
+            gen.set_state(ro["gen"].cpu())
+            new = new.replace(rollout=RolloutState(
+                env_state=bridge.state_from_numpy(ro["env_state"], dev),
+                obs=ro["obs"], rnn_states=ro["rnn_states"],
+                assignments=ro["assignments"], gen=gen))
+        return self.replace(state=new)
+
+    def log_metrics_tensorboard(self, writer) -> None:
+        """Write the ring-buffered metrics to a metric writer
+        (manager.py:340-348)."""
+        step = self.state.update_idx
+        n = min(step, self.cfg.metrics_buffer_size)
+        for k, buf in self.state.metrics.items():
+            vals = buf.cpu()
+            for i in range(n):
+                writer.scalar(f"train/{k}", float(vals[i]), step - n + i + 1)
+
+
+def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
+                  restore_ckpt: Optional[str] = None,
+                  hooks: Optional[TrainHooks] = None) -> TrainingManager:
+    """Build the training state (manager.py:364-452): the env's initial
+    worlds and observations, fresh normalizer statistics, the train
+    policies drawn from the policy's initialisers, the past policies as
+    copies of policy 0, zero Adam states, the PBT hyperparameters, ELO
+    1,500 each, and the first matchups drawn with every world done (the
+    grouped PPO path needs past-play matchups from the first rollout).
+    Three generators come from ``cfg.seed``: the parameters' (CPU), the
+    rollout's and the state's (hyperparameters, PPO, PBT; on the env's
+    device). ``dev`` must be the env's device: ``"cuda"`` for the card,
+    ``"cpu"`` for the plain path. With ``restore_ckpt``, the state of
+    that training checkpoint replaces the fresh one."""
+    if resolve_device(dev, "init_training").type != env.device.type:
+        raise ValueError(f"init_training(dev={dev!r}) with an env on "
+                         f"{env.device}")
+    device = env.device
+    seeds = torch.randint(0, 2 ** 62, (3,), generator=torch.Generator(
+        ).manual_seed(cfg.seed)).tolist()
+    param_gen = torch.Generator().manual_seed(seeds[0])
+    roll_gen = torch.Generator(device).manual_seed(seeds[1])
+    gen = torch.Generator(device).manual_seed(seeds[2])
+
+    w, a = env.cfg.num_worlds, env.cfg.max_agents
+    n_agents = w * a
+    norm = policy.obs_preprocess
+    ac = policy.actor_critic
+    env_state, result = env.init()
+    obs = {k: v.reshape((n_agents,) + v.shape[2:])
+           for k, v in norm.prep(result.obs).items()}
+    n_train = cfg.num_train_policies
+    n_past = cfg.total_policies - n_train
+    params = draw_params(ac, n_train, param_gen, device)
+    past_params = ({k: v[:1].expand(n_past, *v.shape[1:]).clone()
+                    for k, v in params.items()} if n_past > 0 else {})
+    assignments = _resample_assignments(
+        roll_gen, torch.ones(w, dtype=torch.bool, device=device),
+        torch.zeros(n_agents, dtype=torch.int32, device=device), cfg, w, a,
+        env_state.agent_type.T)
+    state = TrainingState(
+        params=params,
+        opt_states=init_opt_state(params),
+        past_params=past_params,
+        obs_stats=norm.init_state(obs),
+        value_stats=init_value_stats(cfg, device),
+        rollout=RolloutState(env_state=env_state, obs=obs,
+                             rnn_states=ac.init_recurrent_state(n_agents,
+                                                                device),
+                             assignments=assignments, gen=roll_gen),
+        hyper_params=pbt_mod.init_hyper_params(cfg, gen, device),
+        elo=torch.full((cfg.total_policies,), elo_mod.ELO_START,
+                       device=device),
+        update_idx=0,
+        gen=gen,
+        metrics={k: torch.zeros(cfg.metrics_buffer_size, device=device)
+                 for k in METRIC_KEYS},
+    )
+    mgr = TrainingManager(state=state, env=env, policy=policy, cfg=cfg,
+                          hooks=hooks)
+    if restore_ckpt:
+        mgr = mgr.restore_ckpt(restore_ckpt)
+    return mgr
+
+
+def stop_training(mgr: TrainingManager) -> None:
+    """Tear-down hook (reference: madrona_learn.stop_training): nothing
+    runs outside this process, so there is nothing to stop."""
+    return None

@@ -1,31 +1,81 @@
-"""Policy ensembles on the agent batch.
+"""Rollout collection for training, and policy ensembles on the agent batch.
 
-The part of ``marl_hideandseek_tpu/train/rollout.py`` that inference uses:
-``apply_ensemble``. ``collect_rollout``, ``compute_gae`` and the rest come
-with the training slice.
+Port of ``marl_hideandseek_tpu/train/rollout.py``. ``collect_rollout``
+steps the packed env (K4 every step, K1 on reset steps) for
+``steps_per_update`` transitions with the policy ensemble choosing the
+actions, and stores them as ``num_bptt_chunks`` sequences with the LSTM
+state at each chunk's start, for BPTT. ``apply_ensemble`` runs every
+policy on the whole agent batch and gives each agent its assigned
+policy's outputs; ``compute_gae`` turns a buffer into advantages and
+returns. Every draw comes from the rollout's ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import dataclasses
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
-from marl_hideandseek_torch.models import Policy
+from marl_hideandseek_torch.config import NUM_PREP_STEPS
+from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
+from marl_hideandseek_torch.train.cfg import TrainConfig
+from marl_hideandseek_torch.types import (
+    AGENT_HIDER,
+    EnvState,
+    body_slot_ranges,
+)
 
 
-class _Act(nn.Module):
-    """``ActorCritic.act`` as a module's forward, for ``functional_call``."""
+@dataclasses.dataclass
+class RolloutState:
+    """Actor state carried between updates (rollout.py:29-45): the packed
+    env state, the prepped (not normalized) current observations flattened
+    to the ``[N = W * A]`` agent batch, the recurrent state, each agent's
+    policy and the generator of the rollout's draws."""
 
-    def __init__(self, actor_critic: nn.Module):
+    env_state: EnvState
+    obs: Dict[str, torch.Tensor]
+    rnn_states: Any
+    assignments: torch.Tensor   # [N] i32
+    gen: torch.Generator
+
+    def replace(self, **kwargs) -> "RolloutState":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass
+class RolloutBuffer:
+    """``[C, T/C, N, ...]`` stored sequences, C = BPTT chunks
+    (rollout.py:48-58)."""
+
+    obs: Dict[str, torch.Tensor]
+    actions: torch.Tensor           # [C, T, N, n_action_dims] i64
+    log_probs: torch.Tensor         # [C, T, N]
+    values: torch.Tensor            # [C, T, N]
+    rewards: torch.Tensor           # [C, T, N]
+    dones: torch.Tensor             # [C, T, N] bool
+    assignments: torch.Tensor       # [C, T, N] i32
+    rnn_start_states: Any           # [C, L, N, H] leaves: chunk-start state
+    bootstrap_value: torch.Tensor   # [N] value of the post-rollout obs
+
+
+class MethodCall(nn.Module):
+    """A method of an actor-critic (``act``, ``sequence``) as a module's
+    forward, so that ``functional_call`` can run it with other
+    parameters (their names prefixed ``ac.``)."""
+
+    def __init__(self, actor_critic: nn.Module, method: str):
         super().__init__()
         self.ac = actor_critic
+        self.method = method
 
-    def forward(self, rnn_states, obs):
-        return self.ac.act(rnn_states, obs)
+    def forward(self, *args, **kwargs):
+        return getattr(self.ac, self.method)(*args, **kwargs)
 
 
 def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
@@ -66,7 +116,7 @@ def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
         lg_t, val_t, rnn_t = one({k: v[:num_train]
                                   for k, v in all_params.items()})
         dists, rnn_p = functional_call(
-            _Act(ac), {f"ac.{k}": v[num_train:]
+            MethodCall(ac, "act"), {f"ac.{k}": v[num_train:]
                        for k, v in all_params.items()},
             (rnn_states, obs), strict=True)
         logits_all = torch.cat([lg_t, dists.logits], 0)
@@ -88,3 +138,228 @@ def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
         return torch.gather(arr, 0, i)[0]
 
     return sel(logits_all), sel(values_all), tree_map(sel, rnn_all)
+
+
+def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,
+                       assignments: torch.Tensor) -> torch.Tensor:
+    """Critic outputs (normalized-return space) -> returns, per agent
+    through its policy's EMA statistics (rollout.py:128-141). Identity for
+    the Dreamer critic, which normalizes inside (symlog, two-hot)."""
+    if cfg.dreamer_v3_critic or value_stats is None:
+        return values
+    idx = assignments.to(torch.long)
+    return values * value_stats["sigma"][idx] + value_stats["mu"][idx]
+
+
+def _resample_assignments(gen: torch.Generator, dones_w: torch.Tensor,
+                          assignments: torch.Tensor, cfg: TrainConfig,
+                          num_worlds: int, agents_per_world: int,
+                          agent_type: torch.Tensor) -> torch.Tensor:
+    """New team -> policy matchups for the worlds whose episode ended
+    (rollout.py:144-191); the other worlds keep theirs.
+
+    The train side plays a policy drawn from the train policies; the
+    other side, per the PBT portions, the same policy (self-play), another
+    train policy (cross-play) or a past policy. Which role (hiders or
+    seekers) the train side takes is a fair coin per world. Teams are
+    keyed by ``agent_type`` ``[W, A]`` (the post-step state: on reset
+    steps, the new episode's teams). Without PBT every agent plays
+    policy 0."""
+    pbt = cfg.pbt
+    if pbt is None or pbt.total_policies == 1:
+        return assignments
+    n_train = pbt.num_train_policies
+    n_total = pbt.total_policies
+    w = num_worlds
+    dev = assignments.device
+
+    t0 = torch.randint(0, n_train, (w,), generator=gen, device=dev)
+    r = torch.rand((w,), generator=gen, device=dev)
+    past = torch.randint(n_train, max(n_total, n_train + 1), (w,),
+                         generator=gen, device=dev)
+    cross = torch.randint(0, n_train, (w,), generator=gen, device=dev)
+    other = past if pbt.num_past_policies > 0 else cross
+    t1 = torch.where(r < pbt.self_play_portion, t0,
+                     torch.where(r < pbt.self_play_portion +
+                                 pbt.cross_play_portion, cross, other))
+    hiders_train = torch.rand((w,), generator=gen, device=dev) < 0.5
+    h_pol = torch.where(hiders_train, t0, t1)
+    s_pol = torch.where(hiders_train, t1, t0)
+    world_assign = torch.where(agent_type == AGENT_HIDER, h_pol[:, None],
+                               s_pol[:, None])                   # [W, A]
+    done_flat = dones_w.repeat_interleave(agents_per_world)
+    return torch.where(done_flat, world_assign.reshape(-1),
+                       assignments).to(torch.int32)
+
+
+def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
+                    all_params: Mapping[str, torch.Tensor], obs_stats,
+                    rollout: RolloutState, value_stats=None):
+    """Run ``steps_per_update`` env steps; return (rollout', buffer,
+    metrics) (rollout.py:194-376).
+
+    obs_stats: the observation normalizer's statistics, frozen during the
+    rollout (the caller updates them from the buffer). value_stats: the
+    plain critic's EMA return statistics; stored values and the bootstrap
+    are denormalized so that GAE runs on returns.
+
+    Per step: normalize, the ensemble forward (past policies actor-only),
+    an action draw, ``env.step``, the LSTM state cleared for agents whose
+    episode ended, and new matchups for the worlds that ended, keyed by
+    the post-step teams. ELO attribution (``team_pol``) and the seek-phase
+    gate use the pre-step state: the episode the transition belongs to.
+    Runs without autograd.
+    """
+    cfg_env = env.cfg
+    w, a = cfg_env.num_worlds, cfg_env.max_agents
+    n = w * a
+    t_chunk = cfg.steps_per_update // cfg.num_bptt_chunks
+    n_total = cfg.total_policies
+    norm = policy.obs_preprocess
+    ac = policy.actor_critic
+    buckets = tuple(cfg.actions.actions_num_buckets)
+    gen = rollout.gen
+    (box_lo, box_hi), (ramp_lo, ramp_hi), _ = body_slot_ranges(cfg_env)
+
+    def flat(o):
+        return {k: v.reshape((n,) + v.shape[2:]) for k, v in
+                norm.prep(o).items()}
+
+    keys = ("obs", "actions", "log_probs", "values", "rewards", "dones",
+            "assignments", "episode_results", "dones_w", "team_pol",
+            "seek", "hidden", "locked", "grab", "ramp_locked", "ramp_move")
+    store = {k: [] for k in keys}
+    rnn_start = []
+    env_state, obs = rollout.env_state, rollout.obs
+    rnn, assignments = rollout.rnn_states, rollout.assignments
+    with torch.no_grad():
+        for _ in range(cfg.num_bptt_chunks):
+            rnn_start.append(rnn)
+            for _ in range(t_chunk):
+                logits, values, new_rnn = apply_ensemble(
+                    policy, all_params, rnn, norm.normalize(obs_stats, obs),
+                    assignments, n_total, num_train=cfg.num_train_policies)
+                values = denormalize_values(cfg, value_stats, values,
+                                            assignments)
+                dists = DiscreteActionDistributions(buckets, logits)
+                actions = dists.sample(gen)
+                log_probs = dists.log_prob(actions)
+
+                pre_step = env_state.step
+                pre_is_h = (env_state.agent_type == AGENT_HIDER).T   # [W, A]
+                pre_act = env_state.agent_active.to(torch.bool).T
+                pre_sf = env_state.seekers_first.to(torch.bool)
+                env_state, result = env.step(
+                    env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
+                next_obs = flat(result.obs)
+                dones = result.dones.T.reshape(-1).to(torch.bool)
+                new_rnn = ac.clear_recurrent_state(new_rnn, dones)
+                dones_w = result.dones[0].to(torch.bool)
+                new_assign = _resample_assignments(
+                    gen, dones_w, assignments, cfg, w, a,
+                    env_state.agent_type.T)
+
+                # The pre-step episode's (first-spawned, second-spawned)
+                # team policies, for ELO (rollout.py:256-268).
+                assign_wa = assignments.reshape(w, a)
+                h_pol = torch.where(pre_is_h & pre_act, assign_wa,
+                                    -1).amax(1)
+                s_pol = torch.where(~pre_is_h & pre_act, assign_wa,
+                                    -1).amax(1)
+                team_pol = torch.stack([torch.where(pre_sf, s_pol, h_pol),
+                                        torch.where(pre_sf, h_pol, s_pol)],
+                                       -1)
+
+                # Seek-phase world-steps (the pre-step counter, so the last
+                # seek step of an episode counts), with the hiders hidden;
+                # world-steps with a locked box, a grab, a locked ramp, a
+                # moving ramp (post-step state; rollout.py:270-302).
+                bodies = env_state.bodies
+                ramp_speed = torch.linalg.vector_norm(
+                    bodies.vel[ramp_lo:ramp_hi, :2], dim=1)
+                in_seek = (pre_step >= NUM_PREP_STEPS - 1).to(torch.float32)
+                step_vals = {
+                    "obs": obs, "actions": actions, "log_probs": log_probs,
+                    "values": values,
+                    "rewards": result.rewards.T.reshape(-1),
+                    "dones": dones, "assignments": assignments,
+                    "episode_results": result.episode_results.T,
+                    "dones_w": dones_w, "team_pol": team_pol,
+                    "seek": in_seek.sum(),
+                    "hidden": ((result.team_reward > 0.0).to(torch.float32)
+                               * in_seek).sum(),
+                    "locked": bodies.locked[box_lo:box_hi].any(0).sum(),
+                    "grab": (env_state.grab.target >= 0).any(0).sum(),
+                    "ramp_locked": bodies.locked[ramp_lo:ramp_hi].any(0).sum(),
+                    "ramp_move": ((ramp_speed > 0.25) &
+                                  bodies.active[ramp_lo:ramp_hi]).any(0).sum(),
+                }
+                for k in keys:
+                    store[k].append(step_vals[k])
+                obs, rnn, assignments = next_obs, new_rnn, new_assign
+
+        _, boot_values, _ = apply_ensemble(
+            policy, all_params, rnn, norm.normalize(obs_stats, obs),
+            assignments, n_total, num_train=cfg.num_train_policies)
+        boot_values = denormalize_values(cfg, value_stats, boot_values,
+                                         assignments)
+
+    c = cfg.num_bptt_chunks
+
+    def chunked(xs):
+        x = torch.stack(xs)
+        return x.reshape((c, t_chunk) + x.shape[1:])
+
+    buffer = RolloutBuffer(
+        obs={k: chunked([o[k] for o in store["obs"]])
+             for k in store["obs"][0]},
+        actions=chunked(store["actions"]),
+        log_probs=chunked(store["log_probs"]),
+        values=chunked(store["values"]),
+        rewards=chunked(store["rewards"]),
+        dones=chunked(store["dones"]),
+        assignments=chunked(store["assignments"]),
+        rnn_start_states=tree_map(lambda *xs: torch.stack(xs), *rnn_start),
+        bootstrap_value=boot_values,
+    )
+    total_ws = float(cfg.steps_per_update * w)
+
+    def total(k):
+        return torch.stack(store[k]).sum().to(torch.float32)
+
+    metrics = {
+        "episode_results": torch.stack(store["episode_results"]),
+        "dones_w": torch.stack(store["dones_w"]),
+        "team_pol": torch.stack(store["team_pol"]),
+        "mean_reward": buffer.rewards.mean(),
+        "hidden_frac": total("hidden") / torch.clamp(total("seek"), min=1.0),
+        "lock_rate": total("locked") / total_ws,
+        "grab_rate": total("grab") / total_ws,
+        "ramp_lock_rate": total("ramp_locked") / total_ws,
+        "ramp_move_rate": total("ramp_move") / total_ws,
+    }
+    new_rollout = RolloutState(env_state=env_state, obs=obs, rnn_states=rnn,
+                               assignments=assignments, gen=gen)
+    return new_rollout, buffer, metrics
+
+
+def compute_gae(cfg: TrainConfig, buffer: RolloutBuffer):
+    """Masked GAE over the ``C * T`` time axis (rollout.py:379-406):
+    A_t = delta_t + gamma * lambda * (1 - done_t) * A_{t+1}, as a reverse
+    loop where JAX runs an associative scan (the same recurrence; the sums
+    round differently in the last bits). Returns (advantages, returns),
+    each ``[C, T, N]``."""
+    c, t, n = buffer.rewards.shape
+    rewards = buffer.rewards.reshape(c * t, n)
+    values = buffer.values.reshape(c * t, n)
+    nonterminal = 1.0 - buffer.dones.reshape(c * t, n).to(torch.float32)
+    next_values = torch.cat([values[1:], buffer.bootstrap_value[None]], 0)
+    delta = rewards + cfg.gamma * next_values * nonterminal - values
+    coef = cfg.gamma * cfg.gae_lambda * nonterminal
+    advantages = torch.empty_like(delta)
+    adv = torch.zeros_like(delta[0])
+    for i in range(c * t - 1, -1, -1):
+        adv = delta[i] + coef[i] * adv
+        advantages[i] = adv
+    returns = advantages + values
+    return advantages.reshape(c, t, n), returns.reshape(c, t, n)

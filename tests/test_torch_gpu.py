@@ -2,7 +2,8 @@
 fused physics + sweep, K4 megastep, K5 RGBD) against its plain PyTorch
 version on CUDA tensors, the packed env's main path through K1 and K4,
 the classic env through K3, K2 and K1, the flagship policy ensemble's
-forward against the CPU's, and the inference loop through K4 and K1.
+forward against the CPU's, the inference loop through K4 and K1, and a PPO
+update at train.sh's configuration against the CPU's.
 
 Marked ``gpu``; every test skips here without a card (decided in the
 ``cuda`` fixture). On a machine with one:
@@ -12,6 +13,8 @@ Marked ``gpu``; every test skips here without a card (decided in the
 (``--noconftest`` leaves out tests/conftest.py's JAX setup, which these
 tests do not need and which a machine without JAX cannot import.)
 """
+
+import math
 
 import pytest
 import torch
@@ -434,3 +437,61 @@ def test_inference_loop_uses_megastep_and_raycast(cuda):
     assert out["episodes_finished"] == 512
     assert seen == [[0.0] * 4]
     assert out["forward_ms"] > 0 and out["env_ms"] > 0
+
+
+def test_ppo_update_matches_cpu(cuda):
+    """The first update's ``ppo_update`` at train.sh's configuration (PBT
+    2 + 2, grouped, the flagship policy at full width) on 64 worlds, from
+    a rollout on the card, on the card and on the CPU, float32 without
+    TF32: the CPU tests' bars (tests/test_torch_train.py) - parameters
+    within 1e-6 on all but 0.1 % of each leaf and within 2 x lr x epochs
+    on all, Adam's moments within 1e-4 (mu) and 2e-4 (nu) of each leaf's
+    largest, counts and dropped fractions equal, losses within 1e-5
+    relative."""
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.train import __main__ as cli
+    from marl_hideandseek_torch.train import init_training, ppo
+    from marl_hideandseek_torch.train.rollout import collect_rollout
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    env, cfg, pol = cli.build(cli.parse_args([
+        "--ckpt-dir", "-", "--tb-dir", "-", "--run-name", "-",
+        "--num-worlds", "64", "--num-updates", "1",
+        "--pbt-ensemble-size", "2", "--pbt-past-policies", "2",
+        "--num-hiders", "2", "--num-seekers", "2", "--device", "cuda"]))
+    mgr = init_training(cuda, cfg, env, pol)
+    st = mgr.state
+    _, buf, _ = collect_rollout(cfg, env, pol, mgr.all_params(),
+                                st.obs_stats, st.rollout, st.value_stats)
+    stats = pol.obs_preprocess.update_state(st.obs_stats, {
+        k: v.flatten(0, 2) for k, v in buf.obs.items()})
+
+    def run(dev, policy):
+        to = lambda x: x.to(dev)
+        opt = ppo.AdamState(mu=tree_map(to, st.opt_states.mu),
+                            nu=tree_map(to, st.opt_states.nu),
+                            count=to(st.opt_states.count))
+        b = type(buf)(**{k: tree_map(to, v) for k, v in vars(buf).items()})
+        return ppo.ppo_update(cfg, policy, tree_map(to, st.params), opt,
+                              stats.to(dev), tree_map(to, st.value_stats),
+                              tree_map(to, st.hyper_params), b,
+                              torch.Generator(dev))
+
+    card = run(cuda, pol)
+    cpu = run(torch.device("cpu"), make_policy(device="cpu"))
+    lr = float(st.hyper_params["lr"].max())
+    for k, v in cpu[0].items():
+        d = (card[0][k].cpu() - v).abs()
+        assert int((d > 1e-6).sum()) <= math.ceil(0.001 * d.numel()), k
+        assert float(d.max()) <= 2 * lr * cfg.algo.num_epochs, k
+        assert float((v - st.params[k].cpu()).abs().max()) > 0.0, k
+    for name, bar in (("mu", 1e-4), ("nu", 2e-4)):
+        for k, v in getattr(cpu[1], name).items():
+            err = (getattr(card[1], name)[k].cpu() - v).abs().max()
+            assert float(err) <= bar * float(v.abs().max()), (name, k)
+    assert card[1].count.tolist() == cpu[1].count.tolist() == [2, 2]
+    torch.testing.assert_close(card[3]["dropped_agent_frac"].cpu(),
+                               cpu[3]["dropped_agent_frac"], rtol=0, atol=0)
+    for k in ("loss", "action_loss", "value_loss", "entropy"):
+        torch.testing.assert_close(card[3][k].cpu(), cpu[3][k], rtol=1e-5,
+                                   atol=1e-6)
