@@ -3,8 +3,12 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels with nvcc (one process per source, all in
-parallel), then drives three paths, each with its kernels' launch counts
-set to 0 just before and read just after:
+parallel), holds the threefry kernel (``csrc/threefry.cu``, every random
+draw of the port) to its plain version bit for bit on 16,384 keys x
+4,096 words and on ragged shapes, and the card's ``prng`` draws to
+jax.random's outputs carried here as constants (``THREEFRY_TABLE``),
+then drives these paths, each with its kernels' launch counts set to 0
+just before and read just after (the threefry kernel's on every path):
 
 * the packed main path - ``PackedEnv.init`` and ``PackedEnv.step`` at
   bench.py's configuration (16,384 worlds, 2 hiders and 2 seekers, 9
@@ -24,7 +28,8 @@ set to 0 just before and read just after:
   marl_hideandseek_torch.infer`` (``infer.run_inference``) on
   ``PackedEnv`` at 16,384 worlds, 2 hiders and 2 seekers, UseFixedWorld
   | ZeroAgentVelocity, seed 5, with the flagship ``make_policy()`` at full
-  width, 4 policies seeded from a ``torch.Generator``, for 250 stochastic
+  width, 4 policies drawn as flax draws them from PRNGKey(5), for 250
+  stochastic
   steps across the episode-end reset: K4 on every step, K1 on the reset
   steps; the ensemble forward on step 100's observations is held to the
   same modules on the CPU for 512 agents, with TF32 off;
@@ -56,7 +61,9 @@ an init state at rest and on their path's state after 100 steps (one
 step at the one-step bars, then chained steps at the JAX kernels' bars);
 K5 on 256 worlds of the render path's last step, at the JAX kernel's
 bar. It checks that everything stays
-finite, that each path launched its kernels, and prints one JSON line of
+finite, that each path launched its kernels, prints the threefry
+launches per packed step, per reset step and per training update, the
+full reset's time and the training rate, and prints one JSON line of
 per-kernel numbers, the card's name and power limit, and a final JSON
 status line.
 
@@ -111,6 +118,19 @@ TRAIN_CHECK_WORLDS = 64   # update 1's PPO held to the CPU's on these
 # float32 outside the tensor cores, FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# 32-bit integer operations/s outside the tensor cores: 64 INT32 lanes
+# per SM (half the 128 FP32 lanes behind PEAK_F32, which counts an FMA
+# as two) x 132 SMs x 1.98 GHz (Hopper white paper).
+PEAK_INT32 = 64 * 132 * 1.98e9
+# Least integer operations of threefry2x32-20: per item, 20 rounds of
+# add, rotate (one funnel shift) and xor and 12 key-injection adds, then
+# 1 xor for the bits mode, 3 more (shift, or, subtract) for the uniform
+# mode; per key, the key schedule's 2 xors and the 5 injected words (a
+# key word plus its round constant), which the kernel repeats per item.
+THREEFRY_ITEM_OPS = {0: 72, 1: 73, 2: 75}
+THREEFRY_KEY_OPS = 7
+THREEFRY_KEYS = 16384      # the check's batch: keys x words
+THREEFRY_WORDS = 4096
 
 # One step of the kernel and its plain version from the same input: the
 # CPU tests' one-step bars (tests/test_torch_step.py). Velocity is a
@@ -126,6 +146,73 @@ MIN_LIVE = 1000
 # Chained steps: the JAX package's kernel bars against their own oracles
 # (tests/test_pallas_kernels.py:36-237), on >= 99.5 % of all elements.
 JAX_BARS = dict(pos=5e-3, quat=5e-3, vel=0.5, omega=0.5)
+
+
+# jax.random's outputs (JAX 0.9.0, threefry2x32, partitionable) on fixed
+# keys, for the threefry check on the card, where JAX is not installed.
+# tests/test_torch_random.py recomputes them with JAX and fails if this
+# copy differs. Floats as their u32 bit patterns.
+THREEFRY_TABLE = {
+    "key": [0, 42],
+    "split": [[1832780943, 270669613], [64467757, 2916123636],
+              [2465931498, 255383827]],
+    "fold_in": [3383801349, 143359933],
+    "episode_keys": [[1069507333, 595131425], [1843143148, 391770929],
+                     [2195160428, 1013523968], [1976544331, 3472217764]],
+    "bits": [2098992034, 2919706841, 2646866425, 2409546199, 1935504149,
+             2516274904, 321304473, 3329172656],
+    "uniform": [1056585764, 1059981104, 1058915320, 1057988288, 1055308516,
+                1058405198, 1033450928, 1061580580],
+    "uniform_scaled": [3201309424, 1087316056, 1082520028, 1074566336,
+                       3219353084, 1078318526, 3245664486, 1092516369],
+    "randint": [4, 4, 1, 9, 9, 9, 7, 7],
+    "randint_batched": [2, 3, 5, 7],
+    "categorical": [2, 4, 1, 1, 3, 4],
+    "permutation": [7, 4, 2, 5, 3, 6, 10, 11, 8, 9, 0, 1],
+    "permutation_2000": [2010407423, 1474, 815, 539, 874],
+}
+
+
+def threefry_table(device) -> dict:
+    """``THREEFRY_TABLE``'s entries drawn by the port's ``prng`` on
+    ``device``: PRNGKey(42); split 3 ways; fold_in 1000; the episode keys
+    fold_in(fold_in(PRNGKey(5), w), 7) of worlds 0-3; 8 bits, uniforms on
+    [0, 1) and [-18, 18), randints in [0, 10); one randint each from
+    split(PRNGKey(7), 4) below 3, 5, 7, 9; a categorical over 6 rows of
+    logits ((3 i) mod 7) / 4 - 0.75; permutations of 12 and of 2,000
+    (its sum of i * perm[i] and first four)."""
+    from marl_hideandseek_torch import prng
+
+    def u(x):
+        if x.dtype == torch.float32:
+            x = x.view(torch.int32)
+        return (x.view(torch.int32).long() & 0xFFFFFFFF).cpu().tolist()
+
+    def i(x):
+        return x.long().cpu().tolist()
+
+    k = prng.key(42, device)
+    logits = ((torch.arange(30, device=device).reshape(6, 5) * 3) % 7
+              ).float() / 4.0 - 0.75
+    perm = prng.permutation(k, 2000)
+    return {
+        "key": u(k),
+        "split": u(prng.split(k, 3)),
+        "fold_in": u(prng.fold_in(k, 1000)),
+        "episode_keys": u(prng.fold_in(prng.fold_in(
+            prng.key(5, device), torch.arange(4, device=device)), 7)),
+        "bits": u(prng.bits(k, (8,))),
+        "uniform": u(prng.uniform(k, (8,))),
+        "uniform_scaled": u(prng.uniform(k, (8,), -18.0, 18.0)),
+        "randint": i(prng.randint(k, (8,), 0, 10)),
+        "randint_batched": i(prng.randint(
+            prng.split(prng.key(7, device), 4), (), 0,
+            torch.tensor([3, 5, 7, 9], device=device))),
+        "categorical": i(prng.categorical(k, logits)),
+        "permutation": i(prng.permutation(k, 12)),
+        "permutation_2000": [int((perm * torch.arange(
+            2000, device=device)).sum()), *i(perm[:4])],
+    }
 
 
 def log(msg: str) -> None:
@@ -191,6 +278,7 @@ def main() -> int:
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.ops import build, rays, step
+    from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.ops.common import block_occupancy
     from marl_hideandseek_torch.types import pack_state
 
@@ -204,9 +292,9 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["raycast", "megastep", "rgbd"])
+    build.build(["raycast", "megastep", "rgbd", "threefry"])
     phase("build", t0)
-    for name in ("raycast", "megastep", "rgbd"):
+    for name in ("raycast", "megastep", "rgbd", "threefry"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
     occ = step.megastep_occupancy()
     log(f"megastep.cu (K2, K3, K4): one warp per world, "
@@ -237,6 +325,11 @@ def main() -> int:
                            device=dev)
         return torch.cat([move, gl], 1).to(torch.int32).contiguous()
 
+    # ---- 1b. the threefry kernel vs plain and vs JAX's table ---------------
+    t0 = time.perf_counter()
+    threefry = threefry_check(dev, gpu)
+    phase("threefry_check", t0)
+
     # A state for the kernel checks, from its own env (not the main path).
     ref_env = PackedEnv(cfg.replace(rand_seed=SEED + 1), device=dev)
     ps0, _ = ref_env.init()
@@ -258,8 +351,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rays.RAYCAST.launches = 0
     step.MEGASTEP.launches = 0
+    tfk.THREEFRY.launches = 0
     env = PackedEnv(cfg, device=dev)
     ps, res = env.init()
+    tf_init = tfk.THREEFRY.launches
     check_finite(ps, res, "init")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -271,10 +366,12 @@ def main() -> int:
         if at_end:
             torch.cuda.synchronize()
             tr = time.perf_counter()
+            tf_before = tfk.THREEFRY.launches
         ps, res = env.step(ps, random_actions())
         if at_end:
             torch.cuda.synchronize()
             t_reset = time.perf_counter() - tr
+            tf_reset = tfk.THREEFRY.launches - tf_before
         if i + 1 == MOVING_AT:
             moving = ps.map(snapshot)
         if (i + 1) % 100 == 0:
@@ -282,6 +379,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t1
     require(env.reset_counts["full"] >= 1, "the full reset never ran")
+    tf_main = tfk.THREEFRY.launches
+    full_main = env.reset_counts["full"]
     t2 = time.perf_counter()
     for i in range(COMPACT_STEPS):
         resets = (torch.rand(WORLDS, generator=gen, device=dev)
@@ -291,8 +390,15 @@ def main() -> int:
     t_compact = time.perf_counter() - t2
     check_finite(ps, res, "compact")
     launches = {"raycast": rays.RAYCAST.launches,
-                "megastep": step.MEGASTEP.launches}
+                "megastep": step.MEGASTEP.launches,
+                "threefry": tfk.THREEFRY.launches}
+    tf_compact = launches["threefry"] - tf_main
     require(env.reset_counts["compact"] >= 1, "the compact reset never ran")
+    n_reset_steps = env.reset_counts["full"] + env.reset_counts["compact"]
+    require(tf_init > 0 and tf_reset > 0 and
+            tf_main - tf_init == tf_reset * full_main,
+            f"threefry launches on the main path: init {tf_init}, full "
+            f"reset {tf_reset}, {MAIN_STEPS} steps {tf_main - tf_init}")
     require(launches["raycast"] > 0 and launches["megastep"] > 0,
             f"kernel launches on the main path: {launches}")
     obs_shapes = {k: tuple(v.shape) for k, v in res.obs.items()}
@@ -308,6 +414,13 @@ def main() -> int:
         f"{sps_steady:.1f}); {COMPACT_STEPS} steps with 1 % resets in "
         f"{t_compact:.3f} s = {sps_compact:.1f}; resets "
         f"{env.reset_counts}; launches {launches}; {gpu}")
+    log(f"threefry launches, main path: init {tf_init}; per packed step "
+        f"without a reset 0 ({MAIN_STEPS - full_main} such "
+        f"steps of {MAIN_STEPS} drew nothing); per full-reset step "
+        f"{tf_reset}; {tf_compact} in {COMPACT_STEPS} steps with 1 % "
+        f"resets ({tf_compact / COMPACT_STEPS:.2f} a step, "
+        f"{n_reset_steps} reset steps in all); full reset step "
+        f"{t_reset:.3f} s; {gpu}")
     phase("main_path", t0)
 
     # ---- 5. K4 vs plain on the main path's moving state; K4 timing -----------
@@ -402,6 +515,11 @@ def main() -> int:
              source="marl_hideandseek_torch/csrc/rgbd.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_rgbd.py:325",
              **render["kernel"]),
+        dict(launches=launches["threefry"],
+             classic_launches=classic["launches"]["threefry"],
+             serve_launches=serve["launches"]["threefry"],
+             eval_launches=evaluation["launches"]["threefry"],
+             train_launches=training["launches"]["threefry"], **threefry),
     ]
     if args.profile:
         t0 = time.perf_counter()
@@ -423,15 +541,95 @@ def main() -> int:
     return 0
 
 
+def threefry_check(dev, gpu) -> dict:
+    """The threefry kernel against its plain version, bit for bit: the
+    bits mode on THREEFRY_KEYS keys x THREEFRY_WORDS words, each mode on
+    ragged shapes (per-key and shared counters); the card's ``prng``
+    draws against JAX's table; the kernel's time at a full reset's
+    largest call (the level generator's poses: 16,384 worlds x 15 slots x
+    2 keys, 42 uniforms each) and at the check's batch, beside the plain
+    version's and the bound. Returns the kernel's JSON entry without
+    launch counts."""
+    from marl_hideandseek_torch import prng
+    from marl_hideandseek_torch.ops import threefry as tfk
+
+    def words(x):
+        return x.view(torch.int32).long() & 0xFFFFFFFF
+
+    def err(a, b):
+        return int((words(a) - words(b)).abs().max())
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def u32(*shape):
+        return torch.randint(0, 2 ** 32, shape, generator=gen, device=dev,
+                             dtype=torch.long).to(torch.uint32)
+
+    worst = 0
+    keys = u32(THREEFRY_KEYS, 2)
+    got = tfk.threefry(keys, None, THREEFRY_WORDS, tfk.BITS)
+    want = tfk.threefry_plain(keys, None, THREEFRY_WORDS, tfk.BITS)
+    worst = max(worst, err(got, want))
+    del got, want
+    for k, n, shared in ((13, 37, False), (1001, 5, True), (1, 4099, False),
+                         (257, 1, False)):
+        kk = u32(k, 2)
+        ctr = u32(1 if shared else k, n, 2)
+        for mode in (tfk.PAIRS, tfk.BITS, tfk.UNIFORM):
+            for c in (ctr, None):
+                a = tfk.threefry(kk, c, n, mode)
+                b = tfk.threefry_plain(kk, c, n, mode)
+                worst = max(worst, err(a, b))
+    table = threefry_table(dev)
+    bad = [k for k in THREEFRY_TABLE if table[k] != THREEFRY_TABLE[k]]
+    log(f"threefry check: kernel vs plain, max abs difference of words "
+        f"{worst} over {THREEFRY_KEYS} keys x {THREEFRY_WORDS} words and 4 "
+        f"ragged shapes x 3 modes x 2 counter kinds; card's prng vs JAX's "
+        f"table: {len(THREEFRY_TABLE) - len(bad)} of {len(THREEFRY_TABLE)} "
+        f"entries equal {bad or ''}")
+    require(worst == 0, f"threefry kernel differs from its plain version "
+            f"by {worst}")
+    require(not bad, f"threefry: the card's draws differ from JAX's in {bad}")
+
+    def timing(k, n, mode):
+        kk = u32(k, 2)
+        ms = cuda_ms(lambda: tfk.threefry(kk, None, n, mode), 20)
+        plain = cuda_ms(lambda: tfk.threefry_plain(kk, None, n, mode), 2)
+        out_b = 8 if mode == tfk.PAIRS else 4
+        n_bytes = 8 * k + out_b * k * n
+        n_ops = THREEFRY_ITEM_OPS[mode] * k * n + THREEFRY_KEY_OPS * k
+        b_ms, by = bound(n_bytes, n_ops, peak_ops=PEAK_INT32)
+        return ms, plain, b_ms, by
+
+    pose = (16384 * 15 * 2, 42, tfk.UNIFORM)
+    ms, plain_ms, b_ms, by = timing(*pose)
+    big_ms, big_plain, big_b, big_by = timing(THREEFRY_KEYS, THREEFRY_WORDS,
+                                              tfk.BITS)
+    log(f"threefry kernel: {ms:.4f} ms a launch at a full reset's pose "
+        f"draws ({pose[0]} keys x {pose[1]} uniforms), plain {plain_ms:.3f} "
+        f"ms, bound {b_ms:.5f} ms ({by}); {big_ms:.4f} ms at {THREEFRY_KEYS} "
+        f"keys x {THREEFRY_WORDS} bits, plain {big_plain:.3f} ms, bound "
+        f"{big_b:.5f} ms ({big_by}); INT32 peak {PEAK_INT32 / 1e12:.2f} "
+        f"Top/s; {gpu}")
+    return dict(name="threefry", route="cuda",
+                source="marl_hideandseek_torch/csrc/threefry.cu",
+                replaces="jax/_src/prng.py:883 (XLA's threefry2x32 "
+                         "lowering; no Pallas kernel)",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=None, batch_ms=big_ms,
+                batch_plain_ms=big_plain, batch_bound_ms=big_b)
+
+
 def seeded_policy(dev, gen):
-    """The flagship policy at full width, SERVE_POLICIES policies drawn
-    from ``gen``; the zero-initialised leaves (biases, the critic's
-    kernel) moved off zero from the same generator so that they take part.
-    Returns (policy, params)."""
+    """The flagship policy at full width, SERVE_POLICIES policies drawn as
+    flax draws them from PRNGKey(SEED); the zero-initialised leaves
+    (biases, the critic's kernel) moved off zero from ``gen`` so that they
+    take part. Returns (policy, params)."""
+    from marl_hideandseek_torch import prng
     from marl_hideandseek_torch.policy import make_policy
 
     policy = make_policy(num_policies=SERVE_POLICIES, device=dev,
-                         generator=gen)
+                         key=prng.key(SEED))
     params = dict(policy.actor_critic.named_parameters())
     with torch.no_grad():
         for p in params.values():
@@ -495,6 +693,7 @@ def serve_path(dev, gpu):
     from marl_hideandseek_torch.models import DiscreteActionDistributions
     from marl_hideandseek_torch.models.actor_critic import tree_map
     from marl_hideandseek_torch.ops import rays, step
+    from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.policy import make_policy
     from marl_hideandseek_torch.train.rollout import apply_ensemble
 
@@ -548,6 +747,7 @@ def serve_path(dev, gpu):
 
     rays.RAYCAST.launches = 0
     step.MEGASTEP.launches = 0
+    tfk.THREEFRY.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_inference(env, policy, params, stats, SERVE_STEPS,
@@ -555,7 +755,13 @@ def serve_path(dev, gpu):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"megastep": step.MEGASTEP.launches,
-                "raycast": rays.RAYCAST.launches}
+                "raycast": rays.RAYCAST.launches,
+                "threefry": tfk.THREEFRY.launches}
+    # Per step: the step key's split, the buckets' split and their Gumbel
+    # noise; more on the reset steps and at init.
+    require(launches["threefry"] > 3 * SERVE_STEPS,
+            f"serve path: threefry launches {launches['threefry']}, "
+            f"expected more than {3 * SERVE_STEPS}")
     require(launches["megastep"] == SERVE_STEPS,
             f"serve path: K4 launches {launches['megastep']}, expected "
             f"{SERVE_STEPS}")
@@ -640,6 +846,7 @@ def eval_path(dev, policy, params, gpu):
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
     from marl_hideandseek_torch.env.env import HideAndSeekEnv
     from marl_hideandseek_torch.ops import fused, rays
+    from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.train import (
         ActionsConfig,
         EvalConfig,
@@ -659,19 +866,22 @@ def eval_path(dev, policy, params, gpu):
                       num_eval_steps=EVAL_STEPS, actions=ActionsConfig())
     fused.FUSED.launches = 0
     rays.RAYCAST.launches = 0
+    tfk.THREEFRY.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eval_policies(dev, ecfg, env, policy, params, stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused": fused.FUSED.launches,
-                "raycast": rays.RAYCAST.launches}
+                "raycast": rays.RAYCAST.launches,
+                "threefry": tfk.THREEFRY.launches}
     elo = out["elo"].cpu()
     log(f"eval path: {EVAL_STEPS} steps x {EVAL_WORLDS} worlds in "
         f"{wall:.3f} s = {EVAL_STEPS * EVAL_WORLDS / wall:.1f} steps x "
         f"worlds / s; episodes finished {out['episodes_finished']}; ELOs "
         f"{[round(float(e), 3) for e in elo]}; launches {launches}; {gpu}")
-    require(launches["fused"] == EVAL_STEPS and launches["raycast"] > 0,
+    require(launches["fused"] == EVAL_STEPS and launches["raycast"] > 0 and
+            launches["threefry"] > 3 * EVAL_STEPS,
             f"eval path launches {launches}")
     require(out["episodes_finished"] >= 1, "eval path: no episode finished")
     require(bool(torch.isfinite(elo).all()) and
@@ -694,6 +904,7 @@ def train_path(dev, gpu):
     import tempfile
 
     from marl_hideandseek_torch.ops import rays, step
+    from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.policy import make_policy
     from marl_hideandseek_torch.train import (
         TrainHooks,
@@ -730,8 +941,10 @@ def train_path(dev, gpu):
         hooks = Hooks()
         rays.RAYCAST.launches = 0
         step.MEGASTEP.launches = 0
+        tfk.THREEFRY.launches = 0
         mgr = init_training(dev, cfg, env, policy, hooks=hooks)
         k1_init = rays.RAYCAST.launches
+        tf_init = tfk.THREEFRY.launches
         states = [mgr.state]
         marks = []
         for _ in range(TRAIN_UPDATES):
@@ -743,10 +956,12 @@ def train_path(dev, gpu):
             states.append(mgr.state)
         k1_train = rays.RAYCAST.launches
         k4_train = step.MEGASTEP.launches
+        tf_train = tfk.THREEFRY.launches - tf_init
         elo_train = mgr.state.elo.clone()
         mgr = eval_elo(mgr)
         launches = {"megastep": step.MEGASTEP.launches,
-                    "raycast": rays.RAYCAST.launches}
+                    "raycast": rays.RAYCAST.launches,
+                    "threefry": tfk.THREEFRY.launches}
         st = mgr.state
         n_steps = TRAIN_UPDATES * cfg.steps_per_update
         eval_steps = cfg.steps_per_update * 6
@@ -754,7 +969,13 @@ def train_path(dev, gpu):
             f"{launches['megastep'] - k4_train} in {eval_steps} eval_elo "
             f"steps; K1 {k1_init} at init, {k1_train - k1_init} in training, "
             f"{launches['raycast'] - k1_train} in eval_elo; resets "
-            f"{env.reset_counts}")
+            f"{env.reset_counts}; threefry {tf_init} at init, {tf_train} in "
+            f"{TRAIN_UPDATES} updates ({tf_train / TRAIN_UPDATES:.1f} an "
+            f"update), {launches['threefry'] - tf_init - tf_train} in "
+            f"eval_elo")
+        require(tf_init > 0 and tf_train > 3 * n_steps,
+                f"train path: threefry launches {tf_init} at init and "
+                f"{tf_train} in {n_steps} rollout steps")
         require(k4_train == n_steps and
                 launches["megastep"] == n_steps + eval_steps,
                 f"train path: K4 launches {k4_train} and "
@@ -788,7 +1009,7 @@ def train_path(dev, gpu):
         require(float(elo[0]) != float(elo[1]), "train path: the train "
                 "policies' ELOs tie, so explore_exploit copies nothing")
         best, worst = int(torch.argmax(elo[:2])), int(torch.argmin(elo[:2]))
-        p2, o2, h2 = pbt.explore_exploit(cfg, st.gen, elo, st.params,
+        p2, o2, h2 = pbt.explore_exploit(cfg, st.key, elo, st.params,
                                          st.opt_states, st.hyper_params)
         copied = all(torch.equal(v[worst], v[best]) for v in p2.values()) and \
             all(torch.equal(m[k][worst], m[k][best])
@@ -945,7 +1166,7 @@ def slice_update(cfg, policy, s0, s1, buf, n, dev):
     return ppo.ppo_update(cfg, policy, to(s0.params), opt,
                           s1.obs_stats.to(dev), to(s0.value_stats),
                           to(s0.hyper_params), buffer_slice(buf, n, dev),
-                          torch.Generator(dev))
+                          s0.key.to(dev))
 
 
 def update_errors(got, want) -> dict:
@@ -981,10 +1202,9 @@ def ppo_forward_macs(cfg, policy, s0, s1, buf) -> int:
     of that update."""
     from marl_hideandseek_torch.train import ppo
 
-    dev = buf.log_probs.device
     macs = dense_macs(policy.actor_critic, lambda: ppo.ppo_update(
         cfg, policy, s0.params, s0.opt_states, s1.obs_stats, s0.value_stats,
-        s0.hyper_params, buf, torch.Generator(dev)))
+        s0.hyper_params, buf, s0.key))
     return macs // cfg.algo.num_epochs
 
 
@@ -1023,10 +1243,10 @@ def check_k1(cfg, ps, label: str) -> dict:
                 bound_by=b_by)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32):
     """(least time in ms, what bounds it) for this many bytes moved and
-    float32 operations done."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    operations done at ``peak_ops`` a second (float32 by default)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -1116,6 +1336,7 @@ def classic_path(dev, random_actions, gpu):
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
     from marl_hideandseek_torch.env.env import HideAndSeekEnv
     from marl_hideandseek_torch.ops import fused, physics, rays
+    from marl_hideandseek_torch.ops import threefry as tfk
 
     cfg = EnvConfig(num_worlds=WORLDS, min_hiders=3, max_hiders=3,
                     min_seekers=2, max_seekers=2,
@@ -1130,6 +1351,7 @@ def classic_path(dev, random_actions, gpu):
     rays.RAYCAST.launches = 0
     fused.FUSED.launches = 0
     physics.PHYSICS.launches = 0
+    tfk.THREEFRY.launches = 0
     t0 = time.perf_counter()
     env = HideAndSeekEnv(cfg, device=dev)
     state, res = env.init()
@@ -1161,8 +1383,10 @@ def classic_path(dev, random_actions, gpu):
     require(env.reset_counts["compact"] >= 1, "classic: the compact reset "
             "never ran")
     launches = {"fused": fused.FUSED.launches,
-                "raycast": rays.RAYCAST.launches}
-    require(launches["fused"] > 0 and launches["raycast"] > 0,
+                "raycast": rays.RAYCAST.launches,
+                "threefry": tfk.THREEFRY.launches}
+    require(launches["fused"] > 0 and launches["raycast"] > 0 and
+            launches["threefry"] > 0,
             f"kernel launches on the classic path: {launches}")
     log(f"classic path: init {t_init:.3f} s; {CLASSIC_STEPS} steps in "
         f"{t_steps:.3f} s = {CLASSIC_STEPS * WORLDS / t_steps:.1f} steps x "

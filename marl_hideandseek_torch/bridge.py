@@ -31,6 +31,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.env.checkpoint import Checkpoint
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
@@ -264,13 +265,28 @@ def training_state_from_numpy(tree: Mapping, policy: Policy,
     ``device``: the parameters and past parameters, optax's Adam state
     (``opt_states[1]``: ``count`` ``[P]``, ``mu`` and ``nu`` under
     ``params/...`` with flax names), the normalizer statistics, the
-    return statistics, the hyperparameters, ELOs, update count and metric
-    ring, every value unchanged. The rollout and the JAX keys are not
-    carried: the port starts its rollout from its own seed."""
+    return statistics, the hyperparameters, ELOs, update count, metric
+    ring and the state's key, and the rollout - the packed env state,
+    the prepped observations (float32: a bf16 run's are widened), the
+    LSTM state, the matchups and the rollout's key - every value
+    unchanged. The port's keys are JAX's (``prng.py``), so the run
+    resumes with JAX's worlds and draws."""
     def tensors(d):
         return {k: _to_tensor(v, device) for k, v in d.items()}
 
+    def obs_tensor(v):
+        a = np.asarray(v)
+        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return _to_tensor(a, device)
+
+    def tuples(x):
+        if isinstance(x, (list, tuple)):
+            return tuple(tuples(v) for v in x)
+        return _to_tensor(x, device)
+
     adam = tree["opt_states"][1]
+    ro = tree["rollout"]
     past = tree.get("past_params") or {}
     stats = tree["obs_stats"]
     return {
@@ -288,4 +304,12 @@ def training_state_from_numpy(tree: Mapping, policy: Policy,
         "elo": _to_tensor(tree["elo"], device),
         "update_idx": int(np.asarray(tree["update_idx"])),
         "metrics": tensors(tree["metrics"]),
+        "key": prng.as_key(tree["key"], device),
+        "rollout": {
+            "env_state": state_to_tree(state_from_numpy(ro["env_state"],
+                                                        device)),
+            "obs": {k: obs_tensor(v) for k, v in ro["obs"].items()},
+            "rnn_states": tuples(ro["rnn_states"]),
+            "assignments": _to_tensor(ro["assignments"], device),
+            "key": prng.as_key(ro["key"], device)},
     }

@@ -4,10 +4,10 @@ Port of ``marl_hideandseek_tpu/env/checkpoint.py`` (reference: the
 Checkpoint singleton src/sim.hpp:283-313, save/load task graphs
 src/sim.cpp:956-1137). A checkpoint holds a world's dynamic state and its
 level and episode keys; loading regenerates the level from the keys with
-a *levelgen* (``env/episode.py``: the port's keyed generator by default,
-or the JAX generator through the bridge for a JAX checkpoint) and then
-overwrites the dynamic state. ``pack_checkpoints`` / ``unpack_checkpoints``
-give the flat ``[W, nbytes]`` u8 records of the JAX package, byte for
+a *levelgen* (``env/episode.py``: by default the port's level
+generator, which draws JAX's level from the keys, so a JAX checkpoint
+loads as it is) and then overwrites the dynamic state.
+``pack_checkpoints`` / ``unpack_checkpoints`` give the flat ``[W, nbytes]`` u8 records of the JAX package, byte for
 byte (field order, little-endian values, bools as one byte).
 
 Checkpoints are world-major (world axis first), like the classic env's

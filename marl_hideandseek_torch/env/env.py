@@ -18,10 +18,13 @@ env, its checkpoints and its tools. A step is:
    (``_standalone_sweep``, ``ops/rays.py::raycast_batch``);
 5. observations in the classic ``[W, A, ...]`` shapes.
 
-CPU tensors take each kernel's plain version. World generation is
-injectable as in ``PackedEnv`` (``worldgen``), and so is the level
-generator that ``load_checkpoints`` regenerates a saved level with
-(``levelgen``, see ``env/episode.py``).
+CPU tensors take each kernel's plain version. Random draws follow JAX's
+keys (``prng.py``): ``init(key)`` draws the first episodes from ``key``,
+resets from ``base_key`` (default ``PRNGKey(cfg.rand_seed)``), as JAX's
+``init`` and ``step`` do. World generation is injectable as in
+``PackedEnv`` (``worldgen``), and so is the level generator that
+``load_checkpoints`` regenerates a saved level with (``levelgen``, see
+``env/episode.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig
 from marl_hideandseek_torch.env import checkpoint as ckpt_mod
 from marl_hideandseek_torch.env import observations as obs_mod
@@ -37,8 +41,8 @@ from marl_hideandseek_torch.env import packed as P
 from marl_hideandseek_torch.env.episode import (
     LevelGen,
     WorldGen,
+    default_levelgen,
     fresh_world,
-    keyed_levelgen,
     levelgen_worldgen,
     regen_world,
 )
@@ -68,9 +72,9 @@ class HideAndSeekEnv:
     ``device`` defaults to ``"cuda"`` and must exist: asking for CUDA
     without a card raises rather than running on the CPU. ``worldgen``
     replaces the world generator and ``levelgen`` the level generator of
-    checkpoint loads (``env/episode.py``); the defaults key each
-    episode's draws by (``cfg.rand_seed``, world id, episode counter) and
-    draw levels from their level keys. ``fused=False`` takes the JAX env's
+    checkpoint loads (``env/episode.py``); the defaults are JAX's: each
+    episode's draws keyed by (base key, world id, episode counter) and
+    each level drawn from its level key. ``fused=False`` takes the JAX env's
     unfused branch (K2, then the standalone sweep) instead of K3.
     """
 
@@ -85,18 +89,20 @@ class HideAndSeekEnv:
         self.cfg = cfg
         self.device = device
         self.fused = fused
-        self.levelgen = levelgen or keyed_levelgen(cfg)
+        self.levelgen = levelgen or default_levelgen(cfg)
         self.worldgen = worldgen or levelgen_worldgen(cfg, self.levelgen)
         # Reset branches taken by step(), for runs that must show them.
         self.reset_counts = {"full": 0, "compact": 0}
 
     # -- construction -------------------------------------------------------
 
-    def init(self) -> Tuple[EnvState, StepResult]:
-        """Fresh level-1 worlds, swept, with zero rewards."""
+    def init(self, key: Optional[torch.Tensor] = None
+             ) -> Tuple[EnvState, StepResult]:
+        """Fresh level-1 worlds drawn from ``key`` (default
+        ``PRNGKey(cfg.rand_seed)``), swept, with zero rewards."""
         w = self.cfg.num_worlds
         ids = torch.arange(w, device=self.device)
-        ps = fresh_world(self.worldgen, ids,
+        ps = fresh_world(self.worldgen, self._key(key), ids,
                          torch.ones(w, dtype=torch.long, device=self.device))
         return self._finish(unpack_state(ps))
 
@@ -113,11 +119,19 @@ class HideAndSeekEnv:
 
     # -- stepping -----------------------------------------------------------
 
+    def _key(self, key: Optional[torch.Tensor]) -> torch.Tensor:
+        if key is None:
+            return prng.key(self.cfg.rand_seed, self.device)
+        return prng.as_key(key, self.device)
+
     def step(self, state: EnvState, actions: torch.Tensor,
-             resets: Optional[torch.Tensor] = None
+             resets: Optional[torch.Tensor] = None,
+             base_key: Optional[torch.Tensor] = None
              ) -> Tuple[EnvState, StepResult]:
         """One step of every world. actions [W, A, 5] int (x, y, r, g, l
-        buckets); resets [W] int level ids (0 = no external reset)."""
+        buckets); resets [W] int level ids (0 = no external reset);
+        base_key the key of the reset worlds' episode draws (default
+        ``PRNGKey(cfg.rand_seed)``)."""
         cfg = self.cfg
         w = state.step.shape[0]
         if resets is None:
@@ -145,7 +159,8 @@ class HideAndSeekEnv:
         trigger = resets != 0
         if not cfg.ignore_episode_length:
             trigger = trigger | (state.step == cfg.episode_len - 1)
-        state, sweep = self._apply_resets(state, sweep, trigger, resets)
+        state, sweep = self._apply_resets(state, sweep, trigger, resets,
+                                          base_key)
         state = _contiguous(state.replace(act_hit_t=sweep.act_t,
                                           act_hit_id=sweep.act_id))
         return state, self._assemble(state, sweep,
@@ -153,7 +168,7 @@ class HideAndSeekEnv:
                                      dones.T[..., None].contiguous())
 
     def _apply_resets(self, state: EnvState, sweep: SweepResults, trigger,
-                      resets):
+                      resets, base_key=None):
         """Advance the step counter and regenerate the triggered worlds:
         every world at once (full branch) or, when at most
         ``reset_budget`` trigger, only those (compact branch). Returns
@@ -166,18 +181,19 @@ class HideAndSeekEnv:
             return adv, sweep
         level_ids = torch.where(resets != 0, resets, 1).long()
         world_ids = torch.arange(w, device=trigger.device)
+        base_key = self._key(base_key)
         if 0 < cfg.reset_budget < w and n_trig <= cfg.reset_budget:
             self.reset_counts["compact"] += 1
             return self._compact_resets(state, adv, sweep, trigger, level_ids,
-                                        world_ids)
+                                        world_ids, base_key)
         self.reset_counts["full"] += 1
-        regen = self._regen(world_ids, state, level_ids)
+        regen = self._regen(base_key, world_ids, state, level_ids)
         new = regen.map2(adv, on_bits(lambda n, o: torch.where(
             trigger.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)))
         return new, self._standalone_sweep(new)
 
     def _compact_resets(self, state, adv, sweep, trigger, level_ids,
-                        world_ids):
+                        world_ids, base_key):
         """Regenerate only the triggered worlds (at most reset_budget).
 
         The k = reset_budget slots hold the triggered worlds in ascending
@@ -196,7 +212,7 @@ class HideAndSeekEnv:
                               dim=1) == torch.arange(k, device=dev))
 
         sub = state.map(on_bits(lambda x: x[idx]))
-        regen = self._regen(world_ids[idx], sub, level_ids[idx])
+        regen = self._regen(base_key, world_ids[idx], sub, level_ids[idx])
         sub_sweep = self._standalone_sweep(regen)
         cols = idx[first]
 
@@ -210,10 +226,12 @@ class HideAndSeekEnv:
                                    zip(sweep, sub_sweep)))
         return adv.map2(regen, merge), new_sweep
 
-    def _regen(self, world_ids, state: EnvState, level_ids) -> EnvState:
+    def _regen(self, base_key, world_ids, state: EnvState,
+               level_ids) -> EnvState:
         """Fresh episodes for the worlds of world-major ``state``."""
         return obs_mod.world_first(regen_world(
-            self.worldgen, world_ids, obs_mod.world_last(state), level_ids))
+            self.worldgen, base_key, world_ids, obs_mod.world_last(state),
+            level_ids))
 
     # -- sweep machinery ----------------------------------------------------
 

@@ -13,10 +13,14 @@ consecutive worlds read coalesced addresses. A step is:
    with the raycast kernel (``ops/rays.py``);
 3. observation assembly with flattened feature dims.
 
-Level regeneration is injectable (``worldgen``): the default draws each
-episode from the env's ``torch.Generator`` and generates its level from
-the world's level key (``env/episode.py``, ``env/levelgen.py``); tests
-pass worlds generated elsewhere.
+Random draws follow JAX's keys (``prng.py``): ``init(key)`` draws the
+first episodes from ``key``, resets from ``base_key`` (default
+``PRNGKey(cfg.rand_seed)``), as JAX's ``init`` and ``step`` do. Level
+regeneration is injectable (``worldgen``): the default draws each
+episode from (base key, world id, episode counter) and generates its
+level from the world's level key (``env/episode.py``,
+``env/levelgen.py``), as JAX does; tests may pass worlds generated
+elsewhere.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from marl_hideandseek_torch import math3d
+from marl_hideandseek_torch import math3d, prng
 from marl_hideandseek_torch.config import (
     NUM_PREP_STEPS,
     OOB_LIMIT,
@@ -285,9 +289,9 @@ class PackedEnv:
 
     ``device`` defaults to ``"cuda"`` and must exist: asking for CUDA
     without a card raises rather than running on the CPU. ``worldgen``
-    replaces the world generator (see ``WorldGen``); the default keys
-    each episode's draws by (``cfg.rand_seed``, world id, episode
-    counter) and draws levels from their level keys.
+    replaces the world generator (see ``WorldGen``); the default is
+    JAX's: each episode's draws keyed by (base key, world id, episode
+    counter) and each level drawn from its level key.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda",
@@ -305,12 +309,14 @@ class PackedEnv:
 
     # -- construction -------------------------------------------------------
 
-    def init(self) -> Tuple[EnvState, PackedStepResult]:
-        """Fresh level-1 worlds, swept, with zero rewards."""
+    def init(self, key: Optional[torch.Tensor] = None
+             ) -> Tuple[EnvState, PackedStepResult]:
+        """Fresh level-1 worlds drawn from ``key`` (default
+        ``PRNGKey(cfg.rand_seed)``), swept, with zero rewards."""
         cfg = self.cfg
         w = cfg.num_worlds
         ids = torch.arange(w, device=self.device)
-        ps = fresh_world(self.worldgen, ids,
+        ps = fresh_world(self.worldgen, self._key(key), ids,
                          torch.ones(w, dtype=torch.long, device=self.device))
         sweep = standalone_sweep_packed(cfg, ps)
         ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
@@ -320,11 +326,14 @@ class PackedEnv:
 
     def step(self, ps: EnvState, actions: torch.Tensor,
              resets: Optional[torch.Tensor] = None,
+             base_key: Optional[torch.Tensor] = None,
              world_ids: Optional[torch.Tensor] = None
              ) -> Tuple[EnvState, PackedStepResult]:
         """One packed step. actions [A, 5, W] int; resets [W] int level
-        ids (0 = none); world_ids [W] global world indices handed to the
-        level generator (default arange(W))."""
+        ids (0 = none); base_key the key of the reset worlds' episode
+        draws (default ``PRNGKey(cfg.rand_seed)``); world_ids [W] global
+        world indices handed to the level generator (default
+        arange(W))."""
         cfg = self.cfg
         w = ps.step.shape[0]
         dev = ps.step.device
@@ -346,22 +355,30 @@ class PackedEnv:
         elif 0 < cfg.reset_budget < w and n_trig <= cfg.reset_budget:
             self.reset_counts["compact"] += 1
             ps, sweep = self._compact_resets(ps, sweep, trigger, level_ids,
-                                             world_ids)
+                                             world_ids, self._key(base_key))
         else:
             self.reset_counts["full"] += 1
-            ps, sweep = self._full_resets(ps, trigger, level_ids, world_ids)
+            ps, sweep = self._full_resets(ps, trigger, level_ids, world_ids,
+                                          self._key(base_key))
         ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
         return ps, self._result(ps, sweep, rewards, dones, team_r)
 
-    def _full_resets(self, ps, trigger, level_ids, world_ids):
+    def _key(self, key: Optional[torch.Tensor]) -> torch.Tensor:
+        if key is None:
+            return prng.key(self.cfg.rand_seed, self.device)
+        return prng.as_key(key, self.device)
+
+    def _full_resets(self, ps, trigger, level_ids, world_ids, base_key):
         """Regenerate every world, keep the triggered ones, re-sweep."""
-        regen = regen_world(self.worldgen, world_ids, ps, level_ids)
+        regen = regen_world(self.worldgen, base_key, world_ids, ps,
+                            level_ids)
         adv = ps.replace(step=ps.step + 1)
         new_p = regen.map2(adv, on_bits(
             lambda n, o: _select_worlds(trigger, n, o)))
         return new_p, standalone_sweep_packed(self.cfg, new_p)
 
-    def _compact_resets(self, ps, sweep, trigger, level_ids, world_ids):
+    def _compact_resets(self, ps, sweep, trigger, level_ids, world_ids,
+                        base_key):
         """Regenerate only the triggered worlds (at most reset_budget).
 
         The k = reset_budget slots hold the triggered worlds in ascending
@@ -379,7 +396,8 @@ class PackedEnv:
                               dim=1) == torch.arange(k, device=dev))
 
         sub = ps.map(on_bits(lambda x: x[..., idx]))
-        regen = regen_world(self.worldgen, world_ids[idx], sub, level_ids[idx])
+        regen = regen_world(self.worldgen, base_key, world_ids[idx], sub,
+                            level_ids[idx])
         sub_sweep = standalone_sweep_packed(self.cfg, regen)
 
         cols = idx[first]

@@ -23,6 +23,7 @@ import time
 
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.env import HideAndSeekEnv
 from marl_hideandseek_torch.env.packed import DEFAULT_BUCKETS, INSTANT_BUCKETS
@@ -70,23 +71,21 @@ def main(argv=None) -> int:
     neutral = torch.full((w, na, 5), n_move // 2, dtype=torch.int32,
                          device=dev)
     neutral[..., 3:] = 0
-    state, result = env.init()
+    key = prng.key(5, dev)
+    state, result = env.init(key)
     if args.level != 1:
         resets = torch.full((w,), args.level, dtype=torch.int32, device=dev)
         state, result = env.step(state, neutral, resets)
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     start = time.perf_counter()
-    for _ in range(args.num_steps):
+    for i in range(args.num_steps):
         if args.rand_actions:
-            actions = torch.cat([
-                torch.randint(0, n_move, (w, na, 3), generator=gen,
-                              device=dev),
-                torch.randint(0, 2, (w, na, 2), generator=gen, device=dev)],
-                dim=-1)
+            # scripts/headless.py:62-66: fold_in(PRNGKey(5), i), split.
+            k1, k2 = prng.split(prng.fold_in(key, i)).unbind(0)
+            actions = torch.cat([prng.randint(k1, (w, na, 3), 0, n_move),
+                                 prng.randint(k2, (w, na, 2), 0, 2)], dim=-1)
         else:
             actions = neutral
         state, result = env.step(state, actions)

@@ -23,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
@@ -37,10 +38,11 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
                   num_steps: int, *, deterministic: bool = False,
                   iter_cb: Optional[Callable] = None,
                   timing: bool = False) -> dict:
-    """``num_steps`` steps of the packed env from ``env.init()``, the
-    policies' actions from ``apply_ensemble`` (``best()`` when
-    ``deterministic``, else drawn from a generator seeded 7 on the env's
-    device). Matchups are round robin over the policy axis and
+    """``num_steps`` steps of the packed env from ``env.init(PRNGKey(7))``,
+    the policies' actions from ``apply_ensemble`` (``best()`` when
+    ``deterministic``, else sampled with step ``i``'s key: ``key, sub =
+    split(key)`` from ``PRNGKey(7)``, as scripts/infer.py:123-131 draws
+    them). Matchups are round robin over the policy axis and
     keyed by team membership at each step: a world's hiders play
     ``t0``, its seekers ``t1``. Recurrent state is cleared for agents
     whose episode ended.
@@ -62,7 +64,7 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     ac = policy.actor_critic
     buckets = ac.actor.buckets
     n_pol = next(iter(params.values())).shape[0]
-    gen = torch.Generator(dev).manual_seed(7)
+    key = prng.key(7, dev)
     w_idx = torch.arange(w, device=dev)
     t0 = w_idx % n_pol
     t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
@@ -75,7 +77,7 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     finished = torch.zeros((), dtype=torch.long, device=dev)
     events = []
     with torch.no_grad():
-        env_state, result = env.init()
+        env_state, result = env.init(prng.key(7, dev))
         obs = flat(result.obs)
         rnn = ac.init_recurrent_state(n, dev)
         for i in range(num_steps):
@@ -89,7 +91,11 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
             logits, values, new_rnn = apply_ensemble(
                 policy, params, rnn, normalized, assignments, n_pol)
             dists = DiscreteActionDistributions(buckets, logits)
-            actions = dists.best() if deterministic else dists.sample(gen)
+            if deterministic:
+                actions = dists.best()
+            else:
+                key, sub = prng.split(key).unbind(0)
+                actions = dists.sample(sub)
             if timing:
                 ev[1].record()
             env_state, result = env.step(

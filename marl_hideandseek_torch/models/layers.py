@@ -13,15 +13,19 @@ statistics are float32 whatever that dtype is.
 
 Parameter names mirror the flax tree (``Dense_0.kernel``,
 ``LayerNorm_0.scale``, ``embed_boxes``, ...), so a flax checkpoint loads by
-name (``bridge.policy_params_from_numpy``). Initialisers draw from the
-same families as flax's (orthogonal with a scale, zeros, ones, normal, He
-normal), each policy's slice independently; bit parity with flax's init
-is not a goal.
+name (``bridge.policy_params_from_numpy``). Initialisers draw as flax's
+do, from the keys flax derives (``param_key``): policy ``p``'s parameter
+at module path ``a.b.c`` is drawn from ``fold_in(keys[p], h)``, ``h`` the
+first four bytes of a SHA-1 of the path's names and the parameter's
+index in its module (flax/core/scope.py, ``LazyRng``), with JAX's
+threefry (``prng.py``): the same keys give flax's initial parameters, to
+float32 rounding of the orthogonal initialiser's QR.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -29,55 +33,72 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Fills one policy's slice of a parameter in place.
-Init = Callable[[torch.Tensor, torch.Generator], None]
+from marl_hideandseek_torch import prng
+
+# init(keys [P, 2] u32, shape) -> [P, *shape] float32 on the keys' device:
+# one slice per policy key.
+Init = Callable[[torch.Tensor, Tuple[int, ...]], torch.Tensor]
 
 
 def orthogonal(scale: float = 2.0 ** 0.5) -> Init:
     """jax.nn.initializers.orthogonal(scale), column axis last: the Q of
-    a QR of a normal matrix, signs fixed by R's diagonal."""
+    a QR of a normal matrix, signs fixed by R's diagonal
+    (``prng.orthogonal``)."""
 
-    def init(t: torch.Tensor, gen: torch.Generator) -> None:
-        n_cols = t.shape[-1]
-        n_rows = t.numel() // n_cols
-        wide = n_rows < n_cols
-        a = torch.randn((n_cols, n_rows) if wide else (n_rows, n_cols),
-                        generator=gen, dtype=torch.float32)
-        q, r = torch.linalg.qr(a)
-        q = q * torch.sign(torch.diagonal(r))
-        if wide:
-            q = q.T
-        t.copy_(scale * q.reshape(t.shape))
+    def init(keys: torch.Tensor, shape) -> torch.Tensor:
+        n_cols = shape[-1]
+        n_rows = math.prod(shape) // n_cols
+        q = prng.orthogonal(keys, n_rows, n_cols)
+        return torch.tensor(scale, dtype=torch.float32) * q.reshape(
+            keys.shape[0], *shape)
 
     return init
 
 
-def zeros(t: torch.Tensor, gen: torch.Generator) -> None:
-    t.zero_()
+def zeros(keys: torch.Tensor, shape) -> torch.Tensor:
+    return torch.zeros((keys.shape[0], *shape), device=keys.device)
 
 
-def ones(t: torch.Tensor, gen: torch.Generator) -> None:
-    t.fill_(1.0)
+def ones(keys: torch.Tensor, shape) -> torch.Tensor:
+    return torch.ones((keys.shape[0], *shape), device=keys.device)
 
 
-def normal(t: torch.Tensor, gen: torch.Generator) -> None:
-    t.copy_(torch.randn(t.shape, generator=gen))
+def normal(keys: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.normal."""
+    return prng.normal(keys, shape)
 
 
-def he_normal(t: torch.Tensor, gen: torch.Generator) -> None:
+def he_normal(keys: torch.Tensor, shape) -> torch.Tensor:
     """jax.nn.initializers.he_normal: a normal truncated at 2 standard
-    deviations, variance 2 / fan_in (fan_in = the second-to-last axis)."""
-    std = math.sqrt(2.0 / t.shape[-2]) / 0.87962566103423978
-    tmp = torch.empty(t.shape)
-    nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=gen)
-    t.copy_(tmp)
+    deviations, variance 2 / fan_in (fan_in = the second-to-last axis
+    times the receptive field)."""
+    fan_in = math.prod(shape[:-1])
+    var = torch.tensor(2.0 / fan_in, dtype=torch.float32)
+    std = torch.sqrt(var) / torch.tensor(.87962566103423978,
+                                         dtype=torch.float32)
+    return prng.truncated_normal(keys, -2.0, 2.0, shape) * std
+
+
+def param_key(keys: torch.Tensor, path: Sequence[str],
+              index: int) -> torch.Tensor:
+    """flax's key for the ``index``-th parameter (from 0) a module at
+    ``path`` creates, for each policy key of ``keys [P, 2]``: the path's
+    names and the parameter's count (from 1) folded in as the first four
+    bytes of their SHA-1 (flax/core/scope.py:87-135, with
+    ``flax_fix_rng_separator`` off, as flax sets it)."""
+    m = hashlib.sha1()
+    for name in path:
+        m.update(name.encode("utf-8"))
+    count = index + 1
+    m.update(count.to_bytes((count.bit_length() + 7) // 8, byteorder="big"))
+    return prng.fold_in(keys, int.from_bytes(m.digest()[:4], "big"))
 
 
 class Stacked(nn.Module):
     """A leaf module whose parameters carry the policy axis P. Records
-    each parameter's initialiser; ``reset_parameters`` draws every
-    policy's slice."""
+    each parameter's initialiser, in creation order (flax's order: a
+    kernel before its bias, a scale before its bias); ``reset_parameters``
+    draws every policy's slice."""
 
     def __init__(self, num_policies: int, device=None):
         super().__init__()
@@ -92,43 +113,44 @@ class Stacked(nn.Module):
         self.register_parameter(name, nn.Parameter(t))
         self._inits[name] = init
 
-    def draw(self, name: str, num_policies: int,
-             gen: torch.Generator) -> torch.Tensor:
-        """``num_policies`` fresh slices of parameter ``name`` from its
-        initialiser, on the CPU."""
-        p = getattr(self, name)
-        out = torch.empty((num_policies, *p.shape[1:]), dtype=p.dtype)
-        for i in range(num_policies):
-            tmp = torch.empty(p.shape[1:], dtype=torch.float32)
-            self._inits[name](tmp, gen)
-            out[i].copy_(tmp)
+    def draw(self, path: Sequence[str], keys: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+        """Fresh slices of every parameter for the policy keys ``keys
+        [P, 2]``, as flax draws them for a module at ``path``, on the
+        keys' device."""
+        out = {}
+        for i, (name, init) in enumerate(self._inits.items()):
+            p = getattr(self, name)
+            out[name] = init(param_key(keys, path, i),
+                             tuple(p.shape[1:])).to(p.dtype).contiguous()
         return out
 
     @torch.no_grad()
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        for name in self._inits:
-            getattr(self, name).copy_(self.draw(name, self.num_policies, gen))
+    def reset_parameters(self, path: Sequence[str],
+                         keys: torch.Tensor) -> None:
+        for name, v in self.draw(path, keys).items():
+            getattr(self, name).copy_(v)
 
 
-def init_params(module: nn.Module, gen: torch.Generator) -> None:
-    """Draw every parameter of ``module`` from its initialiser, in module
-    order, from ``gen`` (a CPU generator)."""
-    for m in module.modules():
+def init_params(module: nn.Module, keys: torch.Tensor) -> None:
+    """Draw every parameter of ``module`` as flax's ``init`` draws it,
+    one policy per key of ``keys [P, 2]`` (CPU keys)."""
+    for prefix, m in module.named_modules():
         if isinstance(m, Stacked):
-            m.reset_parameters(gen)
+            m.reset_parameters(prefix.split(".") if prefix else [], keys)
 
 
-def draw_params(module: nn.Module, num_policies: int, gen: torch.Generator,
+def draw_params(module: nn.Module, keys: torch.Tensor,
                 device=None) -> Dict[str, torch.Tensor]:
-    """Fresh parameters of ``module``'s layout for ``num_policies``
-    policies, drawn as ``init_params`` draws them, as a flat dict keyed
-    like ``named_parameters`` on ``device``."""
+    """Fresh parameters of ``module``'s layout, one policy per key of
+    ``keys [P, 2]``, drawn as ``init_params`` draws them, as a flat dict
+    keyed like ``named_parameters`` on ``device``."""
     out = {}
     for prefix, m in module.named_modules():
         if isinstance(m, Stacked):
-            for name in m._inits:
-                key = f"{prefix}.{name}" if prefix else name
-                out[key] = m.draw(name, num_policies, gen).to(device)
+            path = prefix.split(".") if prefix else []
+            for name, v in m.draw(path, keys).items():
+                out[f"{prefix}.{name}" if prefix else name] = v.to(device)
     return out
 
 
@@ -154,7 +176,15 @@ class Dense(Stacked):
         self.out_shape = tuple(out_shape) if isinstance(out_shape, Sequence) \
             else (out_shape,)
         self.dtype = dtype
-        self.add("kernel", self.in_shape + self.out_shape, kernel_init)
+        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
+        shape = self.in_shape + self.out_shape
+
+        def flat_init(keys, _shape):
+            # flax's DenseGeneral draws the kernel as [in, out] matrix.
+            return kernel_init(keys, (n_in, n_out)).reshape(
+                keys.shape[0], *shape)
+
+        self.add("kernel", shape, flat_init)
         if use_bias:
             self.add("bias", self.out_shape, bias_init)
         else:
@@ -370,15 +400,18 @@ class DiscreteActionDistributions:
         return [lg.to(torch.float32)
                 for lg in torch.split(self.logits, list(self.buckets), -1)]
 
-    def sample(self, generator: Optional[torch.Generator] = None):
-        """One draw per action dim: the Gumbel-max trick, as
-        ``jax.random.categorical`` draws; the same distribution, not the
-        same numbers."""
-        out = []
-        for lg in self._split():
-            u = torch.rand(lg.shape, generator=generator, device=lg.device)
-            u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-            out.append(torch.argmax(lg - torch.log(-torch.log(u)), dim=-1))
+    def sample(self, key: torch.Tensor):
+        """One draw per action dim from ``key`` ``[2]`` u32, as JAX draws
+        them (layers.py:138-142): ``split(key, len(buckets))``, then
+        ``jax.random.categorical`` with each bucket's key over the whole
+        batch of its logits. The Gumbel noise of every bucket comes from
+        one launch: a bucket's draws are the first of its key's."""
+        lgs = self._split()
+        keys = prng.split(key, len(lgs))
+        n = max(lg.numel() for lg in lgs)
+        g = prng.gumbel(keys, (n,))
+        out = [torch.argmax(g[i, :lg.numel()].reshape(lg.shape) + lg, dim=-1)
+               for i, lg in enumerate(lgs)]
         return torch.stack(out, dim=-1)
 
     def best(self):

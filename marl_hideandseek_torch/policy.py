@@ -9,9 +9,9 @@ normalizer's prep and skip sets. An entity self-attention backbone and a
 simhash lookup backbone are the alternatives.
 
 Every module holds ``num_policies`` policies stacked on a leading axis
-(``models/layers.py``); ``make_policy`` draws them from a
-``torch.Generator`` or leaves them for ``bridge.policy_params_from_numpy``
-to fill from a flax tree.
+(``models/layers.py``); ``make_policy`` draws them as flax's ``init``
+does from one key per policy, or leaves them for
+``bridge.policy_params_from_numpy`` to fill from a flax tree.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import NUM_LIDAR_SAMPLES
 from marl_hideandseek_torch.models import (
     MLP,
@@ -169,10 +170,11 @@ def make_policy(dtype=torch.float32,
                 action_buckets: Sequence[int] = DEFAULT_ACTION_BUCKETS,
                 backbone: str = "pooled", num_rnn_channels: int = 256, *,
                 num_policies: int = 1, device="cuda",
-                generator: Optional[torch.Generator] = None) -> Policy:
+                key: Optional[torch.Tensor] = None) -> Policy:
     """Build the default policy (policy.py:156-210) with ``num_policies``
-    policies stacked, its parameters on ``device`` drawn from
-    ``generator`` (a CPU generator; seed 0 when None)."""
+    policies stacked, its parameters on ``device``: policy ``i`` drawn
+    as flax's ``init`` draws it from ``split(key, num_policies)[i]``
+    (``key`` a ``prng`` key; ``PRNGKey(0)`` when None)."""
     device = resolve_device(device, "make_policy")
     p = num_policies
 
@@ -196,8 +198,8 @@ def make_policy(dtype=torch.float32,
                                       dtype, device),
         critic=DreamerV3Critic(p, num_rnn_channels, dtype, device=device),
     )
-    init_params(actor_critic, generator if generator is not None
-                else torch.Generator().manual_seed(0))
+    key = prng.key(0) if key is None else prng.as_key(key)
+    init_params(actor_critic, prng.split(key, p))
 
     obs_preprocess = ObservationsEMANormalizer.create(
         decay=0.99999,

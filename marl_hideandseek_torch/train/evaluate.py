@@ -13,6 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.bridge import (
     check_policy_params,
     load_policy_checkpoint,
@@ -64,8 +65,9 @@ def eval_policies(dev, eval_cfg: EvalConfig, env, policy: Policy, params,
     the policies in spawn order (``seekers_first``), and the ELOs update
     at every step from the episodes that ended. ``iter_cb(step_data)`` is
     called each step with the state, observations, actions, rewards,
-    dones and episode results. Sampling draws from a generator seeded 11
-    on the env's device. ``dev`` is unused: the env's device is the
+    dones and episode results. The env starts from ``PRNGKey(7)`` and
+    step ``i`` samples with ``key, sub = split(key)`` from ``PRNGKey(11)``
+    (evaluate.py:99,154-158). ``dev`` is unused: the env's device is the
     run's."""
     cfg = env.cfg
     num_worlds, a_per_w = cfg.num_worlds, cfg.max_agents
@@ -75,7 +77,7 @@ def eval_policies(dev, eval_cfg: EvalConfig, env, policy: Policy, params,
     ac = policy.actor_critic
     n_pol = next(iter(params.values())).shape[0]
     buckets = tuple(eval_cfg.actions.actions_num_buckets)
-    gen = torch.Generator(device).manual_seed(11)
+    key = prng.key(11, device)
 
     def flat(o):
         return {k: v.reshape((n_agents,) + v.shape[2:])
@@ -90,7 +92,7 @@ def eval_policies(dev, eval_cfg: EvalConfig, env, policy: Policy, params,
     total_scores = torch.zeros((num_worlds, 2), device=device)
     n_finished = torch.zeros((), dtype=torch.long, device=device)
     with torch.no_grad():
-        state, result = env.init()
+        state, result = env.init(prng.key(7, device))
         obs = flat(result.obs)
         rnn = ac.init_recurrent_state(n_agents, device)
         for step in range(eval_cfg.num_eval_steps):
@@ -104,8 +106,11 @@ def eval_policies(dev, eval_cfg: EvalConfig, env, policy: Policy, params,
                 policy, params, rnn, norm.normalize(obs_stats, obs),
                 assignments, n_pol)
             dists = DiscreteActionDistributions(buckets, logits)
-            actions = dists.best() if eval_cfg.use_deterministic_policy \
-                else dists.sample(gen)
+            if eval_cfg.use_deterministic_policy:
+                actions = dists.best()
+            else:
+                key, sub = prng.split(key).unbind(0)
+                actions = dists.sample(sub)
             state, result = env.step(
                 state, actions.reshape(num_worlds, a_per_w, -1))
             obs = flat(result.obs)

@@ -12,9 +12,9 @@ training_state_from_numpy``, README.md).
 
 JAX compiles an update into one program with ``aot_compile``; here each
 update is eager PyTorch on the env's device, so ``aot_compile`` and
-``cfg_jax_mem`` have no counterpart. The state's generators advance in
-place: a manager returned by ``update_iter`` shares them with the one it
-came from.
+``cfg_jax_mem`` have no counterpart. Every draw comes from the state's
+keys, split in the JAX version's order (``prng.py``), so the same seed
+gives JAX's training state and draws.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.layers import draw_params
@@ -90,7 +90,7 @@ class TrainingState:
     hyper_params: Dict[str, torch.Tensor]  # per train policy
     elo: torch.Tensor                     # [P_total]
     update_idx: int
-    gen: torch.Generator                  # PPO permutations, PBT draws
+    key: torch.Tensor                     # [2] u32: PPO and PBT draws
     metrics: Dict[str, torch.Tensor]      # ring buffers
 
     def replace(self, **kwargs) -> "TrainingState":
@@ -140,9 +140,10 @@ class TrainingManager:
                                                    roll_metrics)
         obs_stats = norm.update_state(st.obs_stats, {
             k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()})
+        key, k_ppo, k_pbt = prng.split(st.key, 3).unbind(0)
         params, opt_states, value_stats, ppo_metrics = ppo_update(
             cfg, self.policy, st.params, st.opt_states, obs_stats,
-            st.value_stats, st.hyper_params, buffer, st.gen)
+            st.value_stats, st.hyper_params, buffer, k_ppo)
 
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
@@ -152,7 +153,7 @@ class TrainingManager:
         past_params, hyper_params = st.past_params, st.hyper_params
         if cfg.pbt is not None and update_idx % cfg.pbt.explore_interval == 0:
             params, opt_states, hyper_params = pbt_mod.explore_exploit(
-                cfg, st.gen, elo, params, opt_states, hyper_params)
+                cfg, k_pbt, elo, params, opt_states, hyper_params)
             past_params, elo = pbt_mod.refresh_past_policies(
                 cfg, update_idx, params, past_params, elo)
 
@@ -163,7 +164,7 @@ class TrainingManager:
             params=params, opt_states=opt_states, past_params=past_params,
             obs_stats=obs_stats, value_stats=value_stats,
             rollout=new_rollout, hyper_params=hyper_params, elo=elo,
-            update_idx=update_idx)
+            update_idx=update_idx, key=key)
         if self.hooks is not None:
             scalars = self.hooks.post_update(st.update_idx, scalars,
                                              new_state)
@@ -178,8 +179,8 @@ class TrainingManager:
         """A dedicated ELO pass (manager.py:251-289): ``num_steps``
         (default 6 updates' worth) of the whole population in fresh round
         robin matchups (hiders play ``t0``, seekers ``t1``), frozen
-        parameters, from the rollout's state; only the ELOs are kept. The
-        rollout's generator is copied, not advanced."""
+        parameters, from the rollout's state and key; only the ELOs are
+        kept."""
         cfg, st = self.cfg, self.state
         steps = num_steps or cfg.steps_per_update * 6
         n_pol = cfg.total_policies
@@ -189,13 +190,11 @@ class TrainingManager:
         t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
         is_h = (st.rollout.env_state.agent_type == AGENT_HIDER).T   # [W, A]
         fresh = torch.where(is_h, t0[:, None], t1[:, None]).reshape(-1)
-        gen = torch.Generator(dev)
-        gen.set_state(st.rollout.gen.get_state())
         eval_cfg = dataclasses.replace(cfg, steps_per_update=steps,
                                        num_bptt_chunks=1)
         _, _, metrics = collect_rollout(
             eval_cfg, self.env, self.policy, self.all_params(), st.obs_stats,
-            st.rollout.replace(assignments=fresh.to(torch.int32), gen=gen),
+            st.rollout.replace(assignments=fresh.to(torch.int32)),
             st.value_stats)
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
@@ -218,11 +217,10 @@ class TrainingManager:
                           "count": st.obs_stats.count},
             "value_stats": st.value_stats, "hyper_params": st.hyper_params,
             "elo": st.elo, "update_idx": st.update_idx,
-            "metrics": st.metrics, "gen": st.gen.get_state(),
+            "metrics": st.metrics, "key": st.key,
             "rollout": {"env_state": bridge.state_to_tree(ro.env_state),
                         "obs": ro.obs, "rnn_states": ro.rnn_states,
-                        "assignments": ro.assignments,
-                        "gen": ro.gen.get_state()},
+                        "assignments": ro.assignments, "key": ro.key},
         }
 
     def save_ckpt(self, ckpt_dir: str) -> str:
@@ -235,12 +233,15 @@ class TrainingManager:
         return path
 
     def restore_ckpt(self, path: str) -> "TrainingManager":
-        """The state of a training checkpoint over this manager's. A
-        checkpoint without a rollout (one converted from JAX) keeps this
-        manager's rollout and generators; one whose metric ring lacks
-        newer keys keeps their current values. Raises on parameters that
-        do not fit the policy or the config's policy counts, and on
-        metric keys this code does not know."""
+        """The state of a training checkpoint over this manager's, its
+        rollout and keys included; the restored observations take the
+        dtype of this manager's (a bf16 JAX run's resume in float32). One
+        whose metric ring lacks newer keys keeps their current values.
+        Raises on parameters that do not fit the policy or the config's
+        policy counts, on metric keys this code does not know, on a
+        rollout of other world or agent counts than this env's, and on a
+        checkpoint without threefry keys (torch generator states, from
+        before the port drew JAX's streams)."""
         cfg, st = self.cfg, self.state
         dev = self.env.device
         tree = bridge.load_training_checkpoint(path, dev)
@@ -256,6 +257,18 @@ class TrainingManager:
         extra = set(tree["metrics"]) - set(st.metrics)
         if extra:
             raise ValueError(f"{path}: unknown metrics {sorted(extra)}")
+        ro = tree["rollout"]
+        if "key" not in tree or "key" not in ro:
+            raise ValueError(f"{path}: no threefry keys (a checkpoint of "
+                             f"torch generator states cannot resume)")
+        got = (int(ro["env_state"]["step"].shape[-1]),
+               int(ro["assignments"].shape[0]))
+        want = (int(st.rollout.env_state.step.shape[-1]),
+                int(st.rollout.assignments.shape[0]))
+        if got != want:
+            raise ValueError(
+                f"{path}: a rollout of {got[0]} worlds and {got[1]} agents, "
+                f"this run has {want[0]} worlds and {want[1]} agents")
         opt = tree["opt_states"]
         stats = tree["obs_stats"]
         new = st.replace(
@@ -267,19 +280,15 @@ class TrainingManager:
             value_stats=tree["value_stats"],
             hyper_params=tree["hyper_params"], elo=tree["elo"],
             update_idx=int(tree["update_idx"]),
-            metrics={**st.metrics, **tree["metrics"]})
-        # Generator states load as byte tensors on the device; set_state
-        # takes them on the CPU.
-        if "gen" in tree:
-            new.gen.set_state(tree["gen"].cpu())
-        if "rollout" in tree:
-            ro = tree["rollout"]
-            gen = torch.Generator(dev)
-            gen.set_state(ro["gen"].cpu())
-            new = new.replace(rollout=RolloutState(
+            metrics={**st.metrics, **tree["metrics"]},
+            key=prng.as_key(tree["key"], dev),
+            rollout=RolloutState(
                 env_state=bridge.state_from_numpy(ro["env_state"], dev),
-                obs=ro["obs"], rnn_states=ro["rnn_states"],
-                assignments=ro["assignments"], gen=gen))
+                obs={k: v.to(st.rollout.obs[k].dtype)
+                     for k, v in ro["obs"].items()},
+                rnn_states=ro["rnn_states"],
+                assignments=ro["assignments"],
+                key=prng.as_key(ro["key"], dev)))
         return self.replace(state=new)
 
     def log_metrics_tensorboard(self, writer) -> None:
@@ -302,35 +311,38 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
     copies of policy 0, zero Adam states, the PBT hyperparameters, ELO
     1,500 each, and the first matchups drawn with every world done (the
     grouped PPO path needs past-play matchups from the first rollout).
-    Three generators come from ``cfg.seed``: the parameters' (CPU), the
-    rollout's and the state's (hyperparameters, PPO, PBT; on the env's
-    device). ``dev`` must be the env's device: ``"cuda"`` for the card,
-    ``"cpu"`` for the plain path. With ``restore_ckpt``, the state of
-    that training checkpoint replaces the fresh one."""
+    The keys are JAX's (manager.py:376-424): ``k_env, k_param, k_roll,
+    k_hyper, k_state = split(PRNGKey(cfg.seed), 5)``; the env starts from
+    ``k_env``, policy ``i`` is drawn as flax draws it from
+    ``split(k_param, P)[i]`` (on the CPU), ``k_roll, k_assign0 =
+    split(k_roll)`` give the rollout's key and the first matchups, the
+    hyperparameters come from ``k_hyper`` and the state keeps ``k_state``.
+    So one seed gives JAX's initial state. ``dev`` must be the env's
+    device: ``"cuda"`` for the card, ``"cpu"`` for the plain path. With
+    ``restore_ckpt``, the state of that training checkpoint replaces the
+    fresh one."""
     if resolve_device(dev, "init_training").type != env.device.type:
         raise ValueError(f"init_training(dev={dev!r}) with an env on "
                          f"{env.device}")
     device = env.device
-    seeds = torch.randint(0, 2 ** 62, (3,), generator=torch.Generator(
-        ).manual_seed(cfg.seed)).tolist()
-    param_gen = torch.Generator().manual_seed(seeds[0])
-    roll_gen = torch.Generator(device).manual_seed(seeds[1])
-    gen = torch.Generator(device).manual_seed(seeds[2])
+    k_env, k_param, k_roll, k_hyper, k_state = prng.split(
+        prng.key(cfg.seed, device), 5).unbind(0)
+    k_roll, k_assign0 = prng.split(k_roll).unbind(0)
 
     w, a = env.cfg.num_worlds, env.cfg.max_agents
     n_agents = w * a
     norm = policy.obs_preprocess
     ac = policy.actor_critic
-    env_state, result = env.init()
+    env_state, result = env.init(k_env)
     obs = {k: v.reshape((n_agents,) + v.shape[2:])
            for k, v in norm.prep(result.obs).items()}
     n_train = cfg.num_train_policies
     n_past = cfg.total_policies - n_train
-    params = draw_params(ac, n_train, param_gen, device)
+    params = draw_params(ac, prng.split(k_param.cpu(), n_train), device)
     past_params = ({k: v[:1].expand(n_past, *v.shape[1:]).clone()
                     for k, v in params.items()} if n_past > 0 else {})
     assignments = _resample_assignments(
-        roll_gen, torch.ones(w, dtype=torch.bool, device=device),
+        k_assign0, torch.ones(w, dtype=torch.bool, device=device),
         torch.zeros(n_agents, dtype=torch.int32, device=device), cfg, w, a,
         env_state.agent_type.T)
     state = TrainingState(
@@ -342,12 +354,12 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
         rollout=RolloutState(env_state=env_state, obs=obs,
                              rnn_states=ac.init_recurrent_state(n_agents,
                                                                 device),
-                             assignments=assignments, gen=roll_gen),
-        hyper_params=pbt_mod.init_hyper_params(cfg, gen, device),
+                             assignments=assignments, key=k_roll),
+        hyper_params=pbt_mod.init_hyper_params(cfg, k_hyper),
         elo=torch.full((cfg.total_policies,), elo_mod.ELO_START,
                        device=device),
         update_idx=0,
-        gen=gen,
+        key=k_state,
         metrics={k: torch.zeros(cfg.metrics_buffer_size, device=device)
                  for k in METRIC_KEYS},
     )

@@ -6,40 +6,43 @@ coefficient (and any configured reward hyperparameter) drawn per train
 policy from their ``ParamExplore`` ranges; truncation selection copies the
 best train policy's weights and optimizer state into the worst, with its
 hyperparameters perturbed; past policies take snapshots of the best train
-policy, round robin. Every draw comes from the ``torch.Generator`` passed
-in.
+policy, round robin. Every draw comes from the key passed in, in the JAX
+version's key order (``prng.py``), so the same key gives JAX's draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Mapping
 
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.train.cfg import ParamExplore, TrainConfig
 
 
-def sample_param(gen: torch.Generator, spec: ParamExplore, shape=(),
-                 device=None) -> torch.Tensor:
+def sample_param(key: torch.Tensor, spec: ParamExplore,
+                 shape=()) -> torch.Tensor:
     """A value in the explore range around ``spec.base`` (pbt.py:20-29):
     a uniform scale in [min_scale, max_scale], log10-uniform with
-    ``log10_scale``."""
-    u = torch.rand(shape, generator=gen, device=device)
+    ``log10_scale``; float32 throughout, as JAX computes it."""
+    u = prng.uniform(key, shape)
     if spec.log10_scale:
-        lo, hi = math.log10(spec.min_scale), math.log10(spec.max_scale)
-        scale = torch.pow(10.0, lo + u * (hi - lo))
+        f32 = dict(dtype=torch.float32, device=u.device)
+        lo = torch.log10(torch.tensor(spec.min_scale, **f32))
+        hi = torch.log10(torch.tensor(spec.max_scale, **f32))
+        scale = torch.pow(torch.tensor(10.0, **f32), lo + u * (hi - lo))
     else:
         scale = spec.min_scale + u * (spec.max_scale - spec.min_scale)
     return spec.base * scale
 
 
-def perturb_param(gen: torch.Generator, value: torch.Tensor,
+def perturb_param(key: torch.Tensor, value: torch.Tensor,
                   spec: ParamExplore) -> torch.Tensor:
-    """An inherited value times 1.2 or 1 / 1.2 (a fair coin), clamped to
-    [base * min_scale, base * max_scale] (pbt.py:32-38)."""
-    up = torch.rand((), generator=gen, device=value.device) < 0.5
+    """An inherited value times 1.2 or 1 / 1.2 (a fair coin,
+    ``bernoulli(key)``), clamped to [base * min_scale, base * max_scale]
+    (pbt.py:32-38)."""
+    up = prng.bernoulli(key)
     new = value * torch.where(up, 1.2, 1.0 / 1.2)
     return torch.clamp(new, spec.base * spec.min_scale,
                        spec.base * spec.max_scale)
@@ -61,25 +64,35 @@ def _explored(cfg: TrainConfig) -> Dict[str, ParamExplore]:
     return out
 
 
-def init_hyper_params(cfg: TrainConfig, gen: torch.Generator,
-                      device=None) -> Dict[str, torch.Tensor]:
+def init_hyper_params(cfg: TrainConfig,
+                      key: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-train-policy hyperparameters ``[P]`` (pbt.py:50-67): each
-    explored one drawn per policy, the others the configured scalars."""
+    explored one drawn per policy, the others the configured scalars, on
+    the key's device. ``k_lr, k_ec, *k_rw = split(key, 2 + max(R, 1))``
+    for R explored reward hyperparameters."""
     n = cfg.num_train_policies
-    out = {"lr": cfg.lr, "entropy_coef": cfg.algo.entropy_coef}
-    out = {k: torch.full((n,), float(v), device=device)
-           for k, v in out.items() if not isinstance(v, ParamExplore)}
-    for name, spec in _explored(cfg).items():
-        out[name] = sample_param(gen, spec, (n,), device)
+    device = key.device
+    reward_specs = sorted(_reward_specs(cfg).items())
+    keys = prng.split(key, 2 + max(len(reward_specs), 1))
+    specs = {"lr": (cfg.lr, keys[0]),
+             "entropy_coef": (cfg.algo.entropy_coef, keys[1])}
+    specs.update((name, (spec, k)) for (name, spec), k in
+                 zip(reward_specs, keys[2:]))
+    out = {}
+    for name, (v, k) in specs.items():
+        out[name] = (sample_param(k, v, (n,)) if isinstance(v, ParamExplore)
+                     else torch.full((n,), float(v), device=device))
     return out
 
 
-def explore_exploit(cfg: TrainConfig, gen: torch.Generator,
+def explore_exploit(cfg: TrainConfig, key: torch.Tensor,
                     elo: torch.Tensor, params: Mapping[str, torch.Tensor],
                     opt_states, hyper_params: Mapping[str, torch.Tensor]):
     """Copy the best train policy's weights and optimizer state into the
     worst (by ELO; the first on ties), with each explored hyperparameter
-    perturbed from the best's (pbt.py:70-107). With fewer than two train
+    perturbed from the best's (pbt.py:70-107): ``lr`` with
+    ``split(key)[0]``, ``entropy_coef`` with ``split(key)[1]``, the
+    reward ones with ``split(key, R + 2)[2:]``. With fewer than two train
     policies, nothing changes. Returns (params, opt_states,
     hyper_params)."""
     n = cfg.num_train_policies
@@ -99,10 +112,16 @@ def explore_exploit(cfg: TrainConfig, gen: torch.Generator,
         nu={k: copy_into(v) for k, v in opt_states.nu.items()},
         count=copy_into(opt_states.count))
     new_h = dict(hyper_params)
+    k_lr, k_ec = prng.split(key)
+    keys = {"lr": k_lr, "entropy_coef": k_ec}
+    reward_specs = sorted(_reward_specs(cfg).items())
+    if reward_specs:
+        keys.update(zip((name for name, _ in reward_specs),
+                        prng.split(key, len(reward_specs) + 2)[2:]))
     for name, spec in _explored(cfg).items():
         new_h[name] = hyper_params[name].clone()
-        new_h[name][worst] = perturb_param(gen, hyper_params[name][best],
-                                           spec)
+        new_h[name][worst] = perturb_param(keys[name],
+                                           hyper_params[name][best], spec)
     return params, opt_states, new_h
 
 

@@ -24,6 +24,7 @@ from typing import Dict, Mapping
 import torch
 from torch.func import functional_call
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
 from marl_hideandseek_torch.train.cfg import TrainConfig
@@ -256,19 +257,27 @@ def grouped_dropped_frac(assignments: torch.Tensor, g_idx: torch.Tensor,
     return dropped / torch.clamp(total, min=1)
 
 
+def epoch_permutations(key: torch.Tensor, num_epochs: int,
+                       n: int) -> torch.Tensor:
+    """Each epoch's agent permutation ``[E, n]``: ``permutation(k, n)``
+    for each k of ``split(key, num_epochs)`` (ppo.py:284,340)."""
+    return prng.permutation(prng.split(key, num_epochs), n)
+
+
 def ppo_update(cfg: TrainConfig, policy: Policy,
                all_params: Mapping[str, torch.Tensor],
                all_opt_states: AdamState, obs_stats, value_stats,
                hyper_params: Mapping[str, torch.Tensor],
-               buffer: RolloutBuffer, gen: torch.Generator):
+               buffer: RolloutBuffer, key: torch.Tensor):
     """The full PPO update: epochs x minibatches over the buffer
     (ppo.py:214-352).
 
     all_params / all_opt_states: the train policies, leading axis
     ``num_train_policies``; hyper_params: per-policy ``lr`` and
-    ``entropy_coef`` ``[P]``. ``gen`` draws each epoch's agent permutation
-    when there is more than one minibatch; with one, the update is
-    deterministic given the buffer. Returns (params, opt_states,
+    ``entropy_coef`` ``[P]``. ``key`` splits into the epochs' keys, each
+    drawing its epoch's agent permutation (``jax.random.permutation``,
+    ppo.py:284,340) when there is more than one minibatch; with one, the
+    update is deterministic given the buffer. Returns (params, opt_states,
     value_stats, metrics), the metrics ``[P]`` means over the epochs and
     minibatches, with ``dropped_agent_frac``.
     """
@@ -314,9 +323,11 @@ def ppo_update(cfg: TrainConfig, policy: Policy,
     p_idx = torch.arange(n_train, device=dev)
     lr, ent_coef = hyper_params["lr"], hyper_params["entropy_coef"]
     aux = []
-    for _ in range(cfg.algo.num_epochs):
+    if num_mb > 1:
+        perms = epoch_permutations(key, cfg.algo.num_epochs, n)
+    for e in range(cfg.algo.num_epochs):
         if num_mb > 1:
-            perm = torch.randperm(n, generator=gen, device=dev)
+            perm = perms[e]
         for i in range(num_mb):
             if num_mb == 1:
                 mb = data

@@ -7,7 +7,9 @@ actions, and stores them as ``num_bptt_chunks`` sequences with the LSTM
 state at each chunk's start, for BPTT. ``apply_ensemble`` runs every
 policy on the whole agent batch and gives each agent its assigned
 policy's outputs; ``compute_gae`` turns a buffer into advantages and
-returns. Every draw comes from the rollout's ``torch.Generator``.
+returns. Every draw comes from the rollout's key, split in the JAX
+version's order (``prng.py``): the same key gives JAX's step keys,
+actions and matchups.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import NUM_PREP_STEPS
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
@@ -36,13 +39,13 @@ class RolloutState:
     """Actor state carried between updates (rollout.py:29-45): the packed
     env state, the prepped (not normalized) current observations flattened
     to the ``[N = W * A]`` agent batch, the recurrent state, each agent's
-    policy and the generator of the rollout's draws."""
+    policy and the key of the rollout's draws."""
 
     env_state: EnvState
     obs: Dict[str, torch.Tensor]
     rnn_states: Any
     assignments: torch.Tensor   # [N] i32
-    gen: torch.Generator
+    key: torch.Tensor           # [2] u32
 
     def replace(self, **kwargs) -> "RolloutState":
         return dataclasses.replace(self, **kwargs)
@@ -151,7 +154,7 @@ def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,
     return values * value_stats["sigma"][idx] + value_stats["mu"][idx]
 
 
-def _resample_assignments(gen: torch.Generator, dones_w: torch.Tensor,
+def _resample_assignments(key: torch.Tensor, dones_w: torch.Tensor,
                           assignments: torch.Tensor, cfg: TrainConfig,
                           num_worlds: int, agents_per_world: int,
                           agent_type: torch.Tensor) -> torch.Tensor:
@@ -164,7 +167,10 @@ def _resample_assignments(gen: torch.Generator, dones_w: torch.Tensor,
     seekers) the train side takes is a fair coin per world. Teams are
     keyed by ``agent_type`` ``[W, A]`` (the post-step state: on reset
     steps, the new episode's teams). Without PBT every agent plays
-    policy 0."""
+    policy 0 and nothing is drawn. Draws as JAX does from ``k1..k5 =
+    split(key, 5)``: the train side's policy ``randint(k1)``, the portion
+    draw ``uniform(k2)``, the past and cross policies ``randint(k3)``,
+    ``randint(k4)``, the role ``bernoulli(k5, 0.5)``."""
     pbt = cfg.pbt
     if pbt is None or pbt.total_policies == 1:
         return assignments
@@ -173,16 +179,21 @@ def _resample_assignments(gen: torch.Generator, dones_w: torch.Tensor,
     w = num_worlds
     dev = assignments.device
 
-    t0 = torch.randint(0, n_train, (w,), generator=gen, device=dev)
-    r = torch.rand((w,), generator=gen, device=dev)
-    past = torch.randint(n_train, max(n_total, n_train + 1), (w,),
-                         generator=gen, device=dev)
-    cross = torch.randint(0, n_train, (w,), generator=gen, device=dev)
+    # Every key's randint bits and uniforms in one launch each (k2's
+    # randint bits and k1, k3, k4's uniforms are drawn too, unused).
+    ks = prng.split(key, 5)
+    hi, lo = prng.randint_bits(ks, (w,))
+    u = prng.uniform(ks, (w,))
+    t0 = prng.randint_from_bits(hi[0], lo[0], 0, n_train)
+    past = prng.randint_from_bits(hi[2], lo[2], n_train,
+                                  max(n_total, n_train + 1))
+    cross = prng.randint_from_bits(hi[3], lo[3], 0, n_train)
+    r = u[1]
     other = past if pbt.num_past_policies > 0 else cross
     t1 = torch.where(r < pbt.self_play_portion, t0,
                      torch.where(r < pbt.self_play_portion +
                                  pbt.cross_play_portion, cross, other))
-    hiders_train = torch.rand((w,), generator=gen, device=dev) < 0.5
+    hiders_train = u[4] < 0.5
     h_pol = torch.where(hiders_train, t0, t1)
     s_pol = torch.where(hiders_train, t1, t0)
     world_assign = torch.where(agent_type == AGENT_HIDER, h_pol[:, None],
@@ -190,6 +201,15 @@ def _resample_assignments(gen: torch.Generator, dones_w: torch.Tensor,
     done_flat = dones_w.repeat_interleave(agents_per_world)
     return torch.where(done_flat, world_assign.reshape(-1),
                        assignments).to(torch.int32)
+
+
+def rollout_keys(key: torch.Tensor, steps: int):
+    """The rollout's next key and each step's (action key, matchup key)
+    ``[steps, 2, 2]``: ``key, sub = split(key)``, then step t's pair is
+    ``split(split(sub, steps)[t])`` (rollout.py:228,331-338); three
+    launches for the whole rollout."""
+    key, sub = prng.split(key).unbind(0)
+    return key, prng.split(prng.split(sub, steps))
 
 
 def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
@@ -218,7 +238,7 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     norm = policy.obs_preprocess
     ac = policy.actor_critic
     buckets = tuple(cfg.actions.actions_num_buckets)
-    gen = rollout.gen
+    key, step_keys = rollout_keys(rollout.key, cfg.steps_per_update)
     (box_lo, box_hi), (ramp_lo, ramp_hi), _ = body_slot_ranges(cfg_env)
 
     def flat(o):
@@ -233,16 +253,17 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     env_state, obs = rollout.env_state, rollout.obs
     rnn, assignments = rollout.rnn_states, rollout.assignments
     with torch.no_grad():
-        for _ in range(cfg.num_bptt_chunks):
+        for ci in range(cfg.num_bptt_chunks):
             rnn_start.append(rnn)
-            for _ in range(t_chunk):
+            for ti in range(t_chunk):
+                k_act, k_assign = step_keys[ci * t_chunk + ti].unbind(0)
                 logits, values, new_rnn = apply_ensemble(
                     policy, all_params, rnn, norm.normalize(obs_stats, obs),
                     assignments, n_total, num_train=cfg.num_train_policies)
                 values = denormalize_values(cfg, value_stats, values,
                                             assignments)
                 dists = DiscreteActionDistributions(buckets, logits)
-                actions = dists.sample(gen)
+                actions = dists.sample(k_act)
                 log_probs = dists.log_prob(actions)
 
                 pre_step = env_state.step
@@ -256,7 +277,7 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                 new_rnn = ac.clear_recurrent_state(new_rnn, dones)
                 dones_w = result.dones[0].to(torch.bool)
                 new_assign = _resample_assignments(
-                    gen, dones_w, assignments, cfg, w, a,
+                    k_assign, dones_w, assignments, cfg, w, a,
                     env_state.agent_type.T)
 
                 # The pre-step episode's (first-spawned, second-spawned)
@@ -339,7 +360,7 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
         "ramp_move_rate": total("ramp_move") / total_ws,
     }
     new_rollout = RolloutState(env_state=env_state, obs=obs, rnn_states=rnn,
-                               assignments=assignments, gen=gen)
+                               assignments=assignments, key=key)
     return new_rollout, buffer, metrics
 
 

@@ -4,8 +4,9 @@ tests/test_checkpoint.py - the save/load round trip into a fresh env
 state, replay determinism after a load, pack/unpack - on the port's own
 worlds (levels regenerated from their keys), plus the JAX package's
 checkpoints: the same byte records, and a JAX checkpoint loaded into the
-port (its level regenerated by the JAX generator through the bridge)
-against the JAX load."""
+port against the JAX load, its level regenerated by the port's own
+generator (JAX's threefry keys) or by the JAX generator through the
+bridge."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ from marl_hideandseek_tpu.config import EnvConfig as JCfg
 from marl_hideandseek_tpu.config import SimFlags as JFlags
 from marl_hideandseek_tpu.env import HideAndSeekEnv as JEnv
 from marl_hideandseek_tpu.env import checkpoint as jckpt
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.checkpoint import (
     pack_checkpoints,
@@ -158,14 +159,14 @@ def test_jax_checkpoint_bytes_and_bridge(jax_run):
         np.testing.assert_array_equal(back[k], v, err_msg=k)
 
 
-def test_jax_checkpoint_loaded_into_port(jax_run):
-    """The port loads a JAX checkpoint into a JAX-made fresh state (the
-    level regenerated by the JAX generator) as the JAX env does: the
-    state, and the re-swept observations, at the one-step bars."""
+def _load_into_port(jax_run, levelgen):
+    """The port loads a JAX checkpoint into a JAX-made fresh state as the
+    JAX env does: the state, and the re-swept observations, at the
+    one-step bars."""
     jenv, _, jck, jfresh = jax_run
     should = jnp.asarray([1, 1], jnp.int32)
     jloaded, jres = jax.jit(jenv.load_checkpoints)(jfresh, jck, should)
-    env = HideAndSeekEnv(CFG, device="cpu", levelgen=make_jax_levelgen(JCFG))
+    env = HideAndSeekEnv(CFG, device="cpu", levelgen=levelgen)
     tloaded, tres = env.load_checkpoints(
         bridge.state_from_numpy(to_np(jfresh)),
         bridge.checkpoint_from_numpy(to_np(jck)),
@@ -174,3 +175,22 @@ def test_jax_checkpoint_loaded_into_port(jax_run):
     for k, v in jres.obs.items():
         np.testing.assert_allclose(tres.obs[k].numpy(), np.asarray(v),
                                    atol=1e-3, err_msg=k)
+
+
+def test_jax_checkpoint_loaded_into_port(jax_run):
+    """The level regenerated by the JAX generator through the bridge."""
+    _load_into_port(jax_run, make_jax_levelgen(JCFG))
+
+
+def test_jax_checkpoint_loads_with_the_default_levelgen(jax_run):
+    """No injected generator: the port's own level generator draws JAX's
+    level from the checkpoint's keys."""
+    _load_into_port(jax_run, None)
+
+
+def test_port_init_equals_jax_init(jax_run):
+    """The classic env's ``init(key)`` with its default generator equals
+    JAX's from the same key (the fixture's fresh state, PRNGKey(99))."""
+    _, _, _, jfresh = jax_run
+    tfresh, _ = HideAndSeekEnv(CFG, device="cpu").init(prng.key(99))
+    assert_state_close(tfresh, jfresh)

@@ -1,9 +1,10 @@
 """PyTorch port: PackedEnv.init / step (env/packed.py) held to the JAX
 PackedEnv's fallback path, including the episode-end full reset and the
-compact reset. The port's level generator draws from another random
-stream, so these tests inject the JAX-generated worlds through the
+compact reset. Most cases inject the JAX-generated worlds through the
 bridge (PackedEnv's ``worldgen``) and compare the merge, the re-sweep and
-the observations exactly where the arithmetic is shared."""
+the observations exactly where the arithmetic is shared; one holds the
+port's own generator (JAX's threefry keys, ``prng.py``) to JAX's init
+and resets."""
 
 import dataclasses
 
@@ -18,7 +19,7 @@ from marl_hideandseek_tpu.config import SimFlags as JFlags
 from marl_hideandseek_tpu.env import env as jenv_mod
 from marl_hideandseek_tpu.env import levelgen as jlevelgen
 from marl_hideandseek_tpu.env import packed as jp
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as tobs
 from marl_hideandseek_torch.env import packed as tp
@@ -48,18 +49,19 @@ def to_np(x):
 def make_jax_worldgen(jcfg=JCFG):
     """JAX's _draw_episode + generate_world, vmapped with the world axis
     last, as a port worldgen callable."""
-    base = jax.random.PRNGKey(jcfg.rand_seed)
 
-    def one(wid, counter, lvl):
+    def one(base, wid, counter, lvl):
         ep_key, level_key, n_h, n_s, flip = jenv_mod._draw_episode(
             jcfg, base, wid, counter)
         return jlevelgen.generate_world(jcfg, level_key, ep_key, lvl, n_h,
                                         n_s, flip)
 
-    f = jax.jit(jax.vmap(one, out_axes=-1))
+    f = jax.jit(jax.vmap(one, in_axes=(None, 0, 0, 0), out_axes=-1))
 
-    def worldgen(world_ids, episode_counter, level_ids):
-        st = f(jnp.asarray(world_ids.numpy().astype(np.uint32)),
+    def worldgen(base_key, world_ids, episode_counter, level_ids):
+        st = f(jnp.asarray(base_key.view(torch.int32).numpy().view(
+                   np.uint32)),
+               jnp.asarray(world_ids.numpy().astype(np.uint32)),
                jnp.asarray(episode_counter.numpy().astype(np.uint32)),
                jnp.asarray(level_ids.numpy().astype(np.int32)))
         return bridge.state_from_numpy(to_np(st))
@@ -200,6 +202,34 @@ def test_compact_reset_matches_jax(envs):
     assert_result_close(tres3, jres3)
 
 
+def test_default_generator_matches_jax_through_resets(envs):
+    """The port's own generator, no injection: ``init(key)`` equals JAX's
+    jitted ``init(key)``, and from JAX's state the port's steps track
+    JAX's through the episode-end full reset, a compact reset (one world
+    to a debug level) and a burst of resets, the regenerated worlds
+    drawn from PRNGKey(rand_seed) on both sides, at the one-step bars."""
+    jinit, jstep, _ = envs
+    tenv = tp.PackedEnv(TCFG, device="cpu")
+    jps, jres = jinit(jax.random.PRNGKey(9))
+    tps, tres = tenv.init(prng.key(9))
+    assert_state_close(tps, jps)
+    assert_result_close(tres, jres)
+
+    jps = jps.replace(step=jnp.full_like(jps.step, 238))
+    compact = np.zeros(W, np.int32)
+    compact[[1, 6]] = [1, 3]
+    runs = [NO_RESETS, NO_RESETS, compact, np.ones(W, np.int32)]
+    for i, resets in enumerate(runs):
+        acts = actions(20 + i)
+        tps, tres = tenv.step(bridge.state_from_numpy(to_np(jps)),
+                              torch.from_numpy(acts),
+                              torch.from_numpy(resets))
+        jps, jres = jstep(jps, jnp.asarray(acts), jnp.asarray(resets))
+        assert_state_close(tps, jps)
+        assert_result_close(tres, jres)
+    assert tenv.reset_counts == {"full": 2, "compact": 1}
+
+
 def test_compact_merge_first_occurrence_and_float_contract():
     """The compact merge writes each triggered world once (its first slot
     of the padded batch) and turns non-finite regenerated floats into
@@ -209,9 +239,9 @@ def test_compact_merge_first_occurrence_and_float_contract():
     ps, _ = env.init()
     calls = []
 
-    def worldgen(world_ids, counter, level_ids):
+    def worldgen(base_key, world_ids, counter, level_ids):
         calls.append(world_ids.clone())
-        new = env_default(world_ids, counter, level_ids)
+        new = env_default(base_key, world_ids, counter, level_ids)
         bad = new.bodies.vel.clone()
         bad[0, 0, :] = float("nan")
         bad[0, 1, :] = -float("inf")
@@ -223,12 +253,14 @@ def test_compact_merge_first_occurrence_and_float_contract():
     trigger[[2, 5]] = True
     level_ids = torch.ones(W, dtype=torch.long)
     sweep = tp.standalone_sweep_packed(cfg, ps)
+    base = prng.key(cfg.rand_seed)
     new_ps, _ = env._compact_resets(ps, sweep, trigger, level_ids,
-                                    torch.arange(W))
+                                    torch.arange(W), base)
     np.testing.assert_array_equal(calls[0].numpy(), [2, 5, 2, 2])
     # The ids reach the default worldgen's draws: worlds 2 and 5 are the
     # episodes keyed by their own ids (counter 1).
-    fresh = env_default(torch.tensor([2, 5]), torch.ones(2, dtype=torch.long),
+    fresh = env_default(base, torch.tensor([2, 5]),
+                        torch.ones(2, dtype=torch.long),
                         torch.ones(2, dtype=torch.long))
     assert torch.equal(new_ps.level_key.view(torch.int32)[..., [2, 5]],
                        fresh.level_key.view(torch.int32))
@@ -256,9 +288,9 @@ def test_classic_compact_merge_scatters_values_unchanged():
     calls = []
     env_default = env.worldgen
 
-    def worldgen(world_ids, counter, level_ids):
+    def worldgen(base_key, world_ids, counter, level_ids):
         calls.append(world_ids.clone())
-        new = env_default(world_ids, counter, level_ids)
+        new = env_default(base_key, world_ids, counter, level_ids)
         bad = new.bodies.vel.clone()
         bad[0, 0, :] = float("nan")
         bad[0, 1, :] = -float("inf")
@@ -271,7 +303,7 @@ def test_classic_compact_merge_scatters_values_unchanged():
     sweep = env._standalone_sweep(state)
     adv = state.replace(step=state.step + 1)
     new, _ = env._compact_resets(state, adv, sweep, trigger, level_ids,
-                                 torch.arange(W))
+                                 torch.arange(W), prng.key(cfg.rand_seed))
     np.testing.assert_array_equal(calls[0].numpy(), [2, 5, 2, 2])
     v = new.bodies.vel
     assert bool(torch.isnan(v[[2, 5], 0, 0]).all())

@@ -1,12 +1,14 @@
-"""PyTorch port: episode draws keyed by (rand_seed, world id, episode
-counter) (env/episode.py, env/rng.py::episode_rng), as the JAX package
-keys each episode by fold_in(fold_in(base_key, world_id), counter). A
+"""PyTorch port: episode draws keyed by (base key, world id, episode
+counter) (env/episode.py, env/rng.py::episode_keys), as the JAX package
+keys each episode by fold_in(fold_in(base_key, world_id), counter), with
+the base key PRNGKey(rand_seed) on resets. A
 world's episode must not depend on the batch or reset branch that draws
 it, and ``world_ids`` must reach the draws."""
 
 import pytest
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.env.episode import levelgen_worldgen
@@ -36,7 +38,7 @@ def _assert_same_world(a, wa, b, wb):
 def _draw(ids, counters, cfg=CFG):
     ids = torch.as_tensor(ids, dtype=torch.long)
     counters = torch.as_tensor(counters, dtype=torch.long)
-    return levelgen_worldgen(cfg)(ids, counters,
+    return levelgen_worldgen(cfg)(prng.key(cfg.rand_seed), ids, counters,
                                   torch.ones_like(ids))
 
 

@@ -1,9 +1,10 @@
 """PyTorch port on the card: each CUDA kernel (K1 raycast, K2 physics, K3
-fused physics + sweep, K4 megastep, K5 RGBD) against its plain PyTorch
-version on CUDA tensors, the packed env's main path through K1 and K4,
-the classic env through K3, K2 and K1, the flagship policy ensemble's
-forward against the CPU's, the inference loop through K4 and K1, and a PPO
-update at train.sh's configuration against the CPU's.
+fused physics + sweep, K4 megastep, K5 RGBD, and the threefry kernel of
+every random draw) against its plain PyTorch version on CUDA tensors,
+the packed env's main path through K1 and K4, the classic env through
+K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
+the inference loop through K4 and K1, and a PPO update at train.sh's
+configuration against the CPU's.
 
 Marked ``gpu``; every test skips here without a card (decided in the
 ``cuda`` fixture). On a machine with one:
@@ -19,6 +20,7 @@ import math
 import pytest
 import torch
 
+from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as obs_mod
 from marl_hideandseek_torch.env import packed as tp
@@ -31,6 +33,7 @@ from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rays as ops_rays
 from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import step as ops_step
+from marl_hideandseek_torch.ops import threefry as ops_threefry
 from marl_hideandseek_torch.policy import make_policy
 from marl_hideandseek_torch.train.rollout import apply_ensemble
 from marl_hideandseek_torch.types import unpack_state
@@ -61,6 +64,37 @@ def _state(cuda, kw, w, step):
     cfg = EnvConfig(num_worlds=w, **kw, sim_flags=FLAGS, rand_seed=3)
     ps, _ = PackedEnv(cfg, device=cuda).init()
     return cfg, ps.replace(step=torch.full_like(ps.step, step))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 1000), (13, 37), (1, 4099)])
+def test_threefry_kernel_matches_plain(cuda, k, n):
+    """Every mode, with per-key, shared and no counters: the kernel's
+    words equal the plain version's, one launch a call; the card's keys
+    split and draw as on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+
+    def u32(*shape):
+        return torch.randint(0, 2 ** 32, shape, generator=g, device=cuda,
+                             dtype=torch.long).to(torch.uint32)
+
+    keys = u32(k, 2)
+    words = lambda x: x.view(torch.int32)
+    for ctr in (u32(k, n, 2), u32(1, n, 2), None):
+        for mode in (ops_threefry.PAIRS, ops_threefry.BITS,
+                     ops_threefry.UNIFORM):
+            n0 = ops_threefry.THREEFRY.launches
+            got = ops_threefry.threefry(keys, ctr, n, mode)
+            assert ops_threefry.THREEFRY.launches == n0 + 1
+            want = ops_threefry.threefry_plain(keys, ctr, n, mode)
+            assert torch.equal(words(got), words(want))
+    key = prng.key(k, cuda)
+    for a, b in ((prng.split(key, 5), prng.split(key.cpu(), 5)),
+                 (prng.uniform(key, (n,)), prng.uniform(key.cpu(), (n,))),
+                 (prng.randint(key, (n,), 0, 7),
+                  prng.randint(key.cpu(), (n,), 0, 7))):
+        assert torch.equal(words(a.cpu()) if a.dtype != torch.long
+                           else a.cpu(), words(b) if b.dtype != torch.long
+                           else b)
 
 
 @pytest.mark.parametrize("w", [1000, 4096])
@@ -369,7 +403,7 @@ def _policy_inputs(cuda, w):
     """A 4-policy flagship ensemble on the card with seeded weights and
     statistics, and the packed env's observations of ``w`` 2v2 worlds."""
     gen = torch.Generator().manual_seed(0)
-    pol = make_policy(num_policies=4, device=cuda, generator=gen)
+    pol = make_policy(num_policies=4, device=cuda, key=prng.key(0))
     params = dict(pol.actor_critic.named_parameters())
     with torch.no_grad():
         for p in params.values():
@@ -475,7 +509,7 @@ def test_ppo_update_matches_cpu(cuda):
         return ppo.ppo_update(cfg, policy, tree_map(to, st.params), opt,
                               stats.to(dev), tree_map(to, st.value_stats),
                               tree_map(to, st.hyper_params), b,
-                              torch.Generator(dev))
+                              st.key.to(dev))
 
     card = run(cuda, pol)
     cpu = run(torch.device("cpu"), make_policy(device="cpu"))

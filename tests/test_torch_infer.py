@@ -11,7 +11,9 @@ deterministic steps across an episode end, with the JAX normalize and
 ``apply_ensemble`` fed the port's observations as numpy and carrying
 their own LSTM state alongside: logits and LSTM states within 1e-4, and
 the same actions wherever the top two logits of a bucket differ by more
-than 1e-4. The ELO functions against JAX's on seeded match batches.
+than 1e-4; then 12 stochastic steps whose sampled actions equal
+``jax.random.categorical``'s from the same keys off such near-ties. The
+ELO functions against JAX's on seeded match batches.
 """
 
 import pathlib
@@ -28,7 +30,7 @@ from marl_hideandseek_tpu.train import elo as jelo
 from marl_hideandseek_tpu.train import evaluate as jevaluate
 from marl_hideandseek_tpu.train.rollout import apply_ensemble as japply
 
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch import policy as tpolicy
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
@@ -111,6 +113,19 @@ def test_checkpoint_round_trip_is_exact(converted, selector):
 
 def test_inference_loop_matches_jax(converted):
     """The slice as a whole on the tracked checkpoint's 4 policies."""
+    _loop_against_jax(converted, deterministic=True)
+
+
+def test_stochastic_loop_samples_jax_actions(converted):
+    """The stochastic loop: step i samples with ``key, sub = split(key)``
+    from PRNGKey(7), as scripts/infer.py does; each action equals the
+    argmax of JAX's Gumbel noise (``jax.random.categorical``'s, from
+    ``split(sub, 5)``) plus JAX's logits wherever its top two differ by
+    more than the logits bar."""
+    _loop_against_jax(converted, deterministic=False)
+
+
+def _loop_against_jax(converted, deterministic):
     jpol, tpol, loads, path = converted
     params, stats, _ = eval_load_ckpt(tpol, path, device="cpu")
     env = PackedEnv(CFG, device="cpu")
@@ -131,6 +146,7 @@ def test_inference_loop_matches_jax(converted):
     jstate = [jpol.actor_critic.init_recurrent_state(n)]
     seen = {"steps": 0, "dones": 0, "ties": 0}
     buckets = np.cumsum((0, 5, 5, 5, 2, 2))
+    key = [jax.random.PRNGKey(7)]
 
     def check(d):
         obs = {k: v.numpy() for k, v in d["obs"].items()}
@@ -139,11 +155,17 @@ def test_inference_loop_matches_jax(converted):
         logits_j = np.asarray(logits_j)
         np.testing.assert_allclose(d["logits"].numpy(), logits_j, rtol=0,
                                    atol=BAR)
+        if not deterministic:
+            key[0], sub = jax.random.split(key[0])
+            bucket_keys = jax.random.split(sub, len(buckets) - 1)
         for lo, hi in zip(buckets[:-1], buckets[1:]):
+            i = np.searchsorted(buckets, lo)
             lg = logits_j[:, lo:hi]
+            if not deterministic:
+                lg = lg + np.asarray(jax.random.gumbel(
+                    bucket_keys[i], lg.shape))
             top2 = np.sort(lg, -1)[:, -2:]
             clear = top2[:, 1] - top2[:, 0] > BAR
-            i = np.searchsorted(buckets, lo)
             act = d["actions"][:, i].numpy()
             np.testing.assert_array_equal(act[clear],
                                           lg.argmax(-1)[clear])
@@ -157,8 +179,8 @@ def test_inference_loop_matches_jax(converted):
         seen["steps"] += 1
         seen["dones"] += int(d["dones"].sum())
 
-    out = run_inference(env, tpol, params, cut, STEPS, deterministic=True,
-                        iter_cb=check)
+    out = run_inference(env, tpol, params, cut, STEPS,
+                        deterministic=deterministic, iter_cb=check)
     assert seen["steps"] == STEPS and seen["dones"] == CFG.num_worlds
     assert out["episodes_finished"] == CFG.num_worlds
     assert seen["ties"] < STEPS * n            # most actions were compared
@@ -221,7 +243,7 @@ def test_eval_policies_on_the_classic_env():
                     max_seekers=2, episode_len=100, rand_seed=5)
     env = HideAndSeekEnv(cfg, device="cpu")
     pol = tpolicy.make_policy(num_policies=4, device="cpu",
-                              generator=torch.Generator().manual_seed(3))
+                              key=prng.key(3))
     params = dict(pol.actor_critic.named_parameters())
     obs0 = env.init()[1].obs
     stats = pol.obs_preprocess.init_state(

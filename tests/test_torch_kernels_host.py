@@ -1,10 +1,11 @@
 """PyTorch port: the CUDA kernels' sources (csrc/raycast.cu,
 csrc/megastep.cu with its megastep, physics and fused entries,
-csrc/rgbd.cu) compiled as plain host C++ (-DMHS_HOST_BUILD, the same
-per-ray / per-world / per-pixel functions in a loop) and held to the
-plain PyTorch versions on CPU tensors. This checks the kernels' arithmetic and their
-argument layout without a card; the launch itself is checked on the card
-(tests/test_torch_gpu.py, chip_smoke.py). Needs a host C++ compiler.
+csrc/rgbd.cu, csrc/threefry.cu) compiled as plain host C++
+(-DMHS_HOST_BUILD, the same per-ray / per-world / per-pixel functions in
+a loop) and held to the plain PyTorch versions on CPU tensors. This
+checks the kernels' arithmetic and their argument layout without a card;
+the launch itself is checked on the card (tests/test_torch_gpu.py,
+chip_smoke.py). Needs a host C++ compiler.
 
 All three sources run a warp per world (rgbd.cu: per world and agent);
 as host C++ their lane helpers (csrc/lanes.cuh) run the lanes of each
@@ -13,13 +14,15 @@ another. Each source is built twice, in forward and in reverse order
 (-DMHS_LANES_REVERSE): a phase that reads what another lane writes in the
 same phase - a missing barrier - gives different results in the two
 orders. The cases also run at a world count that is not a multiple of
-the worlds per block (the ragged last block)."""
+the worlds per block (the ragged last block). csrc/threefry.cu is held
+bit for bit to JAX's own threefry2x32."""
 
 import ctypes
 import math
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +36,7 @@ from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import step as ops_step
+from marl_hideandseek_torch.ops import threefry as ops_threefry
 from marl_hideandseek_torch.types import body_slot_ranges
 
 REDUCED = dict(num_worlds=96, min_hiders=1, max_hiders=1, min_seekers=1,
@@ -310,3 +314,81 @@ def test_rgbd_source_culls_exactly(host_libs, lanes):
     assert torch.equal(rgba_h.view(torch.int32), rgba_p.view(torch.int32))
     torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)
     assert counts[0] > 0 and counts[1] > 0, list(counts)
+
+
+@pytest.fixture(scope="module")
+def threefry_host(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernels' sources")
+    so = tmp_path_factory.mktemp("host_threefry") / "threefry.so"
+    subprocess.run(
+        [cxx, "-x", "c++", "-std=c++17", "-DMHS_HOST_BUILD", "-O1",
+         "-shared", "-fPIC", "-o", str(so), str(build.CSRC / "threefry.cu")],
+        check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.mhs_threefry_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _host_threefry(fn, keys, counters, n, mode):
+    k = keys.shape[0]
+    out = torch.empty((k, n, 2) if mode == ops_threefry.PAIRS else (k, n),
+                      dtype=torch.float32 if mode == ops_threefry.UNIFORM
+                      else torch.uint32)
+    stride = 0 if counters is None or counters.shape[0] == 1 else 2 * n
+    assert fn(keys.data_ptr(), None if counters is None else
+              counters.data_ptr(), stride, k, n, mode, out.data_ptr()) == 0
+    return out
+
+
+def _u32(x):
+    return x.view(torch.int32).numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_threefry_source_matches_jax(threefry_host, ragged):
+    """csrc/threefry.cu as host C++ against JAX's ``threefry_2x32`` bit
+    for bit: both words on batched keys with per-key counters (JAX's
+    hash of (key, (c0, c1)) is ``threefry_2x32(key, [c0, c1])``), and the
+    bits and uniform modes on the iota counters against ``jax.random``;
+    at a ragged count too."""
+    import jax
+    import jax.numpy as jnp
+    from jax._src import prng as jprng
+
+    k, n = (13, 37) if ragged else (16, 64)
+    rng = np.random.default_rng(k)
+    kw = rng.integers(0, 2 ** 32, (k, 2), dtype=np.uint64).astype(np.uint32)
+    cw = rng.integers(0, 2 ** 32, (k, n, 2), dtype=np.uint64).astype(
+        np.uint32)
+    keys = torch.from_numpy(kw.view(np.int32).copy()).view(torch.uint32)
+    ctr = torch.from_numpy(cw.view(np.int32).copy()).view(torch.uint32)
+    got = _u32(_host_threefry(threefry_host, keys, ctr, n,
+                              ops_threefry.PAIRS))
+    want = jax.vmap(jax.vmap(lambda kk, c: jprng.threefry_2x32(kk, c),
+                             in_axes=(None, 0)))(jnp.asarray(kw),
+                                                 jnp.asarray(cw))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    jk = jnp.asarray(kw)
+    np.testing.assert_array_equal(
+        _u32(_host_threefry(threefry_host, keys, None, n,
+                            ops_threefry.BITS)),
+        np.asarray(jax.vmap(lambda kk: jax.random.bits(kk, (n,)))(jk)))
+    np.testing.assert_array_equal(
+        _host_threefry(threefry_host, keys, None, n,
+                       ops_threefry.UNIFORM).numpy().view(np.uint32),
+        np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, (n,)))(
+            jk)).view(np.uint32))
+    # The plain version is the same function.
+    for mode in (ops_threefry.PAIRS, ops_threefry.BITS):
+        np.testing.assert_array_equal(
+            _u32(ops_threefry.threefry(keys, ctr if mode ==
+                                       ops_threefry.PAIRS else None, n,
+                                       mode)),
+            _u32(_host_threefry(threefry_host, keys, ctr if mode ==
+                                ops_threefry.PAIRS else None, n, mode)))

@@ -1,19 +1,26 @@
 """PyTorch port: the batched level generator (env/geometry.py,
-env/levelgen.py) held distributionally to the numpy transliteration of
-the reference generator in tests/test_levelgen_oracle.py, with that
-file's implementation-neutral statistics, over 256 seeds per side. The
-two draw from different random streams (bit parity with JAX's threefry
-is out of scope), so the comparison is of seed-aggregate statistics;
-the structural invariants are checked world by world."""
+env/levelgen.py) held world by world to the JAX package's
+``generate_world`` from the same threefry keys (``prng.py``), and
+distributionally to the numpy transliteration of the reference generator
+in tests/test_levelgen_oracle.py, with that file's
+implementation-neutral statistics, over 256 seeds per side (the oracle
+draws from another random stream); the structural invariants are
+checked world by world."""
 
 import numpy as np
 import pytest
 import torch
 
 import test_levelgen_oracle as oracle
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch.config import MAX_WALLS, EnvConfig, SimFlags
 from marl_hideandseek_torch.env import geometry, levelgen
-from marl_hideandseek_torch.env.episode import draw_episode, keyed_levelgen
+from marl_hideandseek_torch.env.episode import (
+    default_levelgen,
+    draw_episode,
+    levelgen_worldgen,
+)
+from marl_hideandseek_torch.env.rng import episode_keys
 from marl_hideandseek_torch.types import AGENT_HIDER, body_slot_ranges
 
 N_SEEDS = 256
@@ -22,12 +29,18 @@ CFG = EnvConfig(num_worlds=N_SEEDS, min_hiders=2, max_hiders=2,
                 sim_flags=SimFlags.RandomFlipTeams)
 
 
+def _episodes(seed):
+    """Episode draws of N_SEEDS worlds at counter 0 from PRNGKey(seed)."""
+    ids = torch.arange(N_SEEDS)
+    return draw_episode(CFG, episode_keys(prng.key(seed), ids,
+                                          torch.zeros_like(ids)))
+
+
 @pytest.fixture(scope="module")
 def worlds():
-    gen = torch.Generator().manual_seed(100)
-    ep, lk, nh, ns, flip = draw_episode(CFG, gen, N_SEEDS, "cpu")
+    ep, lk, nh, ns, flip = _episodes(100)
     lvl = torch.ones(N_SEEDS, dtype=torch.long)
-    ps = levelgen.generate_world(CFG, gen, lk, ep, lvl, nh, ns, flip)
+    ps = levelgen.generate_world(CFG, lk, ep, lvl, nh, ns, flip)
     return ps
 
 
@@ -79,12 +92,11 @@ def oracle_stats():
 
 @pytest.fixture(scope="module")
 def keyed():
-    """(level key, episode draws, worlds) from the default keyed levelgen."""
-    gen = torch.Generator().manual_seed(101)
-    ep, lk, nh, ns, flip = draw_episode(CFG, gen, N_SEEDS, "cpu")
+    """(level key, episode draws, worlds) from the default levelgen."""
+    ep, lk, nh, ns, flip = _episodes(101)
     lvl = torch.ones(N_SEEDS, dtype=torch.long)
     draws = (lk, ep, lvl, nh, ns, flip)
-    return draws, keyed_levelgen(CFG)(*draws)
+    return draws, default_levelgen(CFG)(*draws)
 
 
 def test_levelgen_distribution_matches_oracle(worlds, oracle_stats):
@@ -105,7 +117,7 @@ def test_keyed_levelgen_depends_on_the_key_alone(keyed):
     equals the world of the full batch: what a checkpoint load needs."""
     draws, ps = keyed
     sel = torch.tensor([5, 100, 17])
-    sub = keyed_levelgen(CFG)(*(d[..., sel] for d in draws))
+    sub = default_levelgen(CFG)(*(d[..., sel] for d in draws))
     for a, b in zip(ps.leaves(), sub.leaves()):
         a = a.view(torch.int32) if a.dtype == torch.uint32 else a
         b = b.view(torch.int32) if b.dtype == torch.uint32 else b
@@ -168,8 +180,7 @@ def test_levelgen_structure(worlds):
 def test_wall_grammar_unit_square():
     """The grammar alone: endpoints sorted, inside the unit square, wall
     lengths non-negative, counts within the op budget."""
-    gen = torch.Generator().manual_seed(7)
-    ws = geometry.make_walls(gen, 64, "cpu")
+    ws = geometry.make_walls(prng.split(prng.key(7), 64))
     act = geometry.wall_active(ws)
     p1, p2 = ws.p1[act], ws.p2[act]
     assert bool((p1 <= p2 + 1e-6).all())
@@ -208,3 +219,71 @@ def test_debug_levels_match_jax(level):
             np.testing.assert_allclose(b, a, atol=1e-6, err_msg=k)
         else:
             np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+# Reduced capacity (tests/test_pallas_kernels.py:20-26) at W = 128, and a
+# few worlds at full capacity.
+JAX_CASES = {
+    "reduced": dict(num_worlds=128, min_hiders=1, max_hiders=1,
+                    min_seekers=1, max_seekers=1, max_boxes=3, max_ramps=1),
+    "full": dict(num_worlds=6, min_hiders=1, max_hiders=3, min_seekers=1,
+                 max_seekers=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JAX_CASES))
+def test_generated_worlds_match_jax(case):
+    """The default worldgen (episode draws, then the level generator)
+    against JAX's ``_draw_episode`` + ``generate_world`` vmapped over the
+    same worlds, base key and counters: every integer and boolean leaf
+    equal (key words, team sizes and flips, box counts, wall counts and
+    activity, rejection winners through the positions they pick), floats
+    within 1e-5. No float near-tie flipped a rejection or a wall test on
+    these draws, so no share of worlds is excused."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from marl_hideandseek_tpu.config import EnvConfig as JCfg
+    from marl_hideandseek_tpu.config import SimFlags as JFlags
+    from marl_hideandseek_tpu.env import env as jenv
+    from marl_hideandseek_tpu.env import levelgen as jlevelgen
+
+    kw = JAX_CASES[case]
+    w = kw["num_worlds"]
+    jcfg = JCfg(**kw, sim_flags=JFlags.RandomFlipTeams)
+    tcfg = EnvConfig(**kw, sim_flags=SimFlags.RandomFlipTeams)
+    base = jax.random.PRNGKey(23)
+
+    def one(wid, counter):
+        ep, lk, n_h, n_s, flip = jenv._draw_episode(jcfg, base, wid, counter)
+        return jlevelgen.generate_world(jcfg, lk, ep, 1, n_h, n_s, flip)
+
+    ids = np.arange(w, dtype=np.uint32)
+    counters = (ids * 7 % 5).astype(np.uint32)
+    js = jax.jit(jax.vmap(one, out_axes=-1))(jnp.asarray(ids),
+                                             jnp.asarray(counters))
+    ts = levelgen_worldgen(tcfg)(prng.key(23), torch.from_numpy(
+        ids.astype(np.int64)), torch.from_numpy(counters.astype(np.int64)),
+        torch.ones(w, dtype=torch.long))
+
+    def flat(x, prefix=""):
+        if dataclasses.is_dataclass(x):
+            out = {}
+            for f in dataclasses.fields(x):
+                out.update(flat(getattr(x, f.name), prefix + f.name + "."))
+            return out
+        return {prefix[:-1]: np.asarray(x)}
+
+    jf = flat(js)
+    tf = bridge.flatten_tree(bridge.state_to_numpy(ts))
+    assert jf.keys() == tf.keys()
+    for k, a in jf.items():
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(tf[k], a, rtol=0, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(tf[k], a, err_msg=k)
+    # The draws vary across worlds: wall counts and team sizes.
+    assert len(np.unique(jf["statics.wall_active"].sum(0))) > 1
+    assert case == "reduced" or len(np.unique(jf["num_hiders"])) > 1

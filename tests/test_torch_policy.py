@@ -8,7 +8,8 @@ name, and both sides get the same numpy inputs from a seed. Bars: float32
 outputs and LSTM states within 1e-5 absolute after one step, 1e-4 after 8
 chained steps (the two sides sum their products in other orders);
 ``best``, ``log_prob`` and ``entropy`` at float32 rounding; ``sample`` by a
-frequency bound (``jax.random.categorical`` draws other numbers). The
+frequency bound, and equal to ``jax.random.categorical``'s draws from the
+same keys. The
 bf16 policy is held at BF16_BAR (see its test).
 """
 
@@ -28,7 +29,7 @@ from marl_hideandseek_tpu.models import rnn as jrnn
 from marl_hideandseek_tpu.train import rollout as jrollout
 from flax import linen as nn
 
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch import policy as tpolicy
 from marl_hideandseek_torch.models import layers as tl
 from marl_hideandseek_torch.models import normalizer as tnorm
@@ -218,13 +219,19 @@ def test_action_distributions_match_jax():
     n_draw = 40000
     one = tl.DiscreteActionDistributions(
         buckets, t(np.repeat(logits[1:2], n_draw, 0)))
-    draws = one.sample(torch.Generator().manual_seed(0)).numpy()
+    draws = one.sample(prng.key(0)).numpy()
     off = 0
     for i, b in enumerate(buckets):
         p = np.asarray(jax.nn.softmax(logits[1, off:off + b]))
         freq = np.bincount(draws[:, i], minlength=b) / n_draw
         assert np.all(np.abs(freq - p) <= 5 * np.sqrt(p * (1 - p) / n_draw))
         off += b
+    # The same draws as JAX's from the same key (a near tie aside: the
+    # Gumbel noise differs by an ulp of log).
+    for seed in range(4):
+        np.testing.assert_array_equal(
+            td.sample(prng.key(seed)).numpy(),
+            np.asarray(jd.sample(jax.random.PRNGKey(seed))))
 
 
 def test_normalizer_matches_jax():
@@ -325,6 +332,30 @@ def test_make_policy_matches_jax(backbone):
     for i, (want, got) in enumerate(forward_pair(backbone, jnp.float32,
                                                  torch.float32, steps)):
         assert_outputs_close(want, got, ONE_STEP if i == 0 else CHAINED)
+
+
+@pytest.mark.parametrize("backbone", ["pooled", "attention", "hash"])
+def test_make_policy_init_matches_flax(backbone):
+    """The port draws each parameter as flax's ``init`` does from the
+    same key (PRNGKey(1), ``jax_policy``'s): every drawn leaf (orthogonal
+    kernels, the simhash projection and its He-normal table) within 1e-5;
+    the constant leaves (zeros, ones) are the ones ``perturbed`` moved."""
+    from marl_hideandseek_torch.models.layers import draw_params
+
+    _, params = jax_policy(backbone, jnp.float32)
+    want = bridge.flatten_tree(params["params"])
+    tpol = tpolicy.make_policy(backbone=backbone, device="cpu")
+    got = draw_params(tpol.actor_critic, prng.key(1)[None])
+    assert set(got) == set(want)
+    drawn = 0
+    for k, v in got.items():
+        v = v[0].numpy()
+        if np.all(v == 0) or np.all(v == 1):
+            continue
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+        drawn += 1
+    assert drawn >= 8
 
 
 # bf16: both sides round the dense layers' inputs, kernels and outputs to

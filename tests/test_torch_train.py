@@ -1,15 +1,18 @@
 """PyTorch port: training (train/rollout.py, ppo.py, pbt.py, manager.py and
 the training checkpoint) against the JAX package.
 
-Both sides get the same numpy inputs from a seed; the parameters are
-drawn by the port's initialisers (with the all-zero and all-one leaves
-moved by a seeded normal, so that biases and the critic take part) and
-cross as the flax tree. The policy is the flagship at an LSTM width of
-32 (the MLP and embeddings at full width), except where the tracked
-checkpoint needs 256. No JAX env is compiled: the slice runs on the
-port's CPU ``PackedEnv`` and JAX sees its observations as numpy. JAX's
-``ppo_update`` is compiled three times (P = 1 masked, PBT masked, and
-the grouped case that the slice shares).
+Both sides get the same numpy inputs from a seed, and the same keys: the
+port's draws follow JAX's key tree (``prng.py``), so ``init_training``
+from one seed gives JAX's initial state and a rollout's actions,
+matchups and the PBT draws equal JAX's functions on the same keys. The
+parameters of the update tests are drawn by the port's initialisers
+(with the all-zero and all-one leaves moved by a seeded normal, so that
+biases and the critic take part) and cross as the flax tree. The policy
+is the flagship at an LSTM width of 32 (the MLP and embeddings at full
+width), except where the tracked checkpoint needs 256. No JAX env is
+compiled: the slice runs on the port's CPU ``PackedEnv`` and JAX sees
+its observations as numpy. JAX's ``ppo_update`` is compiled three times
+(P = 1 masked, PBT masked, and the grouped case that the slice shares).
 
 The loss has kinks: leaky-relu's slope steps from 0.01 to 1 at 0, and a
 max-pool's gradient moves between entities where the two largest values
@@ -49,7 +52,7 @@ from marl_hideandseek_tpu.train import pbt as jpbt
 from marl_hideandseek_tpu.train import ppo as jppo
 from marl_hideandseek_tpu.train import rollout as jrollout
 
-from marl_hideandseek_torch import bridge
+from marl_hideandseek_torch import bridge, prng
 from marl_hideandseek_torch import policy as tpolicy
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
@@ -207,8 +210,8 @@ def seeded_params(num, seed):
     """``num`` stacked policies drawn by the port's initialisers from
     ``seed``, perturbed, as the flax tree of numpy arrays (JAX's own init
     is an eager vmap that takes seconds a call)."""
-    flat = draw_params(policies()[1].actor_critic, num,
-                       torch.Generator().manual_seed(seed))
+    flat = draw_params(policies()[1].actor_critic,
+                       prng.split(prng.key(seed), num))
     return perturbed(np_tree(to_flax(flat)), seed)
 
 
@@ -360,7 +363,7 @@ def run_both(kind, tcf, jcf, b, params_np, stats, vs, hyper):
                           tppo.init_opt_state(params_t), tstats,
                           {k: t(v) for k, v in vs.items()},
                           {k: t(v) for k, v in hyper.items()},
-                          port_buffer(b), torch.Generator())
+                          port_buffer(b), prng.key(0))
     tx = jppo.make_optimizer(jcf)
     jparams = jax.tree.map(jnp.asarray, params_np)
     want = jax_ppo(kind, jcf, jparams, jax.vmap(tx.init)(jparams), jstats,
@@ -542,10 +545,9 @@ def test_group_indices_and_dropped_fraction_match_jax():
 # --------------------------------------------------------------------------
 
 def test_explore_exploit_and_past_refresh_match_jax():
-    """Which slot copies, the ELO rotation and the clamp of the perturbed
-    hyperparameters as JAX; the factor (1.2 or 1 / 1.2) is a coin on
-    either side, so both sides land in the same two-point set and, over
-    seeds, the port draws both points."""
+    """Which slot copies, the ELO rotation, and the perturbed and clamped
+    hyperparameters equal JAX's from the same key; over keys, the
+    factor (1.2 or 1 / 1.2) takes both values."""
     jc, tc = configs("grouped")
     rng = np.random.default_rng(7)
     params = {"w": rng.standard_normal((2, 3, 2)).astype(np.float32)}
@@ -557,35 +559,28 @@ def test_explore_exploit_and_past_refresh_match_jax():
     hyper = {"lr": np.array([2e-4, 1e-3], np.float32),
              "entropy_coef": np.array([0.02, 0.005], np.float32)}
     j_opt = {"mu": jnp.asarray(mu["w"]), "count": jnp.asarray(count)}
-    jp, jo, jh = jpbt.explore_exploit(jc, jax.random.PRNGKey(0),
-                                      jnp.asarray(elo),
-                                      {"w": jnp.asarray(params["w"])}, j_opt,
-                                      {k: jnp.asarray(v) for k, v in
-                                       hyper.items()})
     factors = set()
     for seed in range(16):
+        jp, jo, jh = jpbt.explore_exploit(
+            jc, jax.random.PRNGKey(seed), jnp.asarray(elo),
+            {"w": jnp.asarray(params["w"])}, j_opt,
+            {k: jnp.asarray(v) for k, v in hyper.items()})
         t_opt = tppo.AdamState(mu={"w": t(mu["w"])}, nu={"w": t(mu["w"])},
                                count=t(count))
         tp, to, th = tpbt.explore_exploit(
-            tc, torch.Generator().manual_seed(seed), t(elo),
+            tc, prng.key(seed), t(elo),
             {"w": t(params["w"])}, t_opt, {k: t(v) for k, v in hyper.items()})
         np.testing.assert_array_equal(tp["w"].numpy(), np.asarray(jp["w"]))
         np.testing.assert_array_equal(to.mu["w"].numpy(),
                                       np.asarray(jo["mu"]))
         np.testing.assert_array_equal(to.count.numpy(),
                                       np.asarray(jo["count"]))
-        for k, spec in (("lr", tc.lr), ("entropy_coef", tc.algo.entropy_coef)):
-            best = hyper[k][1]
-            lo, hi = spec.base * spec.min_scale, spec.base * spec.max_scale
-            allowed = {np.float32(np.clip(np.float32(best) * f, lo, hi))
-                       for f in (np.float32(1.2), np.float32(1.0 / 1.2))}
-            assert np.float32(th[k][0]) in allowed, (k, th[k][0], allowed)
-            assert np.float32(jh[k][0]) in allowed
-            assert th[k][1] == best
+        for k in ("lr", "entropy_coef"):
+            np.testing.assert_allclose(th[k].numpy(), np.asarray(jh[k]),
+                                       rtol=1e-6, err_msg=k)
+            assert th[k][1] == hyper[k][1]
             factors.add((k, float(th[k][0])))
     np.testing.assert_array_equal(tp["w"][0].numpy(), params["w"][1])
-    assert float(th["lr"][0]) == pytest.approx(1e-3) or \
-        float(th["lr"][0]) == pytest.approx(1e-3 / 1.2)
     assert len(factors) == 4                         # both points, each key
 
     for update_idx in (500, 1000, 1500):
@@ -601,24 +596,29 @@ def test_explore_exploit_and_past_refresh_match_jax():
 
 
 def test_hyper_params_draw_in_range():
-    _, tc = configs("grouped")
-    hp = tpbt.init_hyper_params(tc, torch.Generator().manual_seed(0))
-    assert set(hp) == {"lr", "entropy_coef"}
+    """init_hyper_params from a key: JAX's values, inside the explore
+    ranges; without PBT the configured scalars."""
+    jc, tc = configs("grouped")
+    hp = tpbt.init_hyper_params(tc, prng.key(0))
+    want = jpbt.init_hyper_params(jc, jax.random.PRNGKey(0))
+    assert set(hp) == {"lr", "entropy_coef"} == set(want)
     for k, spec in (("lr", tc.lr), ("entropy_coef", tc.algo.entropy_coef)):
         assert hp[k].shape == (2,)
         assert bool(((hp[k] >= spec.base * 0.1 * (1 - 1e-6)) &
                      (hp[k] <= spec.base * 10 * (1 + 1e-6))).all())
+        np.testing.assert_allclose(hp[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, err_msg=k)
     _, ts = configs("single")
-    hp = tpbt.init_hyper_params(ts, torch.Generator().manual_seed(0))
+    hp = tpbt.init_hyper_params(ts, prng.key(0))
     assert hp["lr"].tolist() == [pytest.approx(1e-4)]
 
 
 def test_resample_assignments_past_play_invariants():
-    """2v2 worlds with shuffled teams: each world that ended gets one
-    train policy on one team and one past policy on the other, each team
-    on one policy; the others keep theirs; both roles get the train
-    side."""
-    _, tc = configs("grouped")
+    """2v2 worlds with shuffled teams: the new matchups equal JAX's from
+    the same key; each world that ended gets one train policy on one
+    team and one past policy on the other, each team on one policy; the
+    others keep theirs; both roles get the train side."""
+    jc, tc = configs("grouped")
     tc = dataclasses.replace(tc, num_agents_per_world=4)
     rng = np.random.default_rng(8)
     w, a = 256, 4
@@ -626,8 +626,13 @@ def test_resample_assignments_past_play_invariants():
     dones_w = rng.uniform(size=w) < 0.5
     old = rng.integers(0, 4, w * a).astype(np.int32)
     new = trollout._resample_assignments(
-        torch.Generator().manual_seed(1), t(dones_w), t(old), tc, w, a,
+        prng.key(1), t(dones_w), t(old), tc, w, a,
         t(agent_type).to(torch.int32)).numpy().reshape(w, a)
+    want = jrollout._resample_assignments(
+        jax.random.PRNGKey(1), jnp.asarray(dones_w), jnp.asarray(old),
+        dataclasses.replace(jc, num_agents_per_world=4), w, a,
+        jnp.asarray(agent_type, jnp.int32))
+    np.testing.assert_array_equal(new.reshape(-1), np.asarray(want))
     old = old.reshape(w, a)
     np.testing.assert_array_equal(new[~dones_w], old[~dones_w])
     hider = agent_type == 1
@@ -645,6 +650,100 @@ def test_resample_assignments_past_play_invariants():
 # The slice as a whole
 # --------------------------------------------------------------------------
 
+def _u32(x):
+    return x.view(torch.int32).numpy().view(np.uint32)
+
+
+def test_init_training_matches_jax():
+    """init_training from one seed at 4 worlds, PBT 2 + 2, against JAX's
+    init_training's key tree (manager.py:376-424) and functions: the
+    state's and the rollout's keys, the hyperparameters, the first
+    matchups and the episode keys exactly; the parameters (flax's init of
+    each train policy from split(k_param, 2)) within 1e-5; the past
+    policies copies of policy 0. The worlds themselves are held to JAX's
+    generator in tests/test_torch_levelgen.py (no JAX env compile here)."""
+    from marl_hideandseek_tpu.config import EnvConfig as JEnvCfg
+    from marl_hideandseek_tpu.env import env as jenv
+
+    jc, tc = configs("grouped")
+    jpol, tpol = policies()
+    st = tmanager.init_training("cpu", tc, PackedEnv(ENV, device="cpu"),
+                                tpol).state
+    k_env, k_param, k_roll, k_hyper, k_state = jax.random.split(
+        jax.random.PRNGKey(tc.seed), 5)
+    k_roll, k_assign0 = jax.random.split(k_roll)
+    np.testing.assert_array_equal(_u32(st.key), np.asarray(k_state))
+    np.testing.assert_array_equal(_u32(st.rollout.key), np.asarray(k_roll))
+    hyper = jpbt.init_hyper_params(jc, k_hyper)
+    for k, v in hyper.items():
+        np.testing.assert_allclose(st.hyper_params[k].numpy(), np.asarray(v),
+                                   rtol=1e-6, err_msg=k)
+    jenv_cfg = JEnvCfg(**{f: getattr(ENV, f) for f in (
+        "num_worlds", "min_hiders", "max_hiders", "min_seekers",
+        "max_seekers", "max_boxes", "max_ramps", "episode_len",
+        "rand_seed")}, sim_flags=int(ENV.sim_flags))
+    ep_key, level_key, n_h, n_s, flip = jax.vmap(
+        lambda w: jenv._draw_episode(jenv_cfg, k_env, w, jnp.uint32(0)))(
+            jnp.arange(ENV.num_worlds, dtype=jnp.uint32))
+    es = st.rollout.env_state
+    np.testing.assert_array_equal(_u32(es.ep_key), np.asarray(ep_key).T)
+    np.testing.assert_array_equal(_u32(es.level_key),
+                                  np.asarray(level_key).T)
+    np.testing.assert_array_equal(es.num_hiders.numpy(), np.asarray(n_h))
+    np.testing.assert_array_equal(es.seekers_first.numpy(), np.asarray(flip))
+    assign = jrollout._resample_assignments(
+        k_assign0, jnp.ones((ENV.num_worlds,), bool),
+        jnp.zeros((ENV.num_worlds * A,), jnp.int32), jc, ENV.num_worlds, A,
+        jnp.asarray(es.agent_type.T.numpy()))
+    np.testing.assert_array_equal(st.rollout.assignments.numpy(),
+                                  np.asarray(assign))
+    obs = {k: jnp.asarray(v.numpy()) for k, v in st.rollout.obs.items()}
+    rnn0 = jpol.actor_critic.init_recurrent_state(ENV.num_worlds * A)
+    jparams = jax.jit(jax.vmap(lambda k: jpol.actor_critic.init(
+        k, rnn0, obs)))(jax.random.split(k_param, 2))
+    flat = bridge.flatten_tree(np_tree(jparams)["params"])
+    assert set(flat) == set(st.params)
+    for k, v in flat.items():
+        np.testing.assert_allclose(st.params[k].numpy(), v, rtol=0,
+                                   atol=1e-5, err_msg=k)
+        np.testing.assert_array_equal(st.past_params[k].numpy(),
+                                      np.repeat(st.params[k][:1].numpy(), 2,
+                                                0))
+
+
+def test_rollout_keys_and_epoch_permutations_match_jax():
+    """The rollout's step keys (rollout.py:228,331-338) and ppo_update's
+    epoch permutations (ppo.py:284,340) from one key, as JAX splits
+    them."""
+    key = jax.random.PRNGKey(31)
+    nxt, step_keys = trollout.rollout_keys(prng.key(31), 8)
+    j_next, sub = jax.random.split(key)
+    j_steps = jax.vmap(jax.random.split)(jax.random.split(sub, 8))
+    np.testing.assert_array_equal(_u32(nxt), np.asarray(j_next))
+    np.testing.assert_array_equal(_u32(step_keys), np.asarray(j_steps))
+    for n in (64, 2000):
+        perms = tppo.epoch_permutations(prng.key(31), 3, n)
+        want = jax.vmap(lambda k: jax.random.permutation(k, n))(
+            jax.random.split(key, 3))
+        np.testing.assert_array_equal(perms.numpy(), np.asarray(want))
+
+
+def _jax_sample(k_act, logits):
+    """JAX's ``DiscreteActionDistributions.sample`` of ``k_act`` on
+    ``logits`` [N, 19], and where each bucket's top two of Gumbel noise
+    plus logits differ by more than 1e-4 (off near-ties)."""
+    keys = jax.random.split(k_act, len(BUCKETS))
+    acts, clear, lo = [], [], 0
+    for k, b in zip(keys, BUCKETS):
+        z = logits[:, lo:lo + b] + np.asarray(jax.random.gumbel(
+            k, (logits.shape[0], b)))
+        top2 = np.sort(z, -1)[:, -2:]
+        acts.append(z.argmax(-1))
+        clear.append(top2[:, 1] - top2[:, 0] > 1e-4)
+        lo += b
+    return np.stack(acts, -1), np.stack(clear, -1)
+
+
 class _Capture(tmanager.TrainHooks):
     def __init__(self):
         self.buffers = []
@@ -656,7 +755,9 @@ class _Capture(tmanager.TrainHooks):
 
 def test_training_slice_matches_jax():
     """init_training and two update_iter on the port's CPU PackedEnv at 4
-    worlds, 1v1, PBT 2 + 2, grouped. The worlds start at step 98, just
+    worlds, 1v1, PBT 2 + 2, grouped. Each step's sampled actions equal
+    JAX's from the rollout's step keys (off near-ties) and its new
+    matchups JAX's ``_resample_assignments``. The worlds start at step 98, just
     before the seek phase, so rewards flow and the 104-step episode ends
     in the first rollout (LSTM clears, new matchups, ELO). Each stored
     step's log-probabilities and values against JAX's apply_ensemble on
@@ -668,6 +769,16 @@ def test_training_slice_matches_jax():
     env = PackedEnv(ENV, device="cpu")
     hooks = _Capture()
     mgr = tmanager.init_training("cpu", tc, env, tpol, hooks=hooks)
+    # The post-step teams each step's new matchups are keyed by.
+    post_types = []
+    env_step = env.step
+
+    def recording_step(*args, **kwargs):
+        out = env_step(*args, **kwargs)
+        post_types.append(out[0].agent_type.T.clone())
+        return out
+
+    env.step = recording_step
     ro = mgr.state.rollout
     mgr = mgr.replace(state=mgr.state.replace(rollout=ro.replace(
         env_state=ro.env_state.replace(step=torch.full_like(
@@ -688,12 +799,20 @@ def test_training_slice_matches_jax():
                    .apply_ensemble(jpol, params, rnn,
                                    jpol.obs_preprocess.normalize(stats, obs),
                                    assign, 4, num_train=2))
+    compared = 0
     for u, buf in enumerate(hooks.buffers):
         st = states[u]
         params = to_flax({k: torch.cat([v, st.past_params[k]]) for k, v in
                           st.params.items()})
         stats = jax_stats(*stats_np(st.obs_stats))
         rnn = tree_map(lambda x: jnp.asarray(x.numpy()), st.rollout.rnn_states)
+        # JAX's key tree of this rollout: each step's (action, matchup)
+        # keys; the matchups each step leaves (the next step's, or the
+        # rollout's last).
+        _, sub = jax.random.split(jnp.asarray(_u32(st.rollout.key)))
+        step_keys = jax.random.split(sub, C * T)
+        assigns = [buf.assignments[c, s] for c in range(C)
+                   for s in range(T)] + [states[u + 1].rollout.assignments]
         for c in range(C):
             for a, b_ in zip(jax.tree.leaves(rnn),
                              jax.tree.leaves(tree_map(
@@ -712,8 +831,23 @@ def test_training_slice_matches_jax():
                 np.testing.assert_allclose(buf.values[c, s].numpy(),
                                            np.asarray(values), rtol=0,
                                            atol=REL)
+                g = c * T + s
+                k_act, k_assign = jax.random.split(step_keys[g])
+                acts, clear = _jax_sample(k_act, np.asarray(logits))
+                np.testing.assert_array_equal(
+                    buf.actions[c, s].numpy()[clear], acts[clear])
+                compared += int(clear.sum())
+                dones_w = buf.dones[c, s].numpy().reshape(-1, A)[:, 0]
+                want_assign = jrollout._resample_assignments(
+                    k_assign, jnp.asarray(dones_w),
+                    jnp.asarray(assigns[g].numpy()), jc, ENV.num_worlds, A,
+                    jnp.asarray(post_types[u * C * T + g].numpy()))
+                np.testing.assert_array_equal(assigns[g + 1].numpy(),
+                                              np.asarray(want_assign))
                 rnn = jpol.actor_critic.clear_recurrent_state(
                     new_rnn, buf.dones[c, s].numpy())
+
+    assert compared > 0.99 * 2 * C * T * ENV.num_worlds * A * len(BUCKETS)
 
     # The first update: the normalizer updated from the buffer, then PPO.
     st0, st1 = states[0], states[1]
@@ -759,6 +893,30 @@ def orbax_tree():
     return np_tree(ckptr.restore(str(CKPT), target))
 
 
+def _cut_rollout(conv, worlds, agents=4):
+    """A converted training state whose rollout keeps its first
+    ``worlds`` packed worlds and their ``agents`` agents each."""
+    ro, n = conv["rollout"], worlds * agents
+    return dict(conv, rollout={
+        "env_state": tree_map(lambda x: x[..., :worlds].contiguous(),
+                              ro["env_state"]),
+        "obs": {k: v[:n] for k, v in ro["obs"].items()},
+        "rnn_states": tree_map(lambda x: x[:, :n].contiguous(),
+                               ro["rnn_states"]),
+        "assignments": ro["assignments"][:n], "key": ro["key"]})
+
+
+def _two_world_manager(tpol, path):
+    """init_training of a 2-world, 2v2 CPU run restoring ``path``."""
+    cfg = dataclasses.replace(configs("grouped", worlds=2)[1],
+                              num_agents_per_world=4)
+    env = PackedEnv(EnvConfig(num_worlds=2, min_hiders=2, max_hiders=2,
+                              min_seekers=2, max_seekers=2,
+                              sim_flags=ENV.sim_flags, rand_seed=5),
+                    device="cpu")
+    return tmanager.init_training("cpu", cfg, env, tpol, restore_ckpt=path)
+
+
 def test_tpu_training_state_converts_and_restores(orbax_tree, tmp_path):
     """bridge.training_state_from_numpy on r4_learn/50000 (PBT 2 + 2,
     flagship at full width): Adam's count, mu and nu, the
@@ -785,12 +943,8 @@ def test_tpu_training_state_converts_and_restores(orbax_tree, tmp_path):
     np.testing.assert_array_equal(conv["elo"].numpy(), raw["elo"])
     assert conv["update_idx"] == 50000
     path = tmp_path / "50000.pt"
-    bridge.save_training_checkpoint(path, conv)
-
-    cfg = dataclasses.replace(configs("grouped")[1], num_agents_per_world=4)
-    env = PackedEnv(EnvConfig(num_worlds=2, sim_flags=ENV.sim_flags,
-                              rand_seed=5), device="cpu")
-    mgr = tmanager.init_training("cpu", cfg, env, tpol, restore_ckpt=path)
+    bridge.save_training_checkpoint(path, _cut_rollout(conv, 2))
+    mgr = _two_world_manager(tpol, path)
     st = mgr.state
     assert mgr.update_idx == 50000
     assert st.opt_states.count.tolist() == [100000, 100000]
@@ -832,6 +986,70 @@ def test_tpu_training_state_converts_and_restores(orbax_tree, tmp_path):
     for a, b_ in zip(jax.tree.leaves(rnn_j), jax.tree.leaves(rnn_t)):
         np.testing.assert_allclose(b_.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-4)
+
+
+def test_tpu_training_state_carries_its_rollout_and_keys(orbax_tree,
+                                                        tmp_path):
+    """r4_learn/50000 converts with its rollout (1,024 packed worlds, the
+    bf16 observations widened to float32, the LSTM state, the matchups)
+    and its keys, all equal to the orbax tree's; the first step keys the
+    port splits from it equal JAX's; and a checkpoint of two of its
+    worlds restores into a two-world run with that rollout and keys."""
+    raw = orbax_tree
+    _, tpol = policies(256)
+    conv = bridge.training_state_from_numpy(raw, tpol)
+    ro, want = conv["rollout"], raw["rollout"]
+    np.testing.assert_array_equal(_u32(conv["key"]), raw["key"])
+    np.testing.assert_array_equal(_u32(ro["key"]), want["key"])
+    got_state = bridge.flatten_tree(ro["env_state"])
+    for k, v in bridge.flatten_tree(want["env_state"]).items():
+        g = got_state[k]
+        g = _u32(g) if g.dtype == torch.uint32 else g.numpy()
+        np.testing.assert_array_equal(g, v, err_msg=k)
+    for k, v in want["obs"].items():
+        assert ro["obs"][k].dtype == torch.float32
+        np.testing.assert_array_equal(ro["obs"][k].numpy(),
+                                      np.asarray(v, np.float32))
+    for a, b_ in zip(jax.tree.leaves(want["rnn_states"]),
+                     jax.tree.leaves(ro["rnn_states"], is_leaf=lambda x:
+                                     isinstance(x, torch.Tensor))):
+        np.testing.assert_array_equal(b_.numpy(), a)
+    np.testing.assert_array_equal(ro["assignments"].numpy(),
+                                  want["assignments"])
+    _, steps = trollout.rollout_keys(ro["key"], 40)
+    _, sub = jax.random.split(jnp.asarray(want["key"]))
+    first = jax.random.split(jax.random.split(sub, 40)[0])
+    np.testing.assert_array_equal(_u32(steps[0]), np.asarray(first))
+
+    path = tmp_path / "50000.pt"
+    bridge.save_training_checkpoint(path, _cut_rollout(conv, 2))
+    st = _two_world_manager(tpol, path).state
+    np.testing.assert_array_equal(_u32(st.key), raw["key"])
+    np.testing.assert_array_equal(_u32(st.rollout.key), want["key"])
+    np.testing.assert_array_equal(st.rollout.assignments.numpy(),
+                                  want["assignments"][:8])
+    np.testing.assert_array_equal(st.rollout.env_state.bodies.pos.numpy(),
+                                  want["env_state"]["bodies"]["pos"][..., :2])
+    assert st.rollout.obs["self_data"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("fault", ["worlds", "keys"])
+def test_restore_refuses_a_rollout_it_cannot_resume(orbax_tree, tmp_path,
+                                                    fault):
+    """A checkpoint whose rollout has another world count than the run,
+    or that holds no threefry keys (an older port's generator states),
+    raises instead of resuming with a fresh rollout or fresh keys."""
+    _, tpol = policies(256)
+    conv = bridge.training_state_from_numpy(orbax_tree, tpol)
+    if fault == "worlds":
+        tree, msg = _cut_rollout(conv, 3), "3 worlds and 12 agents"
+    else:
+        tree, msg = _cut_rollout(conv, 2), "no threefry keys"
+        del tree["rollout"]["key"]
+    path = tmp_path / "50000.pt"
+    bridge.save_training_checkpoint(path, tree)
+    with pytest.raises(ValueError, match=msg):
+        _two_world_manager(tpol, path)
 
 
 def test_train_cli_runs_saves_and_resumes(tmp_path, monkeypatch):
