@@ -45,9 +45,28 @@ just before and read just after (the threefry kernel's on every path):
   episode end), ``eval_elo`` (240 steps), ``explore_exploit`` and
   ``refresh_past_policies``, and a checkpoint round trip: K4 on every
   step, K1 on the init and reset steps; the first update's
-  ``ppo_update`` on 64 worlds of its buffer against the CPU's at the CPU
-  tests' bars (tests/test_torch_train.py); the training rate, rollout and
-  PPO ms per update and the PPO update's FLOP/s.
+  ``ppo_update`` on 64 worlds of its buffer against the CPU's at the
+  update's rounding bars (``testing.rounding_bars``: per moment leaf, the
+  CPU's own spread under one-ulp moves of the observations, floored at
+  the CPU tests' bars); the training rate, rollout and PPO ms per update
+  and the PPO update's FLOP/s;
+* dp_nccl_1 - one more update of the train path's state over a mesh of
+  one NCCL rank (``utils/runtime.init_distributed``,
+  ``parallel/mesh.make_mesh``), bit for bit the update without a mesh;
+* train_bf16 - train.sh's recipe as written, with ``--bf16``: 3
+  updates, the first update's PPO on 64 worlds against the CPU's bf16
+  update at rounding bars from bf16 ulp moves, the bf16 ensemble forward
+  against the CPU's at tests/test_torch_policy.py's 5e-2, the rate beside
+  float32's;
+* train_3v3 - scripts/train.py's default 3v3 teams at train.sh's other
+  settings in bf16: 3 updates, finite state, grouped PPO, the dropped
+  agent share, the rate;
+* dp_path - ``--data-parallel``'s training over 2 gloo ranks spawned on
+  the one card (512 worlds each, float32): the first rollout's buffer and
+  post-rollout state against the train path's slices (equal, or at the
+  chained steps' bars with the reason printed), the first update at its
+  rounding bars, ELOs, hyperparameters and parameters equal on both
+  ranks, the rate (two ranks sharing one card: not a scaling figure).
 
 After the build it prints each kernel entry's ptxas registers, stack and
 spills, megastep.cu's worlds per block, shared bytes per world and
@@ -113,6 +132,12 @@ EVAL_STEPS = 250
 TRAIN_WORLDS = 1024       # train.sh's recipe
 TRAIN_UPDATES = 7         # 280 steps: crosses the 240-step episode end
 TRAIN_CHECK_WORLDS = 64   # update 1's PPO held to the CPU's on these
+EXTRA_UPDATES = 3         # the bf16, 3v3 and data-parallel runs
+DP_RANKS = 2              # dp_path: ranks sharing the one card
+# tests/test_torch_policy.py's bar of the bf16 forward (argued there from
+# bf16's 2^-8 step), on this many agents of the bf16 run's first step.
+BF16_BAR = 5e-2
+BF16_CHECK_AGENTS = 512
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 outside the tensor cores, FLOP/s.
@@ -478,6 +503,34 @@ def main() -> int:
     training = train_path(dev, gpu)
     phase("train_path", t0)
 
+    # ---- 12. the data-parallel update over one NCCL rank, bit for bit -------
+    t0 = time.perf_counter()
+    nccl1 = dp_nccl_1(dev, training["mgr"], gpu)
+    phase("dp_nccl_1", t0)
+
+    # ---- 13. train.sh as written (bf16), then its 3v3 teams ------------------
+    t0 = time.perf_counter()
+    bf16 = train_bf16(dev, gpu, training["fps"])
+    phase("train_bf16", t0)
+    t0 = time.perf_counter()
+    v3 = train_3v3(dev, gpu)
+    phase("train_3v3", t0)
+
+    # ---- 14. data parallel: 2 gloo ranks on the card against train_path ----
+    t0 = time.perf_counter()
+    dp = dp_path(dev, gpu, training)
+    phase("dp_path", t0)
+    paths = {"dp_launches": dp["launches"],
+             "nccl1_launches": nccl1["launches"],
+             "bf16_launches": bf16["launches"],
+             "train3v3_launches": v3["launches"]}
+
+    def new_paths(name):
+        """A kernel's launches on the paths of this slice (per rank on
+        the data-parallel one)."""
+        return {k: ([c[name] for c in v] if isinstance(v, list)
+                    else v[name]) for k, v in paths.items()}
+
     kernels = [
         dict(name="raycast", route="cuda",
              source="marl_hideandseek_torch/csrc/raycast.cu",
@@ -492,16 +545,19 @@ def main() -> int:
              train_launches=training["launches"]["raycast"],
              classic_ms=k1_classic["ms"],
              classic_plain_ms=k1_classic["plain_ms"],
-             classic_bound_ms=k1_classic["bound_ms"]),
+             classic_bound_ms=k1_classic["bound_ms"],
+             **new_paths("raycast")),
         dict(name="physics", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_physics.py:812",
-             launches=classic["launches"]["physics"], **steps_k["physics"]),
+             launches=classic["launches"]["physics"], **steps_k["physics"],
+             **new_paths("physics")),
         dict(name="fused", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:554",
              launches=classic["launches"]["fused"],
-             eval_launches=evaluation["launches"]["fused"], **steps_k["fused"]),
+             eval_launches=evaluation["launches"]["fused"], **steps_k["fused"],
+             **new_paths("fused")),
         dict(name="megastep", route="cuda",
              source="marl_hideandseek_torch/csrc/megastep.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_step.py:1064",
@@ -510,16 +566,17 @@ def main() -> int:
              train_launches=training["launches"]["megastep"],
              max_abs_err=k4_err, ms=k4_ms,
              plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
-             library_ms=None),
+             library_ms=None, **new_paths("megastep")),
         dict(name="rgbd", route="cuda",
              source="marl_hideandseek_torch/csrc/rgbd.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_rgbd.py:325",
-             **render["kernel"]),
+             **render["kernel"], **new_paths("rgbd")),
         dict(launches=launches["threefry"],
              classic_launches=classic["launches"]["threefry"],
              serve_launches=serve["launches"]["threefry"],
              eval_launches=evaluation["launches"]["threefry"],
-             train_launches=training["launches"]["threefry"], **threefry),
+             train_launches=training["launches"]["threefry"], **threefry,
+             **new_paths("threefry")),
     ]
     if args.profile:
         t0 = time.perf_counter()
@@ -890,6 +947,145 @@ def eval_path(dev, policy, params, gpu):
     return dict(launches=launches)
 
 
+KERNEL_COUNTERS = {"raycast": ("rays", "RAYCAST"),
+                   "physics": ("physics", "PHYSICS"),
+                   "fused": ("fused", "FUSED"),
+                   "megastep": ("step", "MEGASTEP"),
+                   "rgbd": ("rgbd", "RGBD"),
+                   "threefry": ("threefry", "THREEFRY")}
+
+
+def kernel_counters() -> dict:
+    """Each kernel wrapper (``ops/*.py``) by the name of the ``kernels``
+    line."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"marl_hideandseek_torch.ops.{mod}"), attr)
+        for name, (mod, attr) in KERNEL_COUNTERS.items()}
+
+
+def zero_counts() -> None:
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in kernel_counters().items()}
+
+
+def train_args(tmp: str, device: str, *extra: str):
+    """``python -m marl_hideandseek_torch.train``'s arguments for
+    train.sh's recipe (1,024 worlds, 2v2, PBT 2 + 2) on ``device``, with
+    ``extra`` appended (later flags win)."""
+    from marl_hideandseek_torch.train import __main__ as cli
+
+    return cli.parse_args([
+        "--ckpt-dir", tmp, "--tb-dir", tmp, "--run-name", "smoke",
+        "--num-worlds", str(TRAIN_WORLDS), "--num-updates",
+        str(TRAIN_UPDATES), "--pbt-ensemble-size", "2",
+        "--pbt-past-policies", "2", "--num-hiders", "2", "--num-seekers",
+        "2", "--device", device, *extra])
+
+
+def train_run(dev, args, updates: int, mesh=None) -> dict:
+    """The train CLI's ``build`` of ``args``, ``init_training`` over
+    ``mesh`` (one process by default) and ``updates`` ``update_iter``,
+    with every kernel count set to 0 just before: the states before and
+    after each update, each update's (start, rollout end, end) host
+    times, the first update's buffer and ``ppo_update`` result, and the
+    launches after the init and after the updates."""
+    from unittest import mock
+
+    from marl_hideandseek_torch.parallel.mesh import LOCAL
+    from marl_hideandseek_torch.train import TrainHooks, init_training
+    from marl_hideandseek_torch.train import __main__ as cli
+    from marl_hideandseek_torch.train import manager
+
+    env, cfg, policy = cli.build(args)
+
+    class Marks(TrainHooks):
+        def __init__(self):
+            self.t, self.buffer = [], None
+
+        def post_rollout(self, update_idx, buffer, metrics):
+            sync(dev)
+            self.t.append(time.perf_counter())
+            if self.buffer is None:
+                self.buffer = buffer
+            return metrics
+
+    hooks, first = Marks(), []
+
+    def recording(*a, **kw):
+        out = manager_update(*a, **kw)
+        if not first:
+            first.append(out)
+        return out
+
+    manager_update = manager.ppo_update
+    zero_counts()
+    with mock.patch.object(manager, "ppo_update", recording):
+        mgr = init_training(dev, cfg, env, policy, hooks=hooks,
+                            mesh=mesh or LOCAL)
+        init_launches = read_counts()
+        states, marks = [mgr.state], []
+        for _ in range(updates):
+            sync(dev)
+            t0 = time.perf_counter()
+            mgr = mgr.update_iter()
+            sync(dev)
+            marks.append((t0, hooks.t[-1], time.perf_counter()))
+            states.append(mgr.state)
+    return dict(env=env, cfg=cfg, policy=policy, mgr=mgr, states=states,
+                marks=marks, buffer=hooks.buffer, update1=first[0],
+                init_launches=init_launches, launches=read_counts())
+
+
+def sync(dev) -> None:
+    """Wait for the card (``dev`` a CUDA device)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_rate(run: dict, worlds: int) -> float:
+    """scripts/train.py's FPS over updates 2 to the last."""
+    marks = run["marks"]
+    return (worlds * run["cfg"].steps_per_update * (len(marks) - 1) /
+            (marks[-1][2] - marks[0][2]))
+
+
+def check_slice_update(cfg, policy, cpu_policy, run, n, dev, kinds, label):
+    """The first update's ``ppo_update`` on its buffer's first ``n``
+    agents on the card against the CPU's, at the CPU update's rounding
+    bars (``testing.rounding_bars``, observations moved one ulp of their
+    dtype; ``kinds`` the bars derived from that spread). Returns the
+    comparison's worst readings."""
+    from marl_hideandseek_torch import testing
+
+    s0, s1, buf = run["states"][0], run["states"][1], run["buffer"]
+    cpu = torch.device("cpu")
+    got = slice_update(cfg, policy, s0, s1, buf, n, dev)
+    want, bars = testing.rounding_bars(
+        lambda o: slice_update(cfg, cpu_policy, s0, s1, buf, n, cpu, o),
+        buffer_slice(buf, n, cpu).obs, kinds)
+    lr_max = float(s0.hyper_params["lr"].max())
+    cmp = testing.compare_updates(got, want, s0.params, bars, lr_max,
+                                  cfg.algo.num_epochs)
+    widened = sorted((v, k) for k, v in bars.items()
+                     if k[0] in ("mu", "nu") and
+                     v > testing.FIXED_BARS[k[0]])
+    log(f"{label} PPO update, card vs CPU on {n // 4} worlds ({n} agents) "
+        f"of update 1's buffer, at the update's rounding bars (derived: "
+        f"{', '.join(kinds)}; {len(widened)} moment leaves over the fixed "
+        f"bar, widest {widened[-1] if widened else None}): worst error "
+        f"over its bar {({k: (round(r, 4), leaf) for k, (r, leaf) in cmp['worst'].items()})}"
+        f"; TF32 off")
+    require(not cmp["violations"], f"{label}: card and CPU PPO updates "
+            f"disagree: {cmp['violations'][:8]}")
+    return cmp["worst"]
+
+
 def train_path(dev, gpu):
     """Training at train.sh's recipe through the entry points of ``python
     -m marl_hideandseek_torch.train`` (its ``build``, ``init_training``,
@@ -897,71 +1093,32 @@ def train_path(dev, gpu):
     off: TRAIN_UPDATES updates, one ELO pass, ``explore_exploit`` and
     ``refresh_past_policies`` on the card state, a checkpoint round trip,
     and the first update's ``ppo_update`` on a TRAIN_CHECK_WORLDS slice of
-    its buffer against the CPU's. K4 on every rollout and eval step, K1 on
-    the init and reset steps. Prints the training rate over updates 2 to
-    TRAIN_UPDATES, rollout and PPO ms per update and the PPO update's
-    FLOP/s against the FP32 peak."""
+    its buffer against the CPU's at its rounding bars. K4 on every rollout
+    and eval step, K1 on the init and reset steps. Prints the training
+    rate over updates 2 to TRAIN_UPDATES, rollout and PPO ms per update
+    and the PPO update's FLOP/s against the FP32 peak."""
     import tempfile
 
-    from marl_hideandseek_torch.ops import rays, step
-    from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.policy import make_policy
-    from marl_hideandseek_torch.train import (
-        TrainHooks,
-        eval_elo,
-        init_training,
-    )
-    from marl_hideandseek_torch.train import __main__ as cli
+    from marl_hideandseek_torch.train import eval_elo
     from marl_hideandseek_torch.train import pbt, ppo
     from marl_hideandseek_torch.train.elo import ELO_START
 
     with tempfile.TemporaryDirectory() as tmp:
-        args = cli.parse_args([
-            "--ckpt-dir", tmp, "--tb-dir", tmp, "--run-name", "smoke",
-            "--num-worlds", str(TRAIN_WORLDS), "--num-updates",
-            str(TRAIN_UPDATES), "--pbt-ensemble-size", "2",
-            "--pbt-past-policies", "2", "--num-hiders", "2",
-            "--num-seekers", "2", "--device", dev.type])
-        env, cfg, policy = cli.build(args)
+        run = train_run(dev, train_args(tmp, dev.type), TRAIN_UPDATES)
+        env, cfg, policy, mgr = (run[k] for k in ("env", "cfg", "policy",
+                                                  "mgr"))
         require(ppo.use_grouped_ppo(cfg) and cfg.dreamer_v3_critic and
                 cfg.total_policies == 4, "train path: not the recipe's "
                 "grouped PBT 2 + 2 with the Dreamer critic")
-
-        class Hooks(TrainHooks):
-            def __init__(self):
-                self.seen = {"t": [], "buffer": None}
-
-            def post_rollout(self, update_idx, buffer, metrics):
-                torch.cuda.synchronize()
-                self.seen["t"].append(time.perf_counter())
-                if update_idx == 0:
-                    self.seen["buffer"] = buffer
-                return metrics
-
-        hooks = Hooks()
-        rays.RAYCAST.launches = 0
-        step.MEGASTEP.launches = 0
-        tfk.THREEFRY.launches = 0
-        mgr = init_training(dev, cfg, env, policy, hooks=hooks)
-        k1_init = rays.RAYCAST.launches
-        tf_init = tfk.THREEFRY.launches
-        states = [mgr.state]
-        marks = []
-        for _ in range(TRAIN_UPDATES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mgr = mgr.update_iter()
-            torch.cuda.synchronize()
-            marks.append((t0, hooks.seen["t"][-1], time.perf_counter()))
-            states.append(mgr.state)
-        k1_train = rays.RAYCAST.launches
-        k4_train = step.MEGASTEP.launches
-        tf_train = tfk.THREEFRY.launches - tf_init
+        k1_init = run["init_launches"]["raycast"]
+        tf_init = run["init_launches"]["threefry"]
+        k1_train = run["launches"]["raycast"]
+        k4_train = run["launches"]["megastep"]
+        tf_train = run["launches"]["threefry"] - tf_init
         elo_train = mgr.state.elo.clone()
         mgr = eval_elo(mgr)
-        launches = {"megastep": step.MEGASTEP.launches,
-                    "raycast": rays.RAYCAST.launches,
-                    "threefry": tfk.THREEFRY.launches}
+        launches = read_counts()
         st = mgr.state
         n_steps = TRAIN_UPDATES * cfg.steps_per_update
         eval_steps = cfg.steps_per_update * 6
@@ -991,6 +1148,7 @@ def train_path(dev, gpu):
                 f"train path: non-finite metrics {metrics}")
         require(float(metrics["loss"][:TRAIN_UPDATES].abs().min()) > 0.0,
                 "train path: an update with a zero loss")
+        states = run["states"]
         moved = {k: float((v - states[0].params[k]).abs().amax(
             dim=tuple(range(1, v.dim()))).min()) for k, v in st.params.items()}
         require(min(moved.values()) > 0.0, "train path: a train policy's "
@@ -1037,37 +1195,21 @@ def train_path(dev, gpu):
         log(f"train path checkpoint: {len(a)} leaves equal after save_ckpt "
             f"and restore_ckpt ({os.path.getsize(path)} B)")
 
-    # Rates: scripts/train.py's FPS over updates 2..TRAIN_UPDATES.
-    fps = (TRAIN_WORLDS * cfg.steps_per_update * (TRAIN_UPDATES - 1) /
-           (marks[-1][2] - marks[0][2]))
+    fps = train_rate(run, TRAIN_WORLDS)
+    marks = run["marks"]
     roll_ms = [(m[1] - m[0]) * 1e3 for m in marks[1:]]
     ppo_ms = [(m[2] - m[1]) * 1e3 for m in marks[1:]]
 
     # The first update's PPO on a slice of its buffer, card against CPU.
-    buf = hooks.seen["buffer"]
-    s0, s1 = states[0], states[1]
-    got = slice_update(cfg, policy, s0, s1, buf, TRAIN_CHECK_WORLDS * 4, dev)
-    cpu_policy = make_policy(device="cpu")
-    want = slice_update(cfg, cpu_policy, s0, s1, buf, TRAIN_CHECK_WORLDS * 4,
-                        torch.device("cpu"))
-    errs = update_errors(got, want)
-    lr_max = float(s0.hyper_params["lr"].max())
-    log(f"train path PPO update, card vs CPU on {TRAIN_CHECK_WORLDS} worlds "
-        f"({TRAIN_CHECK_WORLDS * 4} agents) of update 1's buffer: params "
-        f"within 1e-6 on {errs['params_share']:.6f} of the worst leaf, max "
-        f"{errs['params_max']:.3g} (bar "
-        f"{2 * lr_max * cfg.algo.num_epochs:.3g});"
-        f" mu {errs['mu']:.3g}, nu {errs['nu']:.3g} of the leaf's largest; "
-        f"losses at {errs['metrics']:.3g} of their bar; counts and dropped "
-        f"fractions equal {errs['exact']}; TF32 off")
-    require(errs["params_ok"] and
-            errs["params_max"] <= 2 * lr_max * cfg.algo.num_epochs and
-            errs["mu"] <= 1e-4 and errs["nu"] <= 2e-4 and
-            errs["metrics"] <= 1.0 and errs["exact"],
-            f"train path: card and CPU PPO updates disagree: {errs}")
+    from marl_hideandseek_torch import testing
+
+    check_slice_update(cfg, policy, make_policy(device="cpu"), run,
+                       TRAIN_CHECK_WORLDS * 4, dev, testing.FLOAT32_KINDS,
+                       "train path")
 
     # FLOP of one update: the forward's multiply-adds over the gathered
     # batch, the backward twice the forward, per epoch.
+    s0, s1, buf = states[0], states[1], run["buffer"]
     macs = ppo_forward_macs(cfg, policy, s0, s1, buf)
     flop = 2.0 * macs * 3 * cfg.algo.num_epochs
     ppo_mean = sum(ppo_ms) / len(ppo_ms)
@@ -1085,7 +1227,353 @@ def train_path(dev, gpu):
         f"{PEAK_F32 / 1e12:.0f} TFLOP/s FP32 peak (least time "
         f"{flop / PEAK_F32 * 1e3:.3f} ms); ELOs {st.elo.tolist()}; "
         f"metrics {ring_means(metrics, TRAIN_UPDATES)}; {gpu}")
-    return dict(launches=launches, mgr=mgr)
+    return dict(launches=launches, mgr=mgr, run=run, fps=fps)
+
+
+def dp_nccl_1(dev, mgr, gpu) -> dict:
+    """One ``update_iter`` of the train path's final state over a mesh of
+    one NCCL rank, against the same update without a mesh: bit for bit
+    (the all-reduces are identities, and nothing else differs). Runs the
+    NCCL code path of the data-parallel update on the one card."""
+    from marl_hideandseek_torch import testing
+    from marl_hideandseek_torch.parallel.mesh import make_mesh
+    from marl_hideandseek_torch.utils import runtime
+
+    import torch.distributed as dist
+
+    plain = mgr.update_iter()
+    runtime.init_distributed(f"localhost:{testing.free_port()}", 1, 0,
+                             backend="nccl", device=dev)
+    try:
+        mesh = make_mesh()
+        require(mesh.size == 1 and mesh.backend == "nccl",
+                f"dp_nccl_1: mesh {mesh}")
+        zero_counts()
+        t0 = time.perf_counter()
+        nccl = mgr.replace(mesh=mesh).update_iter()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    a, b = flat_tree(plain.state_tree()), flat_tree(nccl.state_tree())
+    differ = [k for k in a if not same(a[k], b[k])]
+    if differ:
+        again = flat_tree(mgr.update_iter().state_tree())
+        repeat = [k for k in a if not same(a[k], again[k])]
+        raise SystemExit(f"chip_smoke FAILED: dp_nccl_1: {len(differ)} of "
+                         f"{len(a)} leaves differ from the update without a "
+                         f"mesh ({differ[:6]}); the update without a mesh "
+                         f"run twice differs on {len(repeat)}")
+    log(f"dp_nccl_1: one update over a 1-rank NCCL mesh equals the update "
+        f"without a mesh bit for bit on all {len(a)} state leaves; "
+        f"{wall * 1e3:.1f} ms; launches {launches}; {gpu}")
+    return dict(launches=launches)
+
+
+def train_bf16(dev, gpu, fps32: float) -> dict:
+    """train.sh's recipe as written: ``--bf16`` (the policy's products in
+    bf16), EXTRA_UPDATES updates; the first update's PPO on a slice of its
+    buffer against the CPU's bf16 update at rounding bars from bf16 ulp
+    moves of the observations; the bf16 ensemble forward on the card
+    against the CPU's at tests/test_torch_policy.py's BF16_BAR; the rate
+    beside the float32 one of the same call."""
+    import tempfile
+
+    from marl_hideandseek_torch import testing
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.policy import make_policy
+    from marl_hideandseek_torch.train.rollout import apply_ensemble
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train_run(dev, train_args(tmp, dev.type, "--bf16"),
+                        EXTRA_UPDATES)
+    cfg, policy, mgr = run["cfg"], run["policy"], run["mgr"]
+    buf = run["buffer"]
+    require(cfg.compute_dtype == torch.bfloat16 and
+            buf.obs["self_data"].dtype == torch.bfloat16,
+            f"train_bf16: compute dtype {cfg.compute_dtype}, observations "
+            f"{buf.obs['self_data'].dtype}")
+    finite_state("train_bf16", mgr)
+    cpu_policy = make_policy(dtype=torch.bfloat16, device="cpu")
+    worst = check_slice_update(cfg, policy, cpu_policy, run,
+                               TRAIN_CHECK_WORLDS * 4, dev,
+                               testing.ALL_KINDS, "train_bf16")
+
+    # The forward: step 0 of the first rollout, BF16_CHECK_AGENTS agents.
+    s0 = run["states"][0]
+    n = BF16_CHECK_AGENTS
+    norm = policy.obs_preprocess
+    params = {k: torch.cat([v, s0.past_params[k]]) for k, v in
+              s0.params.items()}
+    inputs = ({k: v[0, 0, :n] for k, v in buf.obs.items()},
+              tree_map(lambda x: x[0, :, :n], buf.rnn_start_states),
+              buf.assignments[0, 0, :n])
+
+    def forward(pol, d):
+        obs, rnn, assign = (tree_map(lambda x: x.to(d), t) for t in inputs)
+        with torch.no_grad():
+            out = apply_ensemble(
+                pol, {k: v.to(d) for k, v in params.items()}, rnn,
+                norm.normalize(s0.obs_stats.to(d), obs), assign,
+                cfg.total_policies, num_train=cfg.num_train_policies)
+        return [x.float().cpu() for x in (out[0], out[1],
+                                          *flat_tree(out[2]).values())]
+
+    fwd_err = max(max_err(a, b) for a, b in zip(
+        forward(policy, dev), forward(cpu_policy, torch.device("cpu"))))
+    require(fwd_err <= BF16_BAR, f"train_bf16: the bf16 forward on the card "
+            f"is {fwd_err} from the CPU's (bar {BF16_BAR})")
+    fps = train_rate(run, TRAIN_WORLDS)
+    marks = run["marks"]
+    launches = run["launches"]
+    log(f"train_bf16: {EXTRA_UPDATES} updates at train.sh's recipe as "
+        f"written (bf16), {fps:.1f} steps x worlds / s over updates "
+        f"2-{EXTRA_UPDATES} beside float32's {fps32:.1f} in this call "
+        f"(updates 2-{TRAIN_UPDATES}); rollout ms "
+        f"{[round((m[1] - m[0]) * 1e3, 1) for m in marks]}, PPO ms "
+        f"{[round((m[2] - m[1]) * 1e3, 1) for m in marks]}; the bf16 "
+        f"forward on {n} agents within {fwd_err:.4g} of the CPU's (bar "
+        f"{BF16_BAR}); launches {launches}; {gpu}")
+    require(launches["megastep"] == EXTRA_UPDATES * cfg.steps_per_update and
+            launches["raycast"] > 0, f"train_bf16: launches {launches}")
+    return dict(launches=launches, fps=fps, worst=worst, fwd_err=fwd_err)
+
+
+def train_3v3(dev, gpu) -> dict:
+    """scripts/train.py's default teams, 3 hiders and 3 seekers, at
+    train.sh's other settings in bf16: EXTRA_UPDATES updates at 1,024
+    worlds; finite state, grouped PPO on, the dropped agent share, the
+    launches and the rate."""
+    import tempfile
+
+    from marl_hideandseek_torch.train import ppo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train_run(dev, train_args(tmp, dev.type, "--bf16",
+                                        "--num-hiders", "3",
+                                        "--num-seekers", "3"),
+                        EXTRA_UPDATES)
+    cfg, mgr = run["cfg"], run["mgr"]
+    require(ppo.use_grouped_ppo(cfg) and run["env"].cfg.max_agents == 6,
+            "train_3v3: not 3v3 with grouped PPO")
+    finite_state("train_3v3", mgr)
+    fps = train_rate(run, TRAIN_WORLDS)
+    dropped = mgr.state.metrics["dropped_agent_frac"][:EXTRA_UPDATES]
+    launches = run["launches"]
+    log(f"train_3v3: {EXTRA_UPDATES} updates, 3v3, PBT 2 + 2 grouped, bf16, "
+        f"{TRAIN_WORLDS} worlds: {fps:.1f} steps x worlds / s over updates "
+        f"2-{EXTRA_UPDATES}; dropped agent share per update "
+        f"{dropped.tolist()}; K4 {launches['megastep']}, K1 "
+        f"{launches['raycast']} (init {run['init_launches']['raycast']}), "
+        f"threefry {launches['threefry']}; {gpu}")
+    require(launches["megastep"] == EXTRA_UPDATES * cfg.steps_per_update and
+            launches["raycast"] > 0, f"train_3v3: launches {launches}")
+    return dict(launches=launches, fps=fps)
+
+
+def _dp_rank(rank: int, nprocs: int, address: str, out_dir: str,
+             device: str, worlds: int, updates: int) -> None:
+    """One rank of ``dp_path``: train.sh's recipe at ``worlds`` global
+    worlds in float32 over a gloo mesh of ``nprocs`` ranks, all on
+    ``device``, ``updates`` updates; writes its buffer of update 1,
+    post-rollout state, first update, ELOs, hyperparameters, parameters,
+    times and launches to ``<out_dir>/rank<rank>.pt``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.parallel.mesh import make_mesh
+    from marl_hideandseek_torch.utils import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    dev = runtime.init_distributed(address, nprocs, rank, backend="gloo",
+                                   device=device)
+    try:
+        mesh = make_mesh()
+        with tempfile.TemporaryDirectory() as tmp:
+            run = train_run(dev, train_args(tmp, str(dev), "--num-worlds",
+                                            str(worlds)), updates, mesh)
+        host = lambda t: tree_map(lambda x: x.cpu(), t)
+        params, opt, _, metrics = run["update1"]
+        out = {
+            "buffer": host(dict(vars(run["buffer"]))),
+            "rollout1": host(run["mgr"].replace(
+                state=run["states"][1]).state_tree()["rollout"]),
+            "update1": host({"params": params, "mu": opt.mu, "nu": opt.nu,
+                             "count": opt.count, "metrics": metrics}),
+            "elo": [st.elo.cpu() for st in run["states"]],
+            "hyper": [host(st.hyper_params) for st in run["states"]],
+            "params": host(run["states"][-1].params),
+            "marks": run["marks"], "fps": train_rate(run, worlds),
+            "launches": run["launches"],
+            "init_launches": run["init_launches"],
+        }
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def held_to(got: dict, want: dict, label: str) -> list:
+    """Two flat trees leaf by leaf: equal bit for bit, or at the chained
+    steps' bars (floats within JAX_BARS for pos, quat, vel and omega and
+    1e-3 otherwise on >= 99.5 % of the elements, integers and flags equal
+    on >= 99.9 %). Returns the leaves that differ, with their share
+    within the bar and largest error."""
+    differ = []
+    for k, w in want.items():
+        g = got[k]
+        if same(g, w):
+            continue
+        g, w = torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu()
+        if w.dtype == torch.uint32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if w.is_floating_point():
+            bar = JAX_BARS.get(k.split(".")[-1], 1e-3)
+            ok = (g == w) | ((g.float() - w.float()).abs() <= bar)
+            need = 0.995
+        else:
+            ok, need = g == w, 0.999
+        share = float(ok.float().mean())
+        differ.append(f"{k} {share:.6f} within bar, max {max_err(g, w):.3g}")
+        require(share >= need, f"{label}: {k} within its bar on {share} "
+                f"of its elements (needs {need})")
+    return differ
+
+
+def dp_path(dev, gpu, train: dict) -> dict:
+    """DP_RANKS ranks on the one card under gloo (NCCL refuses two ranks
+    on one device; gloo's collectives on card tensors go through host
+    memory), each with TRAIN_WORLDS / DP_RANKS of train.sh's worlds in
+    float32, EXTRA_UPDATES updates, spawned after the kernels were built.
+    Each rank's buffer of update 1 and post-rollout state against its
+    slice of the train path's single-process run (same seed): equal, or
+    at the chained steps' bars with the reason printed; each rank's first
+    update against the train path's at the update's rounding bars
+    (measured on the card on the whole buffer); ELOs, hyperparameters and
+    parameters equal on every rank; the rate, labelled."""
+    import dataclasses
+    import tempfile
+
+    from marl_hideandseek_torch import prng, testing
+    from marl_hideandseek_torch.models.actor_critic import tree_map
+    from marl_hideandseek_torch.train import ppo
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        testing.spawn_ranks(_dp_rank, DP_RANKS, (out, str(dev), TRAIN_WORLDS,
+                                                 EXTRA_UPDATES), timeout=600)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+    run = train["run"]
+    cfg, policy = run["cfg"], run["policy"]
+    s0, s1, buf = run["states"][0], run["states"][1], run["buffer"]
+    ref_rollout = run["mgr"].replace(state=s1).state_tree()["rollout"]
+    n = TRAIN_WORLDS * 4 // DP_RANKS
+    w = TRAIN_WORLDS // DP_RANKS
+
+    notes = []
+    for r, got in enumerate(ranks):
+        a = slice(r * n, (r + 1) * n)
+        want_buf = {k: tree_map(lambda x: x[a] if k == "bootstrap_value"
+                                else x[:, :, a], v)
+                    for k, v in vars(buf).items()}
+        differ = held_to(flat_tree(got["buffer"]), flat_tree(want_buf),
+                         f"dp_path rank {r} buffer")
+        ro = ref_rollout
+        want_ro = {"env_state": {k: x[..., r * w:(r + 1) * w] for k, x in
+                                 flat_tree(ro["env_state"]).items()},
+                   "obs": {k: x[a] for k, x in ro["obs"].items()},
+                   "rnn_states": tuple(tuple(x[:, a] for x in e)
+                                       for e in ro["rnn_states"]),
+                   "assignments": ro["assignments"][a], "key": ro["key"]}
+        got_ro = dict(got["rollout1"])
+        got_ro["env_state"] = flat_tree(got_ro["env_state"])
+        differ += held_to(flat_tree(got_ro), flat_tree(want_ro),
+                          f"dp_path rank {r} post-rollout state")
+        if differ:
+            step0 = all(same(got["buffer"]["obs"][k][0, 0], v[0, 0, a])
+                        for k, v in buf.obs.items())
+            lp0 = max_err(got["buffer"]["log_probs"][0, 0],
+                          buf.log_probs[0, 0, a].cpu())
+            notes.append(
+                f"rank {r}: {len(differ)} leaves differ "
+                f"({[d.split()[0] for d in differ]}; {differ[:3]}); the "
+                f"first step's observations "
+                f"{'equal' if step0 else 'differ'}, its log-probabilities "
+                f"differ by {lp0:.3g}: " +
+                (f"from equal inputs the forward at the rank's {n} agents "
+                 f"rounds otherwise than at {n * DP_RANKS}, and the steps "
+                 "carry that" if step0 else "the env's first step "
+                 "differs"))
+
+    # The first update at its rounding bars, measured on the card.
+    k_ppo = prng.split(s0.key, 3)[1]
+
+    def update(obs):
+        return ppo.ppo_update(cfg, policy, s0.params, s0.opt_states,
+                              s1.obs_stats, s0.value_stats, s0.hyper_params,
+                              dataclasses.replace(buf, obs=obs), k_ppo)
+
+    base, bars = testing.rounding_bars(update, buf.obs,
+                                       testing.FLOAT32_KINDS)
+    want = run["update1"]
+    repeat = all(same(a, b) for a, b in zip(flat_tree(base[0]).values(),
+                                            flat_tree(want[0]).values()))
+    lr_max = float(s0.hyper_params["lr"].max())
+    worst = []
+    for r, got in enumerate(ranks):
+        u = got["update1"]
+        cmp = testing.compare_updates(
+            (u["params"], ppo.AdamState(mu=u["mu"], nu=u["nu"],
+                                        count=u["count"]), None,
+             u["metrics"]), want, s0.params, bars, lr_max,
+            cfg.algo.num_epochs)
+        require(not cmp["violations"], f"dp_path rank {r}: update 1 "
+                f"against the single process's: {cmp['violations'][:8]}")
+        worst.append({k: (round(x, 4), leaf)
+                      for k, (x, leaf) in cmp["worst"].items()})
+    for k in ("elo", "hyper", "params"):
+        a, b = (flat_tree(got[k]) for got in ranks[:2])
+        require(all(same(a[j], b[j]) for j in a),
+                f"dp_path: the ranks' {k} differ")
+    elo_same = all(same(x, st.elo) for x, st in
+                   zip(ranks[0]["elo"], run["states"]))
+    launches = [got["launches"] for got in ranks]
+    for r, got in enumerate(ranks):
+        require(got["launches"]["megastep"] ==
+                EXTRA_UPDATES * cfg.steps_per_update and
+                got["init_launches"]["raycast"] > 0,
+                f"dp_path rank {r}: launches {got['launches']}")
+    fps = ranks[0]["fps"]
+    log(f"dp_path: {DP_RANKS} ranks x {TRAIN_WORLDS // DP_RANKS} worlds "
+        f"under gloo on one card, {EXTRA_UPDATES} updates; buffer of update "
+        f"1 and post-rollout state against the single process's slices: "
+        f"{'; '.join(notes) if notes else 'equal bit for bit'}; update 1 "
+        f"at its rounding bars (worst over bar per rank {worst}); the card "
+        f"repeats the single process's update bit for bit: {repeat}; ELOs "
+        f"equal the single process's through update {EXTRA_UPDATES}: "
+        f"{elo_same}; ELOs, hyperparameters and parameters equal on every "
+        f"rank; launches per rank {launches}")
+    log(f"dp_path rate: {fps:.1f} steps x worlds / s over updates "
+        f"2-{EXTRA_UPDATES} with {DP_RANKS} ranks sharing one card (gloo, "
+        f"host-staged collectives; not a scaling figure), "
+        f"{wall:.1f} s for the spawn, init and updates; {gpu}")
+    return dict(launches=launches, fps=fps)
+
+
+def finite_state(label: str, mgr) -> None:
+    """Every floating leaf of a manager's state finite (the env state's
+    +inf misses allowed)."""
+    for k, v in flat_tree(mgr.state_tree()).items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            ok = torch.isfinite(v) | (v == math.inf) if "env_state" in k \
+                else torch.isfinite(v)
+            require(bool(ok.all()), f"{label}: non-finite {k}")
 
 
 def profile_update(mgr) -> None:
@@ -1154,46 +1642,24 @@ def buffer_slice(buf, n, dev):
         bootstrap_value=buf.bootstrap_value[:n].to(dev))
 
 
-def slice_update(cfg, policy, s0, s1, buf, n, dev):
-    """``ppo_update`` of the first update on its buffer's first n agents,
-    from the state before it (parameters, Adam, return statistics,
-    hyperparameters) with the normalizer statistics it used, on ``dev``."""
+def slice_update(cfg, policy, s0, s1, buf, n, dev, obs=None):
+    """``ppo_update`` of the first update on its buffer's first n agents
+    (their observations replaced by ``obs`` if given), from the state
+    before it (parameters, Adam, return statistics, hyperparameters) with
+    the normalizer statistics it used, on ``dev``."""
+    import dataclasses
+
     from marl_hideandseek_torch.train import ppo
 
     to = lambda d: {k: v.to(dev) for k, v in d.items()}
     opt = ppo.AdamState(mu=to(s0.opt_states.mu), nu=to(s0.opt_states.nu),
                         count=s0.opt_states.count.to(dev))
+    b = buffer_slice(buf, n, dev)
+    if obs is not None:
+        b = dataclasses.replace(b, obs=to(obs))
     return ppo.ppo_update(cfg, policy, to(s0.params), opt,
                           s1.obs_stats.to(dev), to(s0.value_stats),
-                          to(s0.hyper_params), buffer_slice(buf, n, dev),
-                          s0.key.to(dev))
-
-
-def update_errors(got, want) -> dict:
-    """The CPU tests' measures of a ppo_update result against another."""
-    params_g, opt_g, vs_g, met_g = got
-    params_w, opt_w, vs_w, met_w = want
-    # Within 1e-6 on all but 0.1 % of each leaf's elements, rounded up.
-    share, pmax, params_ok = 1.0, 0.0, True
-    for k, v in params_w.items():
-        d = (params_g[k].cpu() - v).abs()
-        share = min(share, float((d <= 1e-6).float().mean()))
-        pmax = max(pmax, float(d.max()))
-        params_ok &= int((d > 1e-6).sum()) <= math.ceil(0.001 * d.numel())
-    mom = {}
-    for name in ("mu", "nu"):
-        mom[name] = max(float((getattr(opt_g, name)[k].cpu() - v).abs().max()
-                              / v.abs().max().clamp(min=1e-30))
-                        for k, v in getattr(opt_w, name).items())
-    # Each loss within 1e-6 + 1e-5 |loss| (the CPU tests' rtol and atol):
-    # this ratio at most 1.
-    rel = max(float(((met_g[k].cpu() - met_w[k]).abs() /
-                     (1e-6 + 1e-5 * met_w[k].abs())).max())
-              for k in ("loss", "action_loss", "value_loss", "entropy"))
-    exact = bool(torch.equal(opt_g.count.cpu(), opt_w.count) and torch.equal(
-        met_g["dropped_agent_frac"].cpu(), met_w["dropped_agent_frac"]))
-    return dict(params_ok=params_ok, params_share=share, params_max=pmax,
-                mu=mom["mu"], nu=mom["nu"], metrics=rel, exact=exact)
+                          to(s0.hyper_params), b, s0.key.to(dev))
 
 
 def ppo_forward_macs(cfg, policy, s0, s1, buf) -> int:

@@ -309,16 +309,19 @@ class PackedEnv:
 
     # -- construction -------------------------------------------------------
 
-    def init(self, key: Optional[torch.Tensor] = None
+    def init(self, key: Optional[torch.Tensor] = None,
+             world_ids: Optional[torch.Tensor] = None
              ) -> Tuple[EnvState, PackedStepResult]:
         """Fresh level-1 worlds drawn from ``key`` (default
-        ``PRNGKey(cfg.rand_seed)``), swept, with zero rewards."""
-        cfg = self.cfg
-        w = cfg.num_worlds
-        ids = torch.arange(w, device=self.device)
+        ``PRNGKey(cfg.rand_seed)``), swept, with zero rewards: the worlds
+        ``world_ids`` (default all, ``arange(cfg.num_worlds)``), each as
+        it is in the whole batch (a shard's init)."""
+        ids = (torch.arange(self.cfg.num_worlds, device=self.device)
+               if world_ids is None else world_ids.to(self.device))
+        w = ids.shape[0]
         ps = fresh_world(self.worldgen, self._key(key), ids,
                          torch.ones(w, dtype=torch.long, device=self.device))
-        sweep = standalone_sweep_packed(cfg, ps)
+        sweep = standalone_sweep_packed(self.cfg, ps)
         ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
         return ps, self._result(ps, sweep, None, None)
 

@@ -400,18 +400,26 @@ class DiscreteActionDistributions:
         return [lg.to(torch.float32)
                 for lg in torch.split(self.logits, list(self.buckets), -1)]
 
-    def sample(self, key: torch.Tensor):
+    def sample(self, key: torch.Tensor,
+               rows: Optional[Tuple[int, int]] = None):
         """One draw per action dim from ``key`` ``[2]`` u32, as JAX draws
         them (layers.py:138-142): ``split(key, len(buckets))``, then
         ``jax.random.categorical`` with each bucket's key over the whole
         batch of its logits. The Gumbel noise of every bucket comes from
-        one launch: a bucket's draws are the first of its key's."""
+        one launch: a bucket's draws are the first of its key's. With
+        ``rows = (first, total)`` the logits ``[N, ..]`` are rows ``first``
+        to ``first + N`` of a batch of ``total`` (a rank's agents), and
+        draw what those rows draw in the whole batch."""
         lgs = self._split()
         keys = prng.split(key, len(lgs))
-        n = max(lg.numel() for lg in lgs)
+        first, total = rows or (0, lgs[0].shape[0])
+        n = max(lg.numel() // lg.shape[0] * total for lg in lgs)
         g = prng.gumbel(keys, (n,))
-        out = [torch.argmax(g[i, :lg.numel()].reshape(lg.shape) + lg, dim=-1)
-               for i, lg in enumerate(lgs)]
+        out = []
+        for i, lg in enumerate(lgs):
+            lo = first * (lg.numel() // lg.shape[0])
+            noise = g[i, lo:lo + lg.numel()].reshape(lg.shape)
+            out.append(torch.argmax(noise + lg, dim=-1))
         return torch.stack(out, dim=-1)
 
     def best(self):

@@ -14,6 +14,8 @@ from typing import Callable, Dict, FrozenSet, Mapping
 
 import torch
 
+from marl_hideandseek_torch.parallel.mesh import LOCAL, Mesh
+
 
 @dataclasses.dataclass
 class NormalizerState:
@@ -61,15 +63,22 @@ class ObservationsEMANormalizer:
                                count=torch.zeros((), device=dev))
 
     def update_state(self, state: NormalizerState,
-                     obs: Mapping[str, torch.Tensor]) -> NormalizerState:
-        """EMA update over all leading axes of each normalized key."""
+                     obs: Mapping[str, torch.Tensor],
+                     mesh: Mesh = LOCAL) -> NormalizerState:
+        """EMA update over all leading axes of each normalized key: the
+        batch mean, then the mean square about it. Over ``mesh``, ``obs``
+        is this rank's share of the batch and both are the whole batch's,
+        each one all-reduce of every key's sums."""
         d = self.decay
+        keys = list(state.mean)
+        vs = [obs[k].to(torch.float32).flatten(0, -2) for k in keys]
+        # Every rank holds the same number of rows.
+        count = float(vs[0].shape[0] * mesh.size) if vs else 1.0
+        means = [s / count for s in mesh.all_sum_many([v.sum(0) for v in vs])]
+        sqs = [s / count for s in mesh.all_sum_many(
+            [torch.square(v - m).sum(0) for v, m in zip(vs, means)])]
         new_mean, new_var = {}, {}
-        for k in state.mean:
-            v = obs[k].to(torch.float32)
-            axes = tuple(range(v.dim() - 1))
-            m = v.mean(dim=axes)
-            sq = torch.square(v - m).mean(dim=axes)
+        for k, m, sq in zip(keys, means, sqs):
             new_mean[k] = d * state.mean[k] + (1.0 - d) * m
             new_var[k] = d * state.var[k] + (1.0 - d) * sq
         return NormalizerState(mean=new_mean, var=new_var,

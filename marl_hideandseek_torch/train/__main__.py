@@ -8,7 +8,8 @@
         [--clip-value-loss] [--fp16 | --bf16] [--pbt-ensemble-size 2]
         [--pbt-past-policies 2] [--num-hiders 3] [--num-seekers 3]
         [--eval-frequency 500] [--wandb] [--backbone pooled]
-        [--restore UPDATE] [--device cuda|cpu]
+        [--restore UPDATE] [--device cuda|cpu] [--data-parallel]
+        [--distributed]
 
 train.sh's recipe is ``--num-worlds 1024 --num-updates 100000
 --pbt-ensemble-size 2 --pbt-past-policies 2 --num-hiders 2 --num-seekers 2
@@ -20,6 +21,21 @@ each block followed by a log of the update count, the training rate
 ``<ckpt-dir>/<run-name>/<update>.pt``, which ``--restore <update>``
 resumes. ``--fp16`` and ``--bf16`` set the policy's compute dtype.
 ``--device cpu`` runs the plain PyTorch path.
+
+Data parallel, one process per card:
+
+    torchrun --nproc-per-node N -m marl_hideandseek_torch.train
+        --data-parallel ...
+
+``--data-parallel`` splits the worlds over the ranks of the process group
+that torchrun describes (NCCL; gloo with ``--device cpu``), each rank on
+``cuda:LOCAL_RANK``; ``--num-worlds`` is the global count and must divide
+by the number of ranks. The ranks compute the update of one process with
+all the worlds (``parallel/mesh.py``). Started without torchrun it is the
+single-process run. ``--distributed`` asks for the process group even
+where torchrun's variables are missing, and fails then: for runs across
+nodes (``torchrun --nnodes``). Logs, prints and checkpoints come from rank
+0; a checkpoint holds all the worlds and restores at any rank count.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ import torch
 
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
+from marl_hideandseek_torch.parallel.mesh import LOCAL, make_mesh
 from marl_hideandseek_torch.policy import make_policy
 from marl_hideandseek_torch.train import (
     ActionsConfig,
@@ -47,6 +64,10 @@ from marl_hideandseek_torch.train import (
     print_elos,
     ring_scalar,
     stop_training,
+)
+from marl_hideandseek_torch.utils.runtime import (
+    init_distributed,
+    is_primary_host,
 )
 
 BLOCK = 10   # updates between logs
@@ -85,6 +106,12 @@ def parse_args(argv=None):
     p.add_argument("--backbone", type=str, default="pooled",
                    choices=["pooled", "attention", "hash"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="split the worlds over torchrun's ranks, one card "
+                        "each")
+    p.add_argument("--distributed", action="store_true",
+                   help="require torchrun's process group (runs across "
+                        "nodes); with --data-parallel")
     return p.parse_args(argv)
 
 
@@ -161,18 +188,54 @@ def build(args):
     return env, cfg, policy
 
 
+def setup_mesh(args):
+    """The run's mesh: ``LOCAL`` unless ``--data-parallel`` runs under
+    torchrun (or ``--distributed`` asks for the group); then the default
+    process group, started here, with ``args.device`` set to the rank's
+    card (or the CPU, under gloo)."""
+    if args.distributed and not args.data_parallel:
+        raise SystemExit("--distributed needs --data-parallel")
+    if not args.data_parallel or not (args.distributed or
+                                      "WORLD_SIZE" in os.environ):
+        return LOCAL
+    dev = init_distributed(device=None if args.device == "cuda"
+                           else args.device)
+    args.device = str(dev)
+    mesh = make_mesh()
+    if args.num_worlds % mesh.size != 0:
+        raise SystemExit(f"--num-worlds {args.num_worlds} does not divide "
+                         f"over {mesh.size} ranks")
+    return mesh
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.eval_frequency % BLOCK != 0:
         raise SystemExit(f"--eval-frequency must be a multiple of {BLOCK}")
+    mesh = setup_mesh(args)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def run(args, mesh) -> int:
+    """The training loop of ``main`` over ``mesh``."""
+    primary = is_primary_host()
     env, cfg, policy = build(args)
     log_dir = os.path.join(args.tb_dir, args.run_name)
-    writer = (WandbWriter(log_dir, args=args) if args.wandb
-              else TensorboardWriter(log_dir))
+    if primary:
+        writer = (WandbWriter(log_dir, args=args) if args.wandb
+                  else TensorboardWriter(log_dir))
     ckpt_dir = os.path.join(args.ckpt_dir, args.run_name)
     restore = (os.path.join(ckpt_dir, f"{args.restore}.pt")
                if args.restore is not None else None)
-    mgr = init_training(args.device, cfg, env, policy, restore_ckpt=restore)
+    mgr = init_training(args.device, cfg, env, policy, restore_ckpt=restore,
+                        mesh=mesh)
+    if primary and mesh.size > 1:
+        print(f"data parallel: {args.num_worlds} worlds over {mesh.size} "
+              f"ranks ({mesh.backend})")
     last = {"time": time(), "update": mgr.update_idx}
 
     def log_block(m):
@@ -207,14 +270,17 @@ def main(argv=None) -> int:
             for _ in range(args.eval_frequency // BLOCK):
                 for _ in range(BLOCK):
                     mgr = mgr.update_iter()
-                log_block(mgr)
+                if primary:
+                    log_block(mgr)
             mgr = eval_elo(mgr)
-            print(mgr.state.elo.cpu())
             mgr.save_ckpt(ckpt_dir)
-            writer.flush()
+            if primary:
+                print(mgr.state.elo.cpu())
+                writer.flush()
     finally:
-        writer.flush()
-        writer.close()
+        if primary:
+            writer.flush()
+            writer.close()
     stop_training(mgr)
     return 0
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from marl_hideandseek_torch.parallel.mesh import LOCAL, Mesh
+
 ELO_K = 16.0
 ELO_START = 1500.0
 
@@ -21,7 +23,8 @@ def elo_expected(elo_a, elo_b):
 
 def update_elo_pairwise(elo: torch.Tensor, idx_a: torch.Tensor,
                         idx_b: torch.Tensor, score_a: torch.Tensor,
-                        valid: torch.Tensor) -> torch.Tensor:
+                        valid: torch.Tensor,
+                        mesh: Mesh = LOCAL) -> torch.Tensor:
     """Batched ELO update from match results (elo.py:22-57).
 
     elo ``[P]``; idx_a / idx_b ``[M]`` policy indices; score_a ``[M]`` in
@@ -29,6 +32,9 @@ def update_elo_pairwise(elo: torch.Tensor, idx_a: torch.Tensor,
     average score per ordered pair, each pair moves the ratings by at most
     one K-scaled step per call, and the population mean is re-anchored at
     ELO_START. Self-play matches carry no information and are dropped.
+    Over ``mesh`` the matches are this rank's, and the pairs' score sums
+    and counts are summed over the ranks (whole numbers and halves: exact
+    in any order).
     """
     p = elo.shape[0]
     v = (valid & (idx_a != idx_b)).to(torch.float32)
@@ -38,6 +44,7 @@ def update_elo_pairwise(elo: torch.Tensor, idx_a: torch.Tensor,
     score_sum = torch.zeros(p * p, device=elo.device).index_add_(
         0, pair, score_a.to(torch.float32) * v)
     count = torch.zeros(p * p, device=elo.device).index_add_(0, pair, v)
+    score_sum, count = mesh.all_sum_many([score_sum, count])
     avg_score = score_sum / torch.clamp(count, min=1.0)
     have = (count > 0.0).to(torch.float32)
     exp_a = elo_expected(elo[:, None], elo[None, :])          # [P, P]

@@ -10,6 +10,13 @@ port's ``torch.save`` files (``bridge.save_training_checkpoint``); a JAX
 orbax training checkpoint converts to one (``bridge.
 training_state_from_numpy``, README.md).
 
+Data parallel (``parallel/mesh.py``): a manager with a ``mesh`` of R ranks
+holds this rank's W / R worlds in its rollout and the replicated rest; its
+update computes, with one all-reduce per reduction, what one process
+computes with all W worlds. Checkpoints hold all the worlds: the primary
+rank writes the gathered rollout, and a restore takes this rank's slice,
+so a file moves between runs of any rank count.
+
 JAX compiles an update into one program with ``aot_compile``; here each
 update is eager PyTorch on the env's device, so ``aot_compile`` and
 ``cfg_jax_mem`` have no counterpart. Every draw comes from the state's
@@ -30,6 +37,13 @@ from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.layers import draw_params
 from marl_hideandseek_torch.models.normalizer import NormalizerState
+from marl_hideandseek_torch.parallel.mesh import (
+    LOCAL,
+    Mesh,
+    gather_rollout,
+    shard_rollout,
+    sharded_packed_init,
+)
 from marl_hideandseek_torch.policy import resolve_device
 from marl_hideandseek_torch.train import elo as elo_mod
 from marl_hideandseek_torch.train import pbt as pbt_mod
@@ -46,6 +60,7 @@ from marl_hideandseek_torch.train.rollout import (
     collect_rollout,
 )
 from marl_hideandseek_torch.types import AGENT_HIDER
+from marl_hideandseek_torch.utils.runtime import sync_hosts
 
 METRIC_KEYS = ("loss", "action_loss", "value_loss", "entropy",
                "dropped_agent_frac", "mean_reward", "hidden_frac",
@@ -101,13 +116,16 @@ class TrainingState:
 class TrainingManager:
     """The training state with the env, policy, config and hooks it runs
     with (manager.py:115-150): ``update_iter``, ``eval_elo``,
-    ``save_ckpt`` / ``restore_ckpt`` and ``log_metrics_tensorboard``."""
+    ``save_ckpt`` / ``restore_ckpt`` and ``log_metrics_tensorboard``.
+    ``env`` is configured for all the worlds; over ``mesh`` the rollout
+    holds this rank's."""
 
     state: TrainingState
     env: PackedEnv
     policy: Policy
     cfg: TrainConfig
     hooks: Optional[TrainHooks] = None
+    mesh: Mesh = LOCAL
 
     def replace(self, **kwargs) -> "TrainingManager":
         return dataclasses.replace(self, **kwargs)
@@ -130,25 +148,26 @@ class TrainingManager:
         loss normalizes with the new statistics), PPO, ELO from the
         rollout's finished episodes, then PBT on the incremented update
         count."""
-        cfg, st = self.cfg, self.state
+        cfg, st, mesh = self.cfg, self.state, self.mesh
         norm = self.policy.obs_preprocess
         new_rollout, buffer, roll_metrics = collect_rollout(
             cfg, self.env, self.policy, self.all_params(), st.obs_stats,
-            st.rollout, st.value_stats)
+            st.rollout, st.value_stats, mesh)
         if self.hooks is not None:
             roll_metrics = self.hooks.post_rollout(st.update_idx, buffer,
                                                    roll_metrics)
         obs_stats = norm.update_state(st.obs_stats, {
-            k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()})
+            k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()},
+            mesh)
         key, k_ppo, k_pbt = prng.split(st.key, 3).unbind(0)
         params, opt_states, value_stats, ppo_metrics = ppo_update(
             cfg, self.policy, st.params, st.opt_states, obs_stats,
-            st.value_stats, st.hyper_params, buffer, k_ppo)
+            st.value_stats, st.hyper_params, buffer, k_ppo, mesh)
 
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
                 roll_metrics["episode_results"], roll_metrics["team_pol"],
-                roll_metrics["dones_w"]))
+                roll_metrics["dones_w"]), mesh)
         update_idx = st.update_idx + 1
         past_params, hyper_params = st.past_params, st.hyper_params
         if cfg.pbt is not None and update_idx % cfg.pbt.explore_interval == 0:
@@ -180,12 +199,13 @@ class TrainingManager:
         (default 6 updates' worth) of the whole population in fresh round
         robin matchups (hiders play ``t0``, seekers ``t1``), frozen
         parameters, from the rollout's state and key; only the ELOs are
-        kept."""
-        cfg, st = self.cfg, self.state
+        kept. The matchups are keyed by global world ids, so ranks of a
+        mesh play the matchups of one process."""
+        cfg, st, mesh = self.cfg, self.state, self.mesh
         steps = num_steps or cfg.steps_per_update * 6
         n_pol = cfg.total_policies
-        dev = self.env.device
-        w_idx = torch.arange(self.env.cfg.num_worlds, device=dev)
+        w_idx = mesh.world_ids(st.rollout.env_state.step.shape[0],
+                               self.env.device)
         t0 = w_idx % n_pol
         t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
         is_h = (st.rollout.env_state.agent_type == AGENT_HIDER).T   # [W, A]
@@ -195,18 +215,19 @@ class TrainingManager:
         _, _, metrics = collect_rollout(
             eval_cfg, self.env, self.policy, self.all_params(), st.obs_stats,
             st.rollout.replace(assignments=fresh.to(torch.int32)),
-            st.value_stats)
+            st.value_stats, mesh)
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
                 metrics["episode_results"], metrics["team_pol"],
-                metrics["dones_w"]))
+                metrics["dones_w"]), mesh)
         return self.replace(state=st.replace(elo=elo))
 
     # -- checkpoints and logging ------------------------------------------
 
     def state_tree(self) -> dict:
         """The state as a nested dict of tensors, the training
-        checkpoint's format (``bridge.save_training_checkpoint``)."""
+        checkpoint's format (``bridge.save_training_checkpoint``); over a
+        mesh, with this rank's rollout."""
         st = self.state
         ro = st.rollout
         return {
@@ -226,10 +247,17 @@ class TrainingManager:
     def save_ckpt(self, ckpt_dir: str) -> str:
         """Write the training state to ``<ckpt_dir>/<update_idx>.pt``
         (reference: training_mgr.save_ckpt, jax_train.py:277); returns
-        the path."""
+        the path. Over a mesh every rank calls it: the rollout is gathered,
+        the primary rank writes the file of one process, and the ranks
+        wait for the write."""
         path = os.path.join(ckpt_dir, f"{self.state.update_idx}.pt")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        bridge.save_training_checkpoint(path, self.state_tree())
+        whole = self.replace(state=self.state.replace(
+            rollout=gather_rollout(self.state.rollout, self.mesh)))
+        if self.mesh.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            bridge.save_training_checkpoint(path, whole.state_tree())
+        if self.mesh.group is not None:
+            sync_hosts("save_ckpt")
         return path
 
     def restore_ckpt(self, path: str) -> "TrainingManager":
@@ -237,6 +265,7 @@ class TrainingManager:
         rollout and keys included; the restored observations take the
         dtype of this manager's (a bf16 JAX run's resume in float32). One
         whose metric ring lacks newer keys keeps their current values.
+        Over a mesh, each rank reads the file and keeps its worlds.
         Raises on parameters that do not fit the policy or the config's
         policy counts, on metric keys this code does not know, on a
         rollout of other world or agent counts than this env's, and on a
@@ -263,8 +292,8 @@ class TrainingManager:
                              f"torch generator states cannot resume)")
         got = (int(ro["env_state"]["step"].shape[-1]),
                int(ro["assignments"].shape[0]))
-        want = (int(st.rollout.env_state.step.shape[-1]),
-                int(st.rollout.assignments.shape[0]))
+        want = (int(st.rollout.env_state.step.shape[-1]) * self.mesh.size,
+                int(st.rollout.assignments.shape[0]) * self.mesh.size)
         if got != want:
             raise ValueError(
                 f"{path}: a rollout of {got[0]} worlds and {got[1]} agents, "
@@ -282,13 +311,13 @@ class TrainingManager:
             update_idx=int(tree["update_idx"]),
             metrics={**st.metrics, **tree["metrics"]},
             key=prng.as_key(tree["key"], dev),
-            rollout=RolloutState(
+            rollout=shard_rollout(RolloutState(
                 env_state=bridge.state_from_numpy(ro["env_state"], dev),
                 obs={k: v.to(st.rollout.obs[k].dtype)
                      for k, v in ro["obs"].items()},
                 rnn_states=ro["rnn_states"],
                 assignments=ro["assignments"],
-                key=prng.as_key(ro["key"], dev)))
+                key=prng.as_key(ro["key"], dev)), self.mesh))
         return self.replace(state=new)
 
     def log_metrics_tensorboard(self, writer) -> None:
@@ -304,7 +333,8 @@ class TrainingManager:
 
 def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
                   restore_ckpt: Optional[str] = None,
-                  hooks: Optional[TrainHooks] = None) -> TrainingManager:
+                  hooks: Optional[TrainHooks] = None,
+                  mesh: Mesh = LOCAL) -> TrainingManager:
     """Build the training state (manager.py:364-452): the env's initial
     worlds and observations, fresh normalizer statistics, the train
     policies drawn from the policy's initialisers, the past policies as
@@ -320,7 +350,11 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
     So one seed gives JAX's initial state. ``dev`` must be the env's
     device: ``"cuda"`` for the card, ``"cpu"`` for the plain path. With
     ``restore_ckpt``, the state of that training checkpoint replaces the
-    fresh one."""
+    fresh one. Over ``mesh`` (every rank calls it) the env is configured
+    for all the worlds and this rank builds its slice of the rollout: its
+    worlds' init and its slice of the first matchups; the replicated state
+    is drawn on every rank from the same keys, then broadcast from rank 0
+    as a guard."""
     if resolve_device(dev, "init_training").type != env.device.type:
         raise ValueError(f"init_training(dev={dev!r}) with an env on "
                          f"{env.device}")
@@ -329,11 +363,12 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
         prng.key(cfg.seed, device), 5).unbind(0)
     k_roll, k_assign0 = prng.split(k_roll).unbind(0)
 
-    w, a = env.cfg.num_worlds, env.cfg.max_agents
+    lo, hi = mesh.world_range(env.cfg.num_worlds)
+    w, a = hi - lo, env.cfg.max_agents
     n_agents = w * a
     norm = policy.obs_preprocess
     ac = policy.actor_critic
-    env_state, result = env.init(k_env)
+    env_state, result = sharded_packed_init(env, mesh, k_env)
     obs = {k: v.reshape((n_agents,) + v.shape[2:])
            for k, v in norm.prep(result.obs).items()}
     n_train = cfg.num_train_policies
@@ -344,7 +379,16 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
     assignments = _resample_assignments(
         k_assign0, torch.ones(w, dtype=torch.bool, device=device),
         torch.zeros(n_agents, dtype=torch.int32, device=device), cfg, w, a,
-        env_state.agent_type.T)
+        env_state.agent_type.T, mesh)
+    hyper_params = pbt_mod.init_hyper_params(cfg, k_hyper)
+    if mesh.group is not None:
+        tensors = [*params.values(), *past_params.values(),
+                   *hyper_params.values(), k_roll, k_state]
+        tensors = iter(mesh.broadcast_many(tensors))
+        params = {k: next(tensors) for k in params}
+        past_params = {k: next(tensors) for k in past_params}
+        hyper_params = {k: next(tensors) for k in hyper_params}
+        k_roll, k_state = next(tensors), next(tensors)
     state = TrainingState(
         params=params,
         opt_states=init_opt_state(params),
@@ -355,7 +399,7 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
                              rnn_states=ac.init_recurrent_state(n_agents,
                                                                 device),
                              assignments=assignments, key=k_roll),
-        hyper_params=pbt_mod.init_hyper_params(cfg, k_hyper),
+        hyper_params=hyper_params,
         elo=torch.full((cfg.total_policies,), elo_mod.ELO_START,
                        device=device),
         update_idx=0,
@@ -364,7 +408,7 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
                  for k in METRIC_KEYS},
     )
     mgr = TrainingManager(state=state, env=env, policy=policy, cfg=cfg,
-                          hooks=hooks)
+                          hooks=hooks, mesh=mesh)
     if restore_ckpt:
         mgr = mgr.restore_ckpt(restore_ckpt)
     return mgr

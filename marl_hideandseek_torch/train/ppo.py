@@ -27,6 +27,7 @@ from torch.func import functional_call
 from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
+from marl_hideandseek_torch.parallel.mesh import LOCAL, Mesh
 from marl_hideandseek_torch.train.cfg import TrainConfig
 from marl_hideandseek_torch.train.rollout import (
     MethodCall,
@@ -97,29 +98,33 @@ def init_value_stats(cfg: TrainConfig, device=None) -> Dict[str, torch.Tensor]:
 
 
 def update_value_stats(cfg: TrainConfig, value_stats, returns: torch.Tensor,
-                       assignments: torch.Tensor):
+                       assignments: torch.Tensor, mesh: Mesh = LOCAL):
     """EMA update of each train policy's return mean and scale from this
     rollout's returns, masked by assignment (ppo.py:50-64). The Dreamer
-    critic keeps none."""
+    critic keeps none. Over ``mesh``, the masked sums are every rank's."""
     if cfg.dreamer_v3_critic:
         return value_stats
     d = cfg.value_normalizer_decay
+    n_train = cfg.num_train_policies
     mu, sigma = value_stats["mu"].clone(), value_stats["sigma"].clone()
-    for p in range(cfg.num_train_policies):
-        mask = (assignments == p).to(torch.float32)
-        denom = torch.clamp(mask.sum(), min=1.0)
-        m = (returns * mask).sum() / denom
-        v = (torch.square(returns - m) * mask).sum() / denom
-        s = torch.sqrt(torch.clamp(v, min=1e-6))
-        mu[p] = d * mu[p] + (1.0 - d) * m
-        sigma[p] = d * sigma[p] + (1.0 - d) * s
+    masks = [(assignments == p).to(torch.float32) for p in range(n_train)]
+    sums = mesh.all_sum(torch.stack(
+        [torch.stack([m.sum(), (returns * m).sum()]) for m in masks]))
+    denom = torch.clamp(sums[:, 0], min=1.0)
+    mean = sums[:, 1] / denom
+    var = mesh.all_sum(torch.stack(
+        [(torch.square(returns - mean[p]) * m).sum()
+         for p, m in enumerate(masks)])) / denom
+    s = torch.sqrt(torch.clamp(var, min=1e-6))
+    mu[:n_train] = d * mu[:n_train] + (1.0 - d) * mean
+    sigma[:n_train] = d * sigma[:n_train] + (1.0 - d) * s
     return {"mu": mu, "sigma": sigma}
 
 
 def _policy_loss(cfg: TrainConfig, policy: Policy,
                  params: Mapping[str, torch.Tensor], obs_stats, value_stats,
                  minibatch, policy_idx: torch.Tensor,
-                 per_policy: bool = False):
+                 per_policy: bool = False, mesh: Mesh = LOCAL):
     """The losses of P policies over one minibatch (ppo.py:67-142, for
     each policy of the stack).
 
@@ -131,6 +136,10 @@ def _policy_loss(cfg: TrainConfig, policy: Policy,
     Advantage normalization and every mean are over each policy's mask.
     Returns (action_loss, value_loss, entropy), each ``[P]``, then the
     ratio and the mask ``[P, T, C * M]`` and the mask's count ``[P]``.
+    Over ``mesh`` the minibatch is this rank's share: the mask's count
+    and the advantages' mean and variance are the whole minibatch's, and
+    each loss is this rank's sum over the whole count (the ranks' losses
+    add up to the loss).
     """
     norm = policy.obs_preprocess
     ac = policy.actor_critic
@@ -165,13 +174,16 @@ def _policy_loss(cfg: TrainConfig, policy: Policy,
     pidx = policy_idx.reshape(p, 1, 1)
     mask = (stacked(merge(minibatch["assignments"])) == pidx).to(
         torch.float32)
-    denom = torch.clamp(mask.sum((1, 2)), min=1.0)
+    count, adv_sum = mesh.all_sum(torch.stack(
+        [mask.sum((1, 2)), (advantages * mask).sum((1, 2))]))
+    denom = torch.clamp(count, min=1.0)
 
     def masked_mean(x):
         return (x * mask).sum((1, 2)) / denom
 
-    adv_mean = masked_mean(advantages).reshape(p, 1, 1)
-    adv_var = masked_mean(torch.square(advantages - adv_mean)).reshape(p, 1, 1)
+    adv_mean = (adv_sum / denom).reshape(p, 1, 1)
+    adv_var = (mesh.all_sum((torch.square(advantages - adv_mean) *
+                             mask).sum((1, 2))) / denom).reshape(p, 1, 1)
     advantages = (advantages - adv_mean) * torch.rsqrt(adv_var + 1e-5)
 
     ratio = torch.exp(dists.log_prob(actions) - old_lp)
@@ -240,21 +252,46 @@ def group_gather_indices(n_train: int, n: int, start_assign: torch.Tensor):
 
 
 def grouped_dropped_frac(assignments: torch.Tensor, g_idx: torch.Tensor,
-                         n_train: int) -> torch.Tensor:
+                         n_train: int, mesh: Mesh = LOCAL) -> torch.Tensor:
     """Per train policy, the share of its agent-steps that the grouped
     loss drops (ppo.py:195-211): slots beyond the cap, and steps whose
     assignment is the policy but whose slot was gathered into another
     policy's group or none (a mid-rollout switch). assignments ``[C, T,
-    N]``; returns ``[P]``."""
+    N]``; returns ``[P]``. Over ``mesh`` the assignments are this rank's
+    agents, ``g_idx`` holds global slots, and the shares are of every
+    rank's agent-steps."""
     n = assignments.shape[-1]
-    member = torch.zeros((n_train, n), dtype=torch.bool,
-                         device=assignments.device)
-    member.scatter_(1, g_idx, True)
-    p_arr = torch.arange(n_train, device=assignments.device)
+    first = mesh.rank * n
+    dev = assignments.device
+    # This rank's slots of each group; the others land in a spare column.
+    local = (g_idx >= first) & (g_idx < first + n)
+    member = torch.zeros((n_train, n + 1), dtype=torch.bool, device=dev)
+    member.scatter_(1, torch.where(local, g_idx - first, n), True)
+    member = member[:, :n]
+    p_arr = torch.arange(n_train, device=dev)
     assign_is_p = assignments[None] == p_arr[:, None, None, None]
-    dropped = (assign_is_p & ~member[:, None, None, :]).sum((1, 2, 3))
-    total = assign_is_p.sum((1, 2, 3))
+    dropped, total = mesh.all_sum(torch.stack([
+        (assign_is_p & ~member[:, None, None, :]).sum((1, 2, 3)),
+        assign_is_p.sum((1, 2, 3))]))
     return dropped / torch.clamp(total, min=1)
+
+
+def _members(slots: torch.Tensor, first: int, n: int, seg: torch.Tensor,
+             mesh: Mesh):
+    """The positions ``seg`` ``[m]`` of each row of ``slots`` ``[Q, G]``
+    (global agent slots by position) that hold one of this rank's ``n``
+    agents from ``first``: their local agent indices ``[Q, K]``, in
+    ``seg``'s order, padded with agent 0, and whether each is real ``[Q,
+    K]``. K is the largest row's count (at least 1); in one process every
+    position is real and K = m."""
+    loc = slots[:, seg] - first
+    if mesh.group is None:
+        return loc, torch.ones_like(loc, dtype=torch.bool)
+    real = (loc >= 0) & (loc < n)
+    order = torch.argsort((~real).to(torch.int8), dim=1, stable=True)
+    order = order[:, :max(int(real.sum(1).max()), 1)]
+    real = torch.gather(real, 1, order)
+    return torch.where(real, torch.gather(loc, 1, order), 0), real
 
 
 def epoch_permutations(key: torch.Tensor, num_epochs: int,
@@ -268,7 +305,8 @@ def ppo_update(cfg: TrainConfig, policy: Policy,
                all_params: Mapping[str, torch.Tensor],
                all_opt_states: AdamState, obs_stats, value_stats,
                hyper_params: Mapping[str, torch.Tensor],
-               buffer: RolloutBuffer, key: torch.Tensor):
+               buffer: RolloutBuffer, key: torch.Tensor,
+               mesh: Mesh = LOCAL):
     """The full PPO update: epochs x minibatches over the buffer
     (ppo.py:214-352).
 
@@ -280,13 +318,21 @@ def ppo_update(cfg: TrainConfig, policy: Policy,
     update is deterministic given the buffer. Returns (params, opt_states,
     value_stats, metrics), the metrics ``[P]`` means over the epochs and
     minibatches, with ``dropped_agent_frac``.
+
+    Over ``mesh`` the buffer holds this rank's agents. The groups and the
+    minibatches are those of all the agents (the groups from every rank's
+    start assignments, the permutations over all positions), each rank
+    replaying its members of each; the gradients of every rank's share of
+    the loss are summed in one all-reduce a minibatch, so every rank takes
+    the same Adam step.
     """
     n_train = cfg.num_train_policies
     c, t, n = buffer.log_probs.shape
     dev = buffer.log_probs.device
+    first = mesh.rank * n
     advantages, returns = compute_gae(cfg, buffer)
     value_stats = update_value_stats(cfg, value_stats, returns,
-                                     buffer.assignments)
+                                     buffer.assignments, mesh)
     data = {
         "obs": buffer.obs,
         "actions": buffer.actions,
@@ -300,55 +346,69 @@ def ppo_update(cfg: TrainConfig, policy: Policy,
     }
 
     # Every leaf has its agent axis at 2 ([C, T, N, ...]; rnn_start
-    # [C, L, N, H]); the grouped leaves at 3, behind the policy axis.
+    # [C, L, N, H]). slots: the global agent at each position of each
+    # policy's group [P, cap] (grouped), or of the batch [1, N].
     grouped = use_grouped_ppo(cfg)
     if grouped:
-        g_idx, cap = group_gather_indices(n_train, n,
-                                          buffer.assignments[0, 0])
+        g_idx, size = group_gather_indices(
+            n_train, n * mesh.size,
+            mesh.all_gather(buffer.assignments[0, 0], 0))
         dropped_agent_frac = grouped_dropped_frac(buffer.assignments, g_idx,
-                                                  n_train)
-        data = tree_map(lambda x: x[:, :, g_idx].movedim(2, 0), data)
-        n = cap
+                                                  n_train, mesh)
+        slots = g_idx
     else:
+        size = n * mesh.size
         dropped_agent_frac = torch.zeros(n_train, device=dev)
-    ag_axis = 3 if grouped else 2
+        slots = torch.arange(size, device=dev)[None]
+
+    def take(seg):
+        """The minibatch of positions ``seg``: each leaf's members at
+        ``[P,] C, T, K``, the padding out of every policy's mask."""
+        idx, real = _members(slots, first, n, seg, mesh)
+        if grouped:
+            mb = tree_map(lambda x: x[:, :, idx].movedim(2, 0), data)
+            pad = ~real[:, None, None, :]
+        else:
+            mb = tree_map(lambda x: x[:, :, idx[0]], data)
+            pad = ~real[0]
+        mb["assignments"] = torch.where(pad, -1, mb["assignments"])
+        return mb
 
     num_mb = cfg.algo.num_mini_batches
-    if n % num_mb != 0:
-        raise ValueError(f"{n} agents do not divide into {num_mb} "
+    if size % num_mb != 0:
+        raise ValueError(f"{size} agents do not divide into {num_mb} "
                          f"minibatches")
-    mb_size = n // num_mb
+    mb_size = size // num_mb
     params = {k: v.detach() for k, v in all_params.items()}
     opt = all_opt_states
     p_idx = torch.arange(n_train, device=dev)
     lr, ent_coef = hyper_params["lr"], hyper_params["entropy_coef"]
     aux = []
     if num_mb > 1:
-        perms = epoch_permutations(key, cfg.algo.num_epochs, n)
+        perms = epoch_permutations(key, cfg.algo.num_epochs, size)
+    else:
+        # One minibatch: without groups, every rank's own agents in order.
+        whole = (take(torch.arange(size, device=dev)) if grouped else data)
     for e in range(cfg.algo.num_epochs):
-        if num_mb > 1:
-            perm = perms[e]
         for i in range(num_mb):
-            if num_mb == 1:
-                mb = data
-            else:
-                idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = tree_map(lambda x: x.index_select(ag_axis, idx), data)
+            mb = (whole if num_mb == 1 else
+                  take(perms[e, i * mb_size:(i + 1) * mb_size]))
             leaves = {k: v.detach().requires_grad_() for k, v in
                       params.items()}
             with torch.enable_grad():
                 a_l, v_l, ent, *_ = _policy_loss(
                     cfg, policy, leaves, obs_stats, value_stats, mb, p_idx,
-                    per_policy=grouped)
+                    per_policy=grouped, mesh=mesh)
                 total = a_l + cfg.algo.value_loss_coef * v_l - ent_coef * ent
                 grads = torch.autograd.grad(total.sum(),
                                             list(leaves.values()))
+            grads = mesh.all_sum_many(grads)
             updates, opt = clipped_adam(dict(zip(leaves, grads)), opt,
                                         cfg.algo.max_grad_norm)
             params = {k: params[k] + (-_per_policy(lr, u)) * u
                       for k, u in updates.items()}
             aux.append(torch.stack([total, a_l, v_l, ent]).detach())
-    aux = torch.stack(aux).mean(0)                        # [4, P]
+    aux = mesh.all_sum(torch.stack(aux)).mean(0)          # [4, P]
     metrics = {"loss": aux[0], "action_loss": aux[1], "value_loss": aux[2],
                "entropy": aux[3], "dropped_agent_frac": dropped_agent_frac}
     return params, opt, value_stats, metrics

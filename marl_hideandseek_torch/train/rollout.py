@@ -26,6 +26,11 @@ from marl_hideandseek_torch.config import NUM_PREP_STEPS
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
+from marl_hideandseek_torch.parallel.mesh import (
+    LOCAL,
+    Mesh,
+    make_sharded_packed_step,
+)
 from marl_hideandseek_torch.train.cfg import TrainConfig
 from marl_hideandseek_torch.types import (
     AGENT_HIDER,
@@ -157,7 +162,8 @@ def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,
 def _resample_assignments(key: torch.Tensor, dones_w: torch.Tensor,
                           assignments: torch.Tensor, cfg: TrainConfig,
                           num_worlds: int, agents_per_world: int,
-                          agent_type: torch.Tensor) -> torch.Tensor:
+                          agent_type: torch.Tensor,
+                          mesh: Mesh = LOCAL) -> torch.Tensor:
     """New team -> policy matchups for the worlds whose episode ended
     (rollout.py:144-191); the other worlds keep theirs.
 
@@ -170,20 +176,23 @@ def _resample_assignments(key: torch.Tensor, dones_w: torch.Tensor,
     policy 0 and nothing is drawn. Draws as JAX does from ``k1..k5 =
     split(key, 5)``: the train side's policy ``randint(k1)``, the portion
     draw ``uniform(k2)``, the past and cross policies ``randint(k3)``,
-    ``randint(k4)``, the role ``bernoulli(k5, 0.5)``."""
+    ``randint(k4)``, the role ``bernoulli(k5, 0.5)``. Over ``mesh`` the
+    ``num_worlds`` worlds are this rank's, and draw their slice of the
+    draws of all the worlds."""
     pbt = cfg.pbt
     if pbt is None or pbt.total_policies == 1:
         return assignments
     n_train = pbt.num_train_policies
     n_total = pbt.total_policies
     w = num_worlds
-    dev = assignments.device
+    first = mesh.rank * w
 
     # Every key's randint bits and uniforms in one launch each (k2's
     # randint bits and k1, k3, k4's uniforms are drawn too, unused).
     ks = prng.split(key, 5)
-    hi, lo = prng.randint_bits(ks, (w,))
-    u = prng.uniform(ks, (w,))
+    hi, lo = (x[:, first:first + w]
+              for x in prng.randint_bits(ks, (w * mesh.size,)))
+    u = prng.uniform(ks, (w * mesh.size,))[:, first:first + w]
     t0 = prng.randint_from_bits(hi[0], lo[0], 0, n_train)
     past = prng.randint_from_bits(hi[2], lo[2], n_train,
                                   max(n_total, n_train + 1))
@@ -214,7 +223,8 @@ def rollout_keys(key: torch.Tensor, steps: int):
 
 def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                     all_params: Mapping[str, torch.Tensor], obs_stats,
-                    rollout: RolloutState, value_stats=None):
+                    rollout: RolloutState, value_stats=None,
+                    mesh: Mesh = LOCAL):
     """Run ``steps_per_update`` env steps; return (rollout', buffer,
     metrics) (rollout.py:194-376).
 
@@ -229,10 +239,16 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     the post-step teams. ELO attribution (``team_pol``) and the seek-phase
     gate use the pre-step state: the episode the transition belongs to.
     Runs without autograd.
+
+    Over ``mesh`` the rollout holds this rank's worlds (``env`` is
+    configured for all of them): they step with their global ids, draw
+    their slice of the global draws, and the metrics are the whole
+    batch's.
     """
     cfg_env = env.cfg
-    w, a = cfg_env.num_worlds, cfg_env.max_agents
+    w, a = rollout.env_state.step.shape[0], cfg_env.max_agents
     n = w * a
+    env_step = make_sharded_packed_step(env, mesh)
     t_chunk = cfg.steps_per_update // cfg.num_bptt_chunks
     n_total = cfg.total_policies
     norm = policy.obs_preprocess
@@ -263,14 +279,14 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                 values = denormalize_values(cfg, value_stats, values,
                                             assignments)
                 dists = DiscreteActionDistributions(buckets, logits)
-                actions = dists.sample(k_act)
+                actions = dists.sample(k_act, (mesh.rank * n, mesh.size * n))
                 log_probs = dists.log_prob(actions)
 
                 pre_step = env_state.step
                 pre_is_h = (env_state.agent_type == AGENT_HIDER).T   # [W, A]
                 pre_act = env_state.agent_active.to(torch.bool).T
                 pre_sf = env_state.seekers_first.to(torch.bool)
-                env_state, result = env.step(
+                env_state, result = env_step(
                     env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
                 next_obs = flat(result.obs)
                 dones = result.dones.T.reshape(-1).to(torch.bool)
@@ -278,7 +294,7 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                 dones_w = result.dones[0].to(torch.bool)
                 new_assign = _resample_assignments(
                     k_assign, dones_w, assignments, cfg, w, a,
-                    env_state.agent_type.T)
+                    env_state.agent_type.T, mesh)
 
                 # The pre-step episode's (first-spawned, second-spawned)
                 # team policies, for ELO (rollout.py:256-268).
@@ -343,21 +359,22 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
         rnn_start_states=tree_map(lambda *xs: torch.stack(xs), *rnn_start),
         bootstrap_value=boot_values,
     )
-    total_ws = float(cfg.steps_per_update * w)
-
-    def total(k):
-        return torch.stack(store[k]).sum().to(torch.float32)
-
+    # World-step counts and the reward sum over every rank's worlds.
+    total_ws = float(cfg.steps_per_update * w * mesh.size)
+    names = ("hidden", "seek", "locked", "grab", "ramp_locked", "ramp_move")
+    sums = dict(zip(names + ("reward",), mesh.all_sum_many(
+        [torch.stack(store[k]).sum().to(torch.float32) for k in names] +
+        [buffer.rewards.sum()])))
     metrics = {
         "episode_results": torch.stack(store["episode_results"]),
         "dones_w": torch.stack(store["dones_w"]),
         "team_pol": torch.stack(store["team_pol"]),
-        "mean_reward": buffer.rewards.mean(),
-        "hidden_frac": total("hidden") / torch.clamp(total("seek"), min=1.0),
-        "lock_rate": total("locked") / total_ws,
-        "grab_rate": total("grab") / total_ws,
-        "ramp_lock_rate": total("ramp_locked") / total_ws,
-        "ramp_move_rate": total("ramp_move") / total_ws,
+        "mean_reward": sums["reward"] / (total_ws * a),
+        "hidden_frac": sums["hidden"] / torch.clamp(sums["seek"], min=1.0),
+        "lock_rate": sums["locked"] / total_ws,
+        "grab_rate": sums["grab"] / total_ws,
+        "ramp_lock_rate": sums["ramp_locked"] / total_ws,
+        "ramp_move_rate": sums["ramp_move"] / total_ws,
     }
     new_rollout = RolloutState(env_state=env_state, obs=obs, rnn_states=rnn,
                                assignments=assignments, key=key)

@@ -1,0 +1,91 @@
+"""Runtime helpers for runs of several processes: process-group bring-up,
+a barrier, the primary-rank test and a metric mean across ranks.
+
+Port of ``marl_hideandseek_tpu/utils/runtime.py:63-112``, on
+``torch.distributed``: one process per card (``torchrun``), where JAX runs
+one process per host. ``enable_compilation_cache`` and
+``enable_nan_guards`` configure XLA and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# A rank that raises leaves the others waiting in a collective; they give
+# up after this long instead of hanging.
+DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     backend: Optional[str] = None, device=None,
+                     timeout: datetime.timedelta = DEFAULT_TIMEOUT
+                     ) -> torch.device:
+    """Start ``torch.distributed``'s default process group; returns this
+    rank's device.
+
+    With no address, the group comes from torchrun's variables
+    (``env://``: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK). With
+    ``coordinator_address`` (``"host:port"``, JAX's spelling) it is
+    ``tcp://host:port`` with ``num_processes`` ranks, this one
+    ``process_id``. The device is ``cuda:LOCAL_RANK`` (torchrun's
+    variable, else the rank) unless ``device`` names another, ``"cpu"``
+    included. The backend is ``nccl`` on the card and ``gloo`` on the CPU
+    unless ``backend`` names one; gloo on the card moves every collective
+    through host memory (``parallel/mesh.py``). A failed init raises."""
+    if coordinator_address is None:
+        init_method = "env://"
+        world_size = rank = -1
+        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+    else:
+        if num_processes is None or process_id is None:
+            raise ValueError("init_distributed: an address needs "
+                             "num_processes and process_id")
+        init_method = f"tcp://{coordinator_address}"
+        world_size, rank = num_processes, process_id
+        local = int(os.environ.get("LOCAL_RANK", process_id))
+    dev = torch.device(device if device is not None else f"cuda:{local}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"init_distributed: device {dev} but "
+                               f"torch.cuda.is_available() is False")
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("init_distributed: nccl needs a CUDA device")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=timeout)
+    return dev
+
+
+def sync_hosts(name: str = "sync") -> None:
+    """Barrier across ranks (the control-plane sync before and after a
+    checkpoint write); ``name`` labels the sync point, as in JAX. Nothing
+    to wait for in one process."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def is_primary_host() -> bool:
+    """True on the rank that performs IO (logs, checkpoints): rank 0, or
+    the only process when no group exists."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def global_metric_mean(value) -> float:
+    """The mean of a rank-local scalar over all ranks; the identity in one
+    process."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return float(value)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
+    dist.all_reduce(t)
+    return float(t) / dist.get_world_size()

@@ -36,6 +36,7 @@ the stored observations.
 """
 
 import dataclasses
+import functools
 import pathlib
 
 import jax
@@ -52,7 +53,7 @@ from marl_hideandseek_tpu.train import pbt as jpbt
 from marl_hideandseek_tpu.train import ppo as jppo
 from marl_hideandseek_tpu.train import rollout as jrollout
 
-from marl_hideandseek_torch import bridge, prng
+from marl_hideandseek_torch import bridge, prng, testing
 from marl_hideandseek_torch import policy as tpolicy
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
@@ -96,18 +97,18 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def configs(kind, worlds=ENV.num_worlds, **algo):
+def configs(kind, worlds=ENV.num_worlds, agents=A, **algo):
     """(JAX, port) TrainConfig: ``single`` (no PBT), ``masked`` (2 train +
     2 past policies, half self-play) or ``grouped`` (2 + 2, past-play
-    only, grouped PPO)."""
-    common = dict(num_worlds=worlds, num_agents_per_world=A, num_updates=2,
-                  steps_per_update=C * T, num_bptt_chunks=C)
+    only, grouped PPO), with ``agents`` a world in two teams."""
+    common = dict(num_worlds=worlds, num_agents_per_world=agents,
+                  num_updates=2, steps_per_update=C * T, num_bptt_chunks=C)
     out = []
     for mod in (jcfg, tcfg):
         pbt = None
         if kind != "single":
             pbt = mod.PBTConfig(
-                num_teams=2, team_size=1, num_train_policies=2,
+                num_teams=2, team_size=agents // 2, num_train_policies=2,
                 num_past_policies=2,
                 self_play_portion=0.5 if kind == "masked" else 0.0,
                 past_play_portion=0.5 if kind == "masked" else 1.0)
@@ -227,14 +228,16 @@ def to_flax(flat):
     return {"params": tree}
 
 
-def draw_assignments(rng, kind, dones_w):
-    """[S, W * A] per-step assignments: each world one train policy (0-1)
-    against a past one (2-3) or, in ``masked``, itself half the time; a
-    coin for which slot plays which; redrawn where the world's episode
-    ended on the step before."""
+def draw_assignments(rng, kind, dones_w, agents=A):
+    """[S, W * agents] per-step assignments: each world one train policy
+    (0-1) against a past one (2-3) or, in ``masked``, itself half the
+    time; a coin for which team (the first or second half of the world's
+    slots) plays which; redrawn where the world's episode ended on the
+    step before."""
     s, w = dones_w.shape
+    team = agents // 2
     if kind == "single":
-        return np.zeros((s, w * A), np.int32)
+        return np.zeros((s, w * agents), np.int32)
 
     def draw():
         t0 = rng.integers(0, 2, w)
@@ -242,20 +245,22 @@ def draw_assignments(rng, kind, dones_w):
         if kind == "masked":
             other = np.where(rng.uniform(size=w) < 0.5, t0, other)
         first = rng.uniform(size=w) < 0.5
-        return np.stack([np.where(first, t0, other),
-                         np.where(first, other, t0)], -1).reshape(-1)
+        return np.repeat(np.stack([np.where(first, t0, other),
+                                   np.where(first, other, t0)], -1),
+                         team, -1).reshape(-1)
 
     cur, out = draw(), []
     for i in range(s):
         out.append(cur)
-        cur = np.where(np.repeat(dones_w[i], A), draw(), cur)
+        cur = np.where(np.repeat(dones_w[i], agents), draw(), cur)
     return np.stack(out).astype(np.int32)
 
 
-def make_buffer(rng, kind, worlds, rnn=RNN):
-    """A seeded rollout buffer as numpy: old log-probabilities near the
-    fresh policy's (so the ratio is near 1 and some samples clip)."""
-    n = worlds * A
+def make_buffer(rng, kind, worlds, rnn=RNN, agents=A):
+    """A seeded rollout buffer as numpy (``agents`` a world): old
+    log-probabilities near the fresh policy's (so the ratio is near 1 and
+    some samples clip)."""
+    n = worlds * agents
     lead = (C, T, n)
     dones_w = rng.uniform(size=(C * T, worlds)) < 0.15
     return {
@@ -267,8 +272,9 @@ def make_buffer(rng, kind, worlds, rnn=RNN):
         "values": (0.5 * rng.standard_normal(lead)).astype(np.float32),
         "rewards": (rng.standard_normal(lead) *
                     (rng.uniform(size=lead) < 0.5)).astype(np.float32),
-        "dones": np.repeat(dones_w, A, axis=1).reshape(lead),
-        "assignments": draw_assignments(rng, kind, dones_w).reshape(lead),
+        "dones": np.repeat(dones_w, agents, axis=1).reshape(lead),
+        "assignments": draw_assignments(rng, kind, dones_w,
+                                        agents).reshape(lead),
         "rnn_start": tuple(tuple(
             (0.5 * rng.standard_normal((C, 1, n, rnn))).astype(np.float32)
             for _ in range(2)) for _ in range(2)),
@@ -501,27 +507,88 @@ def test_clipped_adam_matches_optax():
 # ppo_update end to end
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["single", "masked", "grouped"])
-def test_ppo_update_matches_jax(kind):
+@pytest.mark.parametrize("kind,agents", [("single", A), ("masked", A),
+                                         ("grouped", A), ("grouped", 6)],
+                         ids=["single", "masked", "grouped", "grouped_3v3"])
+def test_ppo_update_matches_jax(kind, agents):
     """One minibatch, two epochs at the slice's 4 worlds: P = 1 with the
     plain clipped critic (value statistics move), PBT with a self-play
-    portion (masked), PBT past-play (grouped)."""
+    portion (masked), PBT past-play (grouped), and grouped PBT with
+    scripts/train.py's default 3v3 teams."""
     algo = {"clip_value_loss": True} if kind == "single" else {}
     worlds = ENV.num_worlds
-    jc, tc = configs(kind, worlds=worlds, **algo)
+    jc, tc = configs(kind, worlds=worlds, agents=agents, **algo)
     assert tppo.use_grouped_ppo(tc) == jppo.use_grouped_ppo(jc) == \
         (kind == "grouped")
     rng = np.random.default_rng(4)
-    b = make_buffer(rng, kind, worlds)
+    b = make_buffer(rng, kind, worlds, agents=agents)
     p = tc.num_train_policies
     vs = {"mu": np.full(tc.total_policies, 0.2, np.float32),
           "sigma": np.full(tc.total_policies, 1.3, np.float32)}
     hyper = {"lr": np.array([1e-4, 3e-4][:p], np.float32),
              "entropy_coef": np.array([0.01, 0.003][:p], np.float32)}
-    got, want = run_both(kind, tc, jc, b, seeded_params(p, 4),
+    got, want = run_both(kind if agents == A else f"{kind}_{agents}", tc,
+                         jc, b, seeded_params(p, 4),
                          seeded_stats(rng), vs, hyper)
     check_update(got, want, 3e-4, tc.algo.num_epochs)
     assert got[1].count.tolist() == [2] * p
+
+
+@pytest.fixture(scope="module")
+def fault_setup():
+    """The grouped update of ``test_ppo_update_matches_jax`` (the port
+    alone), with its gradient clip planted at half the smallest gradient
+    norm of its first step when the recipe's 5 does not bite: the update
+    as a function of the observations, its result and rounding bars, the
+    norms, and the leaf with the most lenient mu bar."""
+    _, tc = configs("grouped")
+    rng = np.random.default_rng(4)
+    b = make_buffer(rng, "grouped", ENV.num_worlds)
+    tpol = policies()[1]
+    params = bridge.policy_params_from_numpy(seeded_params(2, 4), tpol)
+    stats = seeded_stats(rng)[0]
+    hyper = {"lr": t(np.array([1e-4, 3e-4], np.float32)),
+             "entropy_coef": t(np.array([0.01, 0.003], np.float32))}
+    vs = tppo.init_value_stats(tc)
+
+    def update(cfg, obs):
+        buf = dataclasses.replace(port_buffer(b), obs=obs)
+        return tppo.ppo_update(cfg, tpol, params, tppo.init_opt_state(params),
+                               stats, vs, hyper, buf, prng.key(0))
+
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tppo, "clipped_adam",
+                   functools.partial(testing.grad_norms, seen=seen))
+        update(tc, port_buffer(b).obs)
+    norm = float(seen[0].min())
+    if norm < tc.algo.max_grad_norm:
+        tc = dataclasses.replace(tc, algo=dataclasses.replace(
+            tc.algo, max_grad_norm=0.5 * norm))
+    obs = port_buffer(b).obs
+    base, bars = testing.rounding_bars(lambda o: update(tc, o), obs)
+    leaf = max(base[1].mu, key=lambda k: bars[("mu", k)])
+    return dict(update=lambda: update(tc, obs), base=base, bars=bars,
+                params=params, leaf=leaf, norms=seen[0].tolist(),
+                clip=tc.algo.max_grad_norm, epochs=tc.algo.num_epochs)
+
+
+@pytest.mark.parametrize("fault", (None,) + testing.PLANTED_FAULTS)
+def test_rounding_bars_catch_planted_faults(fault_setup, fault, monkeypatch):
+    """The per-leaf rounding bars pass the update against itself and fail
+    it with each planted fault of Adam: the bias correction dropped, the
+    gradient clip skipped (planted at half the first step's norm, since
+    the recipe's 5 does not bite at this size), the most leniently barred
+    leaf's update zeroed."""
+    s = fault_setup
+    assert s["clip"] < 5.0 and min(s["norms"]) > s["clip"]
+    if fault is not None:
+        monkeypatch.setattr(tppo, "clipped_adam",
+                            testing.planted_fault(fault, s["leaf"]))
+    cmp = testing.compare_updates(s["update"](), s["base"], s["params"],
+                                  s["bars"], 3e-4, s["epochs"])
+    print(fault, len(cmp["violations"]), cmp["worst"])
+    assert (cmp["violations"] == []) == (fault is None), cmp
 
 
 def test_group_indices_and_dropped_fraction_match_jax():

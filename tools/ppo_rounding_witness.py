@@ -8,9 +8,10 @@ width) at 64 worlds, float32 with TF32 off, a rollout on ``--device``, then
 CPU updates take the same buffer with every nonzero observation moved by one
 float32 ulp, up and down. For each leaf of Adam's mu and nu the script
 prints each run's largest difference from the CPU's, over the leaf's largest
-moment (the test's measure, against its bars of 1e-4 for mu and 2e-4 for
-nu), the leaf's largest moment, and the leaf's largest mu over the update's largest (the leaf's share
-of the gradient). Run from the repository's root:
+moment (the test's measure, against the fixed bars of 1e-4 for mu and
+2e-4 for nu that ``testing.rounding_bars`` floors its per-leaf bars at),
+the leaf's largest moment, and the leaf's largest mu over the update's
+largest (the leaf's share of the gradient). Run from the repository's root:
 
     python3 tools/ppo_rounding_witness.py [--device cuda] [--worlds 64]
         [--out table.json]
@@ -20,7 +21,6 @@ of the gradient). Run from the repository's root:
 
 import argparse
 import json
-import math
 import os
 import sys
 
@@ -28,26 +28,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from marl_hideandseek_torch import testing  # noqa: E402
 from marl_hideandseek_torch.models.actor_critic import tree_map  # noqa: E402
 from marl_hideandseek_torch.policy import make_policy  # noqa: E402
 from marl_hideandseek_torch.train import __main__ as cli  # noqa: E402
 from marl_hideandseek_torch.train import init_training, ppo  # noqa: E402
 from marl_hideandseek_torch.train.rollout import collect_rollout  # noqa: E402
 
-BARS = {"mu": 1e-4, "nu": 2e-4}
+BARS = {k: testing.FIXED_BARS[k] for k in ("mu", "nu")}
 SHOWN = 24     # printed rows, farthest from the CPU's first; JSON has all
-
-
-def moved(obs, direction):
-    """Every nonzero float observation one float32 ulp towards
-    ``direction`` (+inf or -inf)."""
-    out = {}
-    for k, v in obs.items():
-        if v.is_floating_point():
-            far = torch.full_like(v, direction)
-            v = torch.where(v != 0, torch.nextafter(v, far), v)
-        out[k] = v
-    return out
 
 
 def main(argv=None) -> int:
@@ -92,8 +81,9 @@ def main(argv=None) -> int:
     runs = {"device": run(dev, pol)}
     cpu = run(cpu_dev, cpu_pol)
     cpu_obs = {k: v.to(cpu_dev) for k, v in buf.obs.items()}
-    runs["ulp_up"] = run(cpu_dev, cpu_pol, moved(cpu_obs, math.inf))
-    runs["ulp_down"] = run(cpu_dev, cpu_pol, moved(cpu_obs, -math.inf))
+    runs["ulp_up"] = run(cpu_dev, cpu_pol, testing.ulp_moved(cpu_obs, True))
+    runs["ulp_down"] = run(cpu_dev, cpu_pol,
+                           testing.ulp_moved(cpu_obs, False))
 
     top_mu = max(float(v.abs().max()) for v in cpu.mu.values())
     rows = []
