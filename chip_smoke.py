@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels with nvcc (one process per source, all in
-parallel), holds the threefry kernel (``csrc/threefry.cu``, every random
-draw of the port) to its plain version bit for bit on 16,384 keys x
+Builds the port's CUDA kernels with nvcc and the record log's codec
+with the host C++ compiler (one process per source, all in parallel),
+holds the threefry kernel (``csrc/threefry.cu``, every random draw of
+the port) to its plain version bit for bit on 16,384 keys x
 4,096 words and on ragged shapes, and the card's ``prng`` draws to
 jax.random's outputs carried here as constants (``THREEFRY_TABLE``),
 then drives these paths, each with its kernels' launch counts set to 0
@@ -66,7 +67,29 @@ just before and read just after (the threefry kernel's on every path):
   post-rollout state against the train path's slices (equal, or at the
   chained steps' bars with the reason printed), the first update at its
   rounding bars, ELOs, hyperparameters and parameters equal on both
-  ranks, the rate (two ranks sharing one card: not a scaling figure).
+  ranks, the rate (two ranks sharing one card: not a scaling figure);
+* record_path - ``python -m marl_hideandseek_torch.infer``'s ``main`` with
+  infer.sh's arguments as written (16 worlds, 2v2, ``--record-log``) but
+  500 steps, across two episode ends, on a policy checkpoint of 4 seeded
+  flagship policies: K4 every step, K1 on the resets; the log's frames
+  0, 239, 240 and 499 against the checkpoint records of the states the
+  loop held; frame 499 loaded through ``load_checkpoints`` (bodies bit
+  for bit, statics regenerated equal); K4 and K1 at 16 worlds against
+  their plain versions; ``replay`` and ``replay3d`` on the log; the
+  16-world step's time with and without recording;
+* viewer_path - a command script piped through the viewer with the
+  follow camera at 1 world: K3 per step, K1 on the init, loads and
+  resets, K5 per frame; ``n`` restores the state saved at ``m``; K3, K1
+  and K5 at 1 world against their plain versions;
+* tooluse_path - ``eval_tooluse`` on the train path's checkpoint at its
+  defaults (128 worlds, 480 steps): K4, K1; fractions in [0, 1] and the
+  seek-phase world-steps counted from the step counters;
+* nan_guard - one update of the train path's state with the NaN guards
+  on, then one from a state with a NaN planted in a parameter leaf,
+  which must raise naming it;
+* entry - ``entry.entry()``'s forward on the card against the CPU at
+  1e-5, TF32 off, and ``entry.dryrun_multichip(2)`` over 2 gloo ranks
+  sharing the card.
 
 After the build it prints each kernel entry's ptxas registers, stack and
 spills, megastep.cu's worlds per block, shared bytes per world and
@@ -102,8 +125,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -138,6 +163,19 @@ DP_RANKS = 2              # dp_path: ranks sharing the one card
 # bf16's 2^-8 step), on this many agents of the bf16 run's first step.
 BF16_BAR = 5e-2
 BF16_CHECK_AGENTS = 512
+RECORD_WORLDS = 16        # infer.sh's worlds
+RECORD_STEPS = 500        # crosses both episode ends (steps 239 and 479)
+RECORD_BYTES = 1044       # a 2v2 world's checkpoint record
+RECORD_CHECK = (0, 239, 240, 499)   # frames held to the loop's states
+RECORD_MOVING = 100       # the record run's state the K4 / K1 checks use
+RECORD_TIMED = 50         # steps per timing run, with and without the log
+RECORD_PAIRS = 3
+REPLAY_EVERY = 50
+REPLAY3D_EVERY = 25
+VIEWER_SCRIPT = "w w g l m d d n f q 3 r x"
+TOOLUSE_WORLDS = 128      # eval_tooluse's defaults
+TOOLUSE_STEPS = 480
+ENTRY_BAR = 1e-5
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 outside the tensor cores, FLOP/s.
@@ -300,6 +338,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(args, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(args, work: str) -> int:
+    """The phases of ``main``; ``work`` a directory for their files."""
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.ops import build, rays, step
@@ -317,7 +364,8 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["raycast", "megastep", "rgbd", "threefry"])
+    build.build(["raycast", "megastep", "rgbd", "threefry"],
+                host=["ckptlog"])
     phase("build", t0)
     for name in ("raycast", "megastep", "rgbd", "threefry"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
@@ -500,7 +548,7 @@ def main() -> int:
 
     # ---- 11. train path: train.sh's recipe at 1,024 worlds (K4, K1) ---------
     t0 = time.perf_counter()
-    training = train_path(dev, gpu)
+    training = train_path(dev, gpu, work)
     phase("train_path", t0)
 
     # ---- 12. the data-parallel update over one NCCL rank, bit for bit -------
@@ -520,10 +568,31 @@ def main() -> int:
     t0 = time.perf_counter()
     dp = dp_path(dev, gpu, training)
     phase("dp_path", t0)
+
+    # ---- 15. the record/replay path, the viewer, tool use, NaN guards and
+    # the entry points ----------------------------------------------------------
+    t0 = time.perf_counter()
+    record = record_path(dev, gpu, work)
+    phase("record_path", t0)
+    t0 = time.perf_counter()
+    view = viewer_path(dev, gpu, work)
+    phase("viewer_path", t0)
+    t0 = time.perf_counter()
+    tooluse = tooluse_path(dev, gpu, training["ckpt"])
+    phase("tooluse_path", t0)
+    t0 = time.perf_counter()
+    nan_guard(training["mgr"])
+    phase("nan_guard", t0)
+    t0 = time.perf_counter()
+    entry_phase(dev)
+    phase("entry", t0)
     paths = {"dp_launches": dp["launches"],
              "nccl1_launches": nccl1["launches"],
              "bf16_launches": bf16["launches"],
-             "train3v3_launches": v3["launches"]}
+             "train3v3_launches": v3["launches"],
+             "record_launches": record["launches"],
+             "viewer_launches": view["launches"],
+             "tooluse_launches": tooluse["launches"]}
 
     def new_paths(name):
         """A kernel's launches on the paths of this slice (per rank on
@@ -1086,13 +1155,13 @@ def check_slice_update(cfg, policy, cpu_policy, run, n, dev, kinds, label):
     return cmp["worst"]
 
 
-def train_path(dev, gpu):
+def train_path(dev, gpu, ckpt_dir: str):
     """Training at train.sh's recipe through the entry points of ``python
     -m marl_hideandseek_torch.train`` (its ``build``, ``init_training``,
     ``update_iter``, ``eval_elo``, PBT and checkpoints), float32 with TF32
     off: TRAIN_UPDATES updates, one ELO pass, ``explore_exploit`` and
-    ``refresh_past_policies`` on the card state, a checkpoint round trip,
-    and the first update's ``ppo_update`` on a TRAIN_CHECK_WORLDS slice of
+    ``refresh_past_policies`` on the card state, a checkpoint round trip
+    (its file kept in ``ckpt_dir``), and the first update's ``ppo_update`` on a TRAIN_CHECK_WORLDS slice of
     its buffer against the CPU's at its rounding bars. K4 on every rollout
     and eval step, K1 on the init and reset steps. Prints the training
     rate over updates 2 to TRAIN_UPDATES, rollout and PPO ms per update
@@ -1187,7 +1256,7 @@ def train_path(dev, gpu):
             f"{h2['entropy_coef'].tolist()}")
 
         # Checkpoint round trip.
-        path = mgr.save_ckpt(tmp)
+        path = mgr.save_ckpt(ckpt_dir)
         back = mgr.restore_ckpt(path)
         a, b = flat_tree(mgr.state_tree()), flat_tree(back.state_tree())
         require(a.keys() == b.keys() and all(same(a[k], b[k]) for k in a),
@@ -1227,7 +1296,7 @@ def train_path(dev, gpu):
         f"{PEAK_F32 / 1e12:.0f} TFLOP/s FP32 peak (least time "
         f"{flop / PEAK_F32 * 1e3:.3f} ms); ELOs {st.elo.tolist()}; "
         f"metrics {ring_means(metrics, TRAIN_UPDATES)}; {gpu}")
-    return dict(launches=launches, mgr=mgr, run=run, fps=fps)
+    return dict(launches=launches, mgr=mgr, run=run, fps=fps, ckpt=path)
 
 
 def dp_nccl_1(dev, mgr, gpu) -> dict:
@@ -1598,18 +1667,11 @@ def profile_update(mgr) -> None:
         log(f"  {t / 1e3:9.4f} ms {n:7d} calls  {key[:90]}")
 
 
-def flat_tree(tree, prefix="") -> dict:
+def flat_tree(tree) -> dict:
     """Nested dicts, tuples and lists -> {"a.b.0": leaf}."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (tuple, list)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(flat_tree(v, f"{prefix}.{k}" if prefix else str(k)))
-    return out
+    from marl_hideandseek_torch.train.manager import named_leaves
+
+    return named_leaves(tree)
 
 
 def same(a, b) -> bool:
@@ -1755,19 +1817,7 @@ def render_path(cfg, env, ps, random_actions, gpu):
     rgb_k, d_k = R.to_reference_layout(cfg, rgba[..., :k], depth[..., :k],
                                        hw, hw)
     rgb_p, d_p = plain.render_rgbd_packed(cfg, sub, hw, hw)
-    torch.cuda.synchronize()
-    d_err = max_err(d_k, d_p)
-    depth_ok = bool(torch.isclose(d_k, d_p, atol=1e-3, rtol=1e-4).all())
-    same = (rgb_k == rgb_p).all(-1)
-    frac = same.float().mean().item()
-    sky = d_p[..., 0] == 0
-    sky_ok = bool((same | ~sky).all())
-    log(f"K5 vs plain on {k} worlds: depth max err {d_err:.3g}, colours "
-        f"equal on {frac:.6f} of pixels, sky exact {sky_ok}, hit share "
-        f"{(~sky).float().mean().item():.4f}")
-    require(depth_ok, f"K5 depth beyond atol 1e-3 / rtol 1e-4 ({d_err})")
-    require(frac >= 0.995, f"K5 colours equal on {frac} < 0.995")
-    require(sky_ok, "K5 sky pixels differ from the plain renderer")
+    d_err = compare_k5(rgb_k, d_k, rgb_p, d_p, f"{k} worlds")
 
     ms = cuda_ms(lambda: R.render_rgbd_packed_fast(cfg, ps, hw, hw,
                                                    out=out), 10)
@@ -1790,6 +1840,28 @@ def render_path(cfg, env, ps, random_actions, gpu):
         plain_at_worlds=k, bound_ms=k5_bound, bound_by=k5_by,
         library_ms=None, exhaustive_ops=exhaustive,
         exhaustive_bound_ms=ex_bound))
+
+
+def compare_k5(rgb_k, d_k, rgb_p, d_p, label: str) -> float:
+    """K5's RGBD against the plain renderer's (reference layout): depth
+    within atol 1e-3 / rtol 1e-4, colours equal on >= 99.5 % of pixels,
+    sky pixels exact. Returns the depth's largest error."""
+    torch.cuda.synchronize()
+    d_err = max_err(d_k, d_p)
+    depth_ok = bool(torch.isclose(d_k, d_p, atol=1e-3, rtol=1e-4).all())
+    same = (rgb_k == rgb_p).all(-1)
+    frac = same.float().mean().item()
+    sky = d_p[..., 0] == 0
+    sky_ok = bool((same | ~sky).all())
+    log(f"K5 vs plain on {label}: depth max err {d_err:.3g}, colours "
+        f"equal on {frac:.6f} of pixels, sky exact {sky_ok}, hit share "
+        f"{(~sky).float().mean().item():.4f}")
+    require(depth_ok, f"K5 ({label}) depth beyond atol 1e-3 / rtol 1e-4 "
+            f"({d_err})")
+    require(frac >= 0.995, f"K5 ({label}) colours equal on {frac} < 0.995")
+    require(sky_ok, f"K5 ({label}) sky pixels differ from the plain "
+            f"renderer")
+    return d_err
 
 
 def classic_path(dev, random_actions, gpu):
@@ -2295,6 +2367,336 @@ def rgbd_least_ops(depth: torch.Tensor) -> float:
     hits = (depth > 0).sum().item()
     return (OPS_PIXEL_RAY * depth.numel() +
             (OPS_PIXEL_SHADE + OPS_RAY_PLANE) * hits)
+
+
+# -- slice 9: the record/replay path, the viewer, tool use, NaN guards, entry --
+
+def check_bodies_small(where: str, bk, bp) -> float:
+    """One launch's bodies against the plain version's at a few worlds:
+    TIGHT on >= LIVE_SHARE of all elements (too few for ``check_bodies``'s
+    live-element floor). Returns the largest error."""
+    err = 0.0
+    for name, tol in TIGHT.items():
+        a, p_ = getattr(bk, name), getattr(bp, name)
+        err = max(err, max_err(a, p_))
+        fr = frac_close(a, p_, tol)
+        require(fr >= LIVE_SHARE, f"{where} {name}: {fr} within {tol}")
+    return err
+
+
+def check_k4_small(cfg, ps, acts, label: str) -> float:
+    """One K4 launch against its plain version on packed ``ps``: bodies
+    as in ``check_bodies_small``, the sweep as in ``check_sweep``,
+    rewards, dones, locks, grabs and scores exact."""
+    from marl_hideandseek_torch.ops import step
+
+    rk = step.megastep_packed(cfg, ps, acts)
+    rp = step.megastep_plain(cfg, ps, acts)
+    torch.cuda.synchronize()
+    where = f"K4 {label}"
+    err = check_bodies_small(where, rk[0].bodies, rp[0].bodies)
+    note = check_sweep(where, rk[1], rp[1])
+    for i, name in ((2, "rewards"), (3, "dones")):
+        require(bool((rk[i] == rp[i]).all()), f"{where} {name}")
+    for name in ("locked", "owner"):
+        require(torch.equal(getattr(rk[0].bodies, name),
+                            getattr(rp[0].bodies, name)), f"{where} {name}")
+    require(torch.equal(rk[0].grab.target, rp[0].grab.target) and
+            torch.equal(rk[0].running_scores, rp[0].running_scores),
+            f"{where} grabs or scores")
+    log(f"{where}: body max err {err:.3g}; {note}")
+    return err
+
+
+def record_path(dev, gpu, work: str) -> dict:
+    """infer.sh's run on the card, recorded, then replayed (module
+    docstring). Returns the launches of the infer run and the replays."""
+    from unittest import mock
+
+    from marl_hideandseek_torch import bridge, infer, replay, replay3d
+    from marl_hideandseek_torch.env.checkpoint import (
+        pack_checkpoints,
+        save_checkpoints,
+    )
+    from marl_hideandseek_torch.env.packed import PackedEnv
+    from marl_hideandseek_torch.types import unpack_state
+    from marl_hideandseek_torch.utils.ckptlog import CkptLogReader
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    policy, params = seeded_policy(dev, gen)
+    norm = policy.obs_preprocess
+    ckpt = os.path.join(work, "policies.pt")
+    log_path = os.path.join(work, "record.bin")
+    argv = ["--ckpt-path", ckpt, "--num-worlds", str(RECORD_WORLDS),
+            "--num-steps", str(RECORD_STEPS), "--num-hiders", "2",
+            "--num-seekers", "2", "--record-log", log_path, "--device",
+            str(dev)]
+    cfg = infer.infer_config(infer.parse_args(argv))
+    small = PackedEnv(cfg, device=dev)
+    stats = seeded_stats(norm, flat_obs(norm, small.init()[1].obs), gen)
+    bridge.save_policy_checkpoint(ckpt, params, stats,
+                                  [1500.0] * SERVE_POLICIES)
+    held = {}
+    run_inference = infer.run_inference
+
+    def holding(env, *a, state_cb=None, **kw):
+        held["env"] = env
+
+        def cb(i, ps):
+            state_cb(i, ps)
+            if i in RECORD_CHECK or i == RECORD_MOVING:
+                held[i] = ps.map(snapshot)
+        return run_inference(env, *a, state_cb=cb, **kw)
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(infer, "run_inference", holding):
+        require(infer.main(argv) == 0, "record path: infer main failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    env = held["env"]
+    require(launches["megastep"] == RECORD_STEPS and
+            launches["raycast"] > 0 and env.reset_counts["full"] == 2,
+            f"record path: launches {launches}, resets {env.reset_counts}")
+    with CkptLogReader(log_path) as r:
+        shape = (r.num_frames, r.num_worlds, r.frame_bytes)
+        require(shape == (RECORD_STEPS, RECORD_WORLDS, RECORD_BYTES),
+                f"record path: log of {shape}")
+        for i in RECORD_CHECK:
+            want = pack_checkpoints(save_checkpoints(
+                cfg, unpack_state(held[i]))).cpu().numpy()
+            require((r.read(i) == want).all(), f"record path: frame {i} "
+                    f"differs from the state the loop held")
+        renv = replay.replay_env(r, 2, 2, dev)
+        *_, (i_last, loaded) = replay.replay_states(r, renv,
+                                                    RECORD_STEPS - 1)
+    require(i_last == RECORD_STEPS - 1, f"record path: frame {i_last}")
+    final = unpack_state(held[RECORD_STEPS - 1])
+    require(all(same(a, b) for a, b in zip(
+        [*loaded.bodies.leaves(), *loaded.statics.leaves(),
+         *loaded.grab.leaves(), loaded.step, loaded.agent_type],
+        [*final.bodies.leaves(), *final.statics.leaves(),
+         *final.grab.leaves(), final.step, final.agent_type])),
+        "record path: frame 499 does not load the run's bodies and statics")
+    frame_mb = os.path.getsize(log_path) / 1e6
+    log(f"record path: infer.sh's arguments, {RECORD_STEPS} steps x "
+        f"{RECORD_WORLDS} worlds in {wall:.3f} s with the log "
+        f"({frame_mb:.3f} MB, {RECORD_BYTES} B a world); frames "
+        f"{RECORD_CHECK} equal the loop's states; frame "
+        f"{RECORD_STEPS - 1} reloads bodies and statics bit for bit; resets "
+        f"{env.reset_counts}; launches {launches}; {gpu}")
+
+    # The replays, counted with the record run.
+    out_png = os.path.join(work, "replay")
+    out_html = os.path.join(work, "replay.html")
+    t0 = time.perf_counter()
+    require(replay.main([log_path, "--out", out_png, "--every",
+                         str(REPLAY_EVERY), "--num-hiders", "2",
+                         "--num-seekers", "2", "--device", str(dev)]) == 0,
+            "replay failed")
+    t_png = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(replay3d.main([log_path, "--out", out_html, "--every",
+                           str(REPLAY3D_EVERY), "--num-hiders", "2",
+                           "--num-seekers", "2", "--device", str(dev)]) == 0,
+            "replay3d failed")
+    t_html = time.perf_counter() - t0
+    pngs = sorted(os.listdir(out_png))
+    n_png = RECORD_STEPS // REPLAY_EVERY
+    require(len(pngs) == n_png, f"replay wrote {len(pngs)} frames, "
+            f"expected {n_png}")
+    launches = read_counts()      # the infer run and the replays
+    log(f"replay: {len(pngs)} PNG frames, "
+        f"{sum(os.path.getsize(os.path.join(out_png, f)) for f in pngs)} B, "
+        f"{t_png:.3f} s; replay3d: {os.path.getsize(out_html)} B of HTML, "
+        f"{RECORD_STEPS // REPLAY3D_EVERY} frames, {t_html:.3f} s; "
+        f"launches with the infer run {launches}")
+
+    # K4 and K1 at 16 worlds against their plain versions.
+    moving = held[RECORD_MOVING]
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    acts = torch.cat([
+        torch.randint(0, 5, (cfg.max_agents, 3, RECORD_WORLDS), generator=g,
+                      device=dev),
+        torch.randint(0, 2, (cfg.max_agents, 2, RECORD_WORLDS), generator=g,
+                      device=dev)], 1).to(torch.int32)
+    k4_err = check_k4_small(cfg, moving, acts,
+                            f"record step {RECORD_MOVING}, 16 worlds")
+    k1 = check_k1(cfg, moving, f"record step {RECORD_MOVING}, 16 worlds")
+
+    # The 16-world step with and without the log, in turns; in the
+    # recording runs, the host time inside the log's callback as well.
+    timed = {"plain": [], "recording": [], "callback": []}
+    tenv = PackedEnv(cfg, device=dev)
+    run_inference(tenv, policy, params, stats, 10)
+    for kind in ("plain", "recording") * RECORD_PAIRS:
+        cb, spent = None, [0.0]
+        if kind == "recording":
+            rec = infer.RecordLog(cfg, os.path.join(work, "timed.bin"))
+
+            def cb(i, ps):
+                t = time.perf_counter()
+                rec(i, ps)
+                spent[0] += time.perf_counter() - t
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_inference(tenv, policy, params, stats, RECORD_TIMED,
+                      state_cb=cb)
+        torch.cuda.synchronize()
+        timed[kind].append((time.perf_counter() - t0) / RECORD_TIMED * 1e3)
+        if cb is not None:
+            rec.close()
+            timed["callback"].append(spent[0] / RECORD_TIMED * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in timed.items()}
+    log(f"record cost: a {RECORD_WORLDS}-world infer step (4 policies, "
+        f"{RECORD_TIMED} steps a run, {RECORD_PAIRS} pairs in turns, wall "
+        f"with a sync at the end) "
+        f"{[round(x, 3) for x in timed['plain']]} ms without the log, "
+        f"{[round(x, 3) for x in timed['recording']]} ms with it, of which "
+        f"{[round(x, 3) for x in timed['callback']]} ms in the log's "
+        f"callback (record, copy to the host, write); medians "
+        f"{med['plain']:.3f} / {med['recording']:.3f} / "
+        f"{med['callback']:.3f} ms: the callback is "
+        f"{med['callback'] / med['plain'] * 100:.1f} % of a step without "
+        f"the log; {gpu}")
+    return dict(launches=launches, k4_err=k4_err, k1=k1, timed=med)
+
+
+def viewer_path(dev, gpu, work: str) -> dict:
+    """VIEWER_SCRIPT through the viewer with the follow camera at one world
+    (module docstring). Returns the launches."""
+    from marl_hideandseek_torch import viewer
+    from marl_hideandseek_torch.ops import fused
+    from marl_hideandseek_torch.ops import rgbd as R
+    from marl_hideandseek_torch.types import pack_state
+    from marl_hideandseek_torch.viz import rgbd as plain
+
+    zero_counts()
+    t0 = time.perf_counter()
+    v = viewer.Viewer(os.path.join(work, "viewer"), follow=True, device=dev)
+    saved, checked = None, None
+    for cmd in VIEWER_SCRIPT.split():
+        before = v.state
+        v.command(cmd)
+        if cmd == "m":
+            saved = before.map(snapshot)
+        if cmd == "n":
+            checked = v.state.replace(hider_team_reward=saved.hider_team_reward)
+            require(all(same(a, b) for a, b in zip(checked.leaves(),
+                                                   saved.leaves())),
+                    "viewer path: n did not restore the state saved at m")
+        if cmd == "l":
+            moving = v.state.map(snapshot)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = sum(1 for c in VIEWER_SCRIPT.split() if c not in "mnfx")
+    require(checked is not None, "viewer path: no load")
+    require(launches["fused"] == steps and launches["raycast"] > 0 and
+            launches["rgbd"] > 0,
+            f"viewer path: launches {launches} for {steps} steps")
+    log(f"viewer path: script {VIEWER_SCRIPT!r}, {len(v.written)} frames "
+        f"written in {wall:.3f} s ({steps} steps, follow camera until 'f'); "
+        f"'n' restored the state saved at 'm'; launches {launches}; {gpu}")
+
+    # K3, K1 and K5 at one world against their plain versions.
+    cfg = v.cfg
+    ps = pack_state(moving)
+    acts = torch.from_numpy(viewer.key_action("w", cfg.max_agents, 0)).to(
+        dev).permute(1, 2, 0).contiguous()
+    ps, ext_f, ext_t = pre_physics(cfg, ps, acts)
+    bk, sk = fused.fused_step_packed(cfg, ps, ext_f, ext_t)
+    bp, sp = fused.fused_step_plain(cfg, ps, ext_f, ext_t)
+    torch.cuda.synchronize()
+    k3_err = check_bodies_small("K3 viewer, 1 world", bk, bp)
+    note = check_sweep("K3 viewer, 1 world", sk, sp)
+    log(f"K3 viewer, 1 world: body max err {k3_err:.3g}; {note}")
+    k1 = check_k1(cfg, ps, "viewer, 1 world")
+    rgba, depth = R.render_rgbd_packed_fast(cfg, ps, RENDER_HW, RENDER_HW)
+    rgb_k, d_k = R.to_reference_layout(cfg, rgba, depth, RENDER_HW,
+                                       RENDER_HW)
+    rgb_p, d_p = plain.render_rgbd_packed(cfg, ps, RENDER_HW, RENDER_HW)
+    k5_err = compare_k5(rgb_k, d_k, rgb_p, d_p, "the viewer's 1 world")
+    return dict(launches=launches, k3_err=k3_err, k1=k1, k5_err=k5_err)
+
+
+def tooluse_path(dev, gpu, ckpt: str) -> dict:
+    """``eval_tooluse`` at its defaults on the train path's checkpoint
+    (module docstring). Returns the launches."""
+    from marl_hideandseek_torch import eval_tooluse
+    from marl_hideandseek_torch.config import EPISODE_LEN, NUM_PREP_STEPS
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eval_tooluse.eval_ckpt(ckpt, TOOLUSE_WORLDS, TOOLUSE_STEPS,
+                                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    seek = TOOLUSE_WORLDS * sum(1 for i in range(TOOLUSE_STEPS)
+                                if i % EPISODE_LEN >= NUM_PREP_STEPS - 1)
+    fracs = {k: v for k, v in out.items() if k.endswith("_frac")}
+    require(out["seek_steps"] == seek, f"tooluse path: {out['seek_steps']} "
+            f"seek world-steps, the step counters give {seek}")
+    require(len(fracs) == 5 and all(0.0 <= v <= 1.0 for v in fracs.values()),
+            f"tooluse path: fractions {fracs}")
+    require(launches["megastep"] == TOOLUSE_STEPS and launches["raycast"] > 0,
+            f"tooluse path: launches {launches}")
+    log(f"tooluse path: {os.path.basename(ckpt)}, {TOOLUSE_STEPS} steps x "
+        f"{TOOLUSE_WORLDS} worlds in {wall:.3f} s; {out}; launches "
+        f"{launches}; {gpu}")
+    return dict(launches=launches)
+
+
+def nan_guard(mgr) -> None:
+    """One update of ``mgr`` with the NaN guards on passes; one from a
+    state with a NaN planted in a parameter leaf raises naming it."""
+    from marl_hideandseek_torch.utils import runtime
+
+    leaf = "backbone.critic_encoder.rnn.layer_0_hh.kernel"
+    runtime.enable_nan_guards(True)
+    try:
+        t0 = time.perf_counter()
+        mgr.update_iter()
+        torch.cuda.synchronize()
+        t_on = time.perf_counter() - t0
+        bad = dict(mgr.state.params)
+        bad[leaf] = bad[leaf].clone()
+        bad[leaf].view(-1)[123] = float("nan")
+        try:
+            mgr.replace(state=mgr.state.replace(params=bad)).update_iter()
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            msg = ""
+    finally:
+        runtime.enable_nan_guards(False)
+    require(f"params.{leaf} " in msg, f"nan_guard: the planted NaN raised "
+            f"{msg!r}")
+    log(f"nan_guard: one guarded update (anomaly detection on) in "
+        f"{t_on:.3f} s; the planted NaN raised: {msg}")
+
+
+def entry_phase(dev) -> None:
+    """``entry()``'s forward on the card against the CPU at ENTRY_BAR,
+    then ``dryrun_multichip(2)`` over 2 gloo ranks sharing the card."""
+    from marl_hideandseek_torch import entry
+
+    fn, args = entry.entry(dev)
+    got = fn(*args)
+    cfn, cargs = entry.entry("cpu")
+    want = cfn(*cargs)
+    flat = lambda o: [o[0], o[1], *[x for enc in o[2] for x in enc]]
+    err = max(max_err(a.cpu(), b) for a, b in zip(flat(got), flat(want)))
+    require(err <= ENTRY_BAR, f"entry: card vs CPU {err} > {ENTRY_BAR}")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(DP_RANKS, device=str(dev), backend="gloo")
+    log(f"entry: forward on 8 agents, card vs CPU max abs err {err:.3g} "
+        f"(TF32 off); dryrun_multichip({DP_RANKS}) over gloo ranks sharing "
+        f"the card in {time.perf_counter() - t0:.3f} s")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ a *levelgen* (``env/episode.py``: by default the port's level
 generator, which draws JAX's level from the keys, so a JAX checkpoint
 loads as it is) and then overwrites the dynamic state.
 ``pack_checkpoints`` / ``unpack_checkpoints`` give the flat ``[W, nbytes]`` u8 records of the JAX package, byte for
-byte (field order, little-endian values, bools as one byte).
+byte (field order, little-endian values, bools as one byte);
+``record_frame`` is that record of packed state, a frame of the record
+log (``utils/ckptlog.py``).
 
 Checkpoints are world-major (world axis first), like the classic env's
 state.
@@ -29,6 +31,21 @@ from marl_hideandseek_torch.types import (
     on_bits,
     unpack_state,
 )
+
+
+def _checkpoint(state: EnvState, leaf) -> "Checkpoint":
+    """The Checkpoint of ``state``'s leaves, each passed through ``leaf``."""
+    b, g = state.bodies, state.grab
+    ckpt = Checkpoint(
+        ep_key=state.ep_key, level_key=state.level_key, step=state.step,
+        running_scores=state.running_scores,
+        finished_scores=state.finished_scores,
+        seekers_first=state.seekers_first, num_hiders=state.num_hiders,
+        num_seekers=state.num_seekers, pos=b.pos, quat=b.quat, vel=b.vel,
+        omega=b.omega, locked=b.locked, owner=b.owner,
+        grab_target=g.target, grab_r2=g.r2, grab_rel_q=g.rel_q,
+        grab_sep=g.sep)
+    return ckpt.map(on_bits(leaf))
 
 
 @dataclasses.dataclass
@@ -76,17 +93,7 @@ def checkpoint_layout(cfg: EnvConfig):
 
 def save_checkpoints(cfg: EnvConfig, state: EnvState) -> Checkpoint:
     """Snapshot every world of world-major ``state`` (copies)."""
-    b, g = state.bodies, state.grab
-    ckpt = Checkpoint(
-        ep_key=state.ep_key, level_key=state.level_key, step=state.step,
-        running_scores=state.running_scores,
-        finished_scores=state.finished_scores,
-        seekers_first=state.seekers_first, num_hiders=state.num_hiders,
-        num_seekers=state.num_seekers, pos=b.pos, quat=b.quat, vel=b.vel,
-        omega=b.omega, locked=b.locked, owner=b.owner,
-        grab_target=g.target, grab_r2=g.r2, grab_rel_q=g.rel_q,
-        grab_sep=g.sep)
-    return ckpt.map(on_bits(lambda x: x.clone()))
+    return _checkpoint(state, lambda x: x.clone())
 
 
 def load_checkpoints(cfg: EnvConfig, state: EnvState, ckpt: Checkpoint,
@@ -134,14 +141,31 @@ def pack_checkpoints(ckpt: Checkpoint) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def record_frame(cfg: EnvConfig, ps: EnvState) -> torch.Tensor:
+    """``pack_checkpoints(save_checkpoints(cfg, unpack_state(ps)))`` of
+    packed state ``ps``: the ``[W, nbytes]`` u8 record of every world,
+    moving only the checkpoint's leaves to world-major (one copy each)."""
+    return pack_checkpoints(_checkpoint(
+        ps, lambda x: torch.movedim(x, -1, 0).contiguous()))
+
+
 def unpack_checkpoints(cfg: EnvConfig, packed: torch.Tensor) -> Checkpoint:
     """Inverse of ``pack_checkpoints``."""
     w = packed.shape[0]
+    layout = [(name, shape, dtype,
+               {torch.bool: torch.uint8,
+                torch.uint32: torch.int32}.get(dtype, dtype))
+              for name, shape, dtype in checkpoint_layout(cfg)]
+    want = sum(math.prod(shape) * store.itemsize
+               for _, shape, _, store in layout)
+    if packed.shape[1] != want:
+        raise ValueError(f"checkpoint record of {packed.shape[1]} bytes, "
+                         f"expected {want} for {cfg.max_hiders} hiders, "
+                         f"{cfg.max_seekers} seekers, {cfg.max_boxes} boxes "
+                         f"and {cfg.max_ramps} ramps")
     out = {}
     off = 0
-    for name, shape, dtype in checkpoint_layout(cfg):
-        store = {torch.bool: torch.uint8,
-                 torch.uint32: torch.int32}.get(dtype, dtype)
+    for name, shape, dtype, store in layout:
         nbytes = math.prod(shape) * store.itemsize
         chunk = packed[:, off:off + nbytes].contiguous().view(store)
         off += nbytes
@@ -151,7 +175,4 @@ def unpack_checkpoints(cfg: EnvConfig, packed: torch.Tensor) -> Checkpoint:
         elif dtype == torch.uint32:
             vals = vals.view(torch.uint32)
         out[name] = vals
-    if off != packed.shape[1]:
-        raise ValueError(f"checkpoint record of {packed.shape[1]} bytes, "
-                         f"expected {off}")
     return Checkpoint(**out)

@@ -3,15 +3,20 @@ env (port of scripts/infer.py).
 
     python -m marl_hideandseek_torch.infer --ckpt-path FILE
         [--num-worlds 16] [--num-steps 3600] [--num-hiders 3]
-        [--num-seekers 3] [--deterministic] [--single-policy K]
-        [--train-only] [--bf16] [--print-obs] [--device cuda|cpu]
+        [--num-seekers 3] [--record-log PATH] [--deterministic]
+        [--single-policy K] [--train-only] [--bf16] [--print-obs]
+        [--device cuda|cpu]
 
 Loads a checkpoint written by ``bridge.save_policy_checkpoint`` (any
 ensemble size; a JAX orbax checkpoint converts to one, README.md), runs
 episodes on a fixed world (``UseFixedWorld | ZeroAgentVelocity``, seed
 5) with round-robin team-against-team matchups, and prints the episode
 scores, the wins per team slot and the policies' ELOs. The loop is
-``run_inference``.
+``run_inference``. With ``--record-log`` every step's worlds are written
+to a checkpoint record log (``utils/ckptlog.py``), frame ``i`` the
+checkpoint record of the state after step ``i``
+(``env/checkpoint.py::record_frame``), which ``replay`` and ``replay3d``
+render. infer.sh's arguments run as written.
 """
 
 from __future__ import annotations
@@ -25,18 +30,21 @@ import torch
 
 from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch.env.checkpoint import record_frame
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
 from marl_hideandseek_torch.policy import make_policy
 from marl_hideandseek_torch.train.elo import print_elos
 from marl_hideandseek_torch.train.evaluate import eval_load_ckpt
 from marl_hideandseek_torch.train.rollout import apply_ensemble
-from marl_hideandseek_torch.types import AGENT_HIDER
+from marl_hideandseek_torch.types import AGENT_HIDER, EnvState
+from marl_hideandseek_torch.utils.ckptlog import CkptLogWriter
 
 
 def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
                   num_steps: int, *, deterministic: bool = False,
                   iter_cb: Optional[Callable] = None,
+                  state_cb: Optional[Callable[[int, EnvState], None]] = None,
                   timing: bool = False) -> dict:
     """``num_steps`` steps of the packed env from ``env.init(PRNGKey(7))``,
     the policies' actions from ``apply_ensemble`` (``best()`` when
@@ -51,8 +59,10 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     prepped but not normalized, ``rnn``, ``assignments``), its outputs
     (``logits``, ``values``), the ``actions``, the recurrent state after
     the clear (``rnn_next``), the per-world ``dones`` and the env's
-    ``result``. With ``timing`` (CUDA only), CUDA events time each step's
-    forward (normalize, ensemble, action draw) and env step.
+    ``result``. ``state_cb(i, env_state)`` gets the packed state after
+    step ``i`` (the record log's hook). With ``timing`` (CUDA only), CUDA
+    events time each step's forward (normalize, ensemble, action draw) and
+    env step.
 
     Returns the wins per team slot ``[2]``, the episodes finished, and
     with ``timing`` the mean forward and env-step milliseconds."""
@@ -114,6 +124,8 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
                          "values": values, "actions": actions,
                          "rnn_next": rnn_next, "dones": dones_w,
                          "result": result})
+            if state_cb is not None:
+                state_cb(i, env_state)
             obs, rnn = flat(result.obs), rnn_next
     out = {"wins": wins, "episodes_finished": int(finished)}
     if timing:
@@ -125,6 +137,32 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     return out
 
 
+class RecordLog:
+    """``state_cb`` of ``run_inference`` that appends each step's
+    checkpoint record to a record log at ``path``, opened at the first
+    frame (a run of no steps writes no file): the record is computed on
+    the env's device and copied to the host. (A pinned copy written a
+    step later measured the same on the card: the cost is dispatching the
+    record's ops, not waiting for the copy.)"""
+
+    def __init__(self, cfg: EnvConfig, path: str):
+        self.cfg = cfg
+        self.path = path
+        self.writer: Optional[CkptLogWriter] = None
+        self.frames = 0
+
+    def __call__(self, step: int, env_state: EnvState) -> None:
+        frame = record_frame(self.cfg, env_state).cpu()
+        if self.writer is None:
+            self.writer = CkptLogWriter(self.path, *frame.shape)
+        self.writer.append(frame)
+        self.frames += 1
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ckpt-path", type=str, required=True)
@@ -132,6 +170,9 @@ def parse_args(argv=None):
     p.add_argument("--num-steps", type=int, default=3600)
     p.add_argument("--num-hiders", type=int, default=3)
     p.add_argument("--num-seekers", type=int, default=3)
+    p.add_argument("--record-log", type=str, default=None,
+                   help="write every step's checkpoint records to this "
+                        "record log")
     p.add_argument("--print-obs", action="store_true")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--deterministic", action="store_true")
@@ -143,16 +184,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    cfg = EnvConfig(
+def infer_config(args) -> EnvConfig:
+    """The env configuration of ``main``'s arguments: a fixed world,
+    ``UseFixedWorld | ZeroAgentVelocity``, seed 5."""
+    return EnvConfig(
         num_worlds=args.num_worlds,
         min_hiders=args.num_hiders, max_hiders=args.num_hiders,
         min_seekers=args.num_seekers, max_seekers=args.num_seekers,
         sim_flags=SimFlags.UseFixedWorld | SimFlags.ZeroAgentVelocity,
         rand_seed=5,
     )
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    cfg = infer_config(args)
     env = PackedEnv(cfg, device=args.device)
     policy = make_policy(dtype=dtype, device=env.device)
     params, obs_stats, elo = eval_load_ckpt(
@@ -168,10 +215,18 @@ def main(argv=None) -> int:
             print({k: v[0, 0].cpu().numpy()
                    for k, v in d["result"].obs.items()})
 
-    out = run_inference(env, policy, params, obs_stats, args.num_steps,
-                        deterministic=args.deterministic, iter_cb=report)
+    record = RecordLog(cfg, args.record_log) if args.record_log else None
+    try:
+        out = run_inference(env, policy, params, obs_stats, args.num_steps,
+                            deterministic=args.deterministic, iter_cb=report,
+                            state_cb=record)
+    finally:
+        if record is not None:
+            record.close()
     print(f"total wins by team slot: {out['wins'].cpu().numpy()}")
     print_elos(elo)
+    if record is not None and record.writer is not None:
+        print(f"checkpoint record log -> {args.record_log}")
     return 0
 
 

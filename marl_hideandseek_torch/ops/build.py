@@ -7,6 +7,10 @@ Libraries are built at first use into ``_build/`` beside the package
 written under a temporary name and renamed so that parallel processes
 never load a half-written file. ``-Xptxas -v`` output (registers, spills)
 is kept beside each library.
+
+Host code (``csrc/<name>.cpp``, the checkpoint record log) builds the same
+way with the host C++ compiler (``load_host``). A failed build raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -48,25 +52,44 @@ def find_nvcc() -> str:
         "PATH (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin)")
 
 
-def _paths(name: str):
-    src = CSRC / f"{name}.cu"
+# Host libraries: plain C++ with a C interface.
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+
+
+def find_cxx() -> str:
+    """``$CXX``, else ``c++`` or ``g++`` on ``PATH``."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(c) if c else None
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler: set CXX or put c++ or g++ on "
+                       "PATH")
+
+
+def _paths(name: str, host: bool = False):
+    src = CSRC / (f"{name}.cpp" if host else f"{name}.cu")
     h = hashlib.sha1(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
-        h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    if not host:
+        for hdr in sorted(CSRC.glob("*.cuh")):
+            h.update(hdr.read_bytes())
+    h.update(" ".join(HOST_FLAGS if host else NVCC_FLAGS).encode())
     stem = f"{name}-{h.hexdigest()[:12]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; (proc, ...)."""
-    src, so, log = _paths(name)
+def _start(name: str, host: bool = False):
+    """Start the compiler for ``name`` unless its library exists; (proc,
+    ...)."""
+    src, so, log = _paths(name, host)
     if so.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(src)]
+    if host:
+        cmd = [find_cxx(), *HOST_FLAGS, "-o", str(tmp), str(src)]
+    else:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so, log, cmd
@@ -78,14 +101,17 @@ def _finish(job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            f"{Path(cmd[0]).name} failed ({proc.returncode}): "
+            f"{' '.join(cmd)}\n{out}")
     log.write_text(out)
     os.replace(tmp, so)
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile the named sources in parallel (one nvcc each)."""
-    jobs = [j for j in (_start(n) for n in names) if j is not None]
+def build(names: Iterable[str], host: Iterable[str] = ()) -> None:
+    """Compile the named CUDA sources and ``host`` C++ sources in
+    parallel (one compiler process each)."""
+    jobs = [j for j in [*(_start(n) for n in names),
+                        *(_start(n, True) for n in host)] if j is not None]
     errors: List[Exception] = []
     for job in jobs:
         try:
@@ -110,16 +136,24 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, host: bool = False) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (``csrc/<name>.cpp`` with
+    ``host``), built on first use."""
+    tag = f"host:{name}" if host else name
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(tag)
         if lib is None:
-            build([name])
-            _, so, _ = _paths(name)
+            build([] if host else [name], [name] if host else [])
+            _, so, _ = _paths(name, host)
             lib = ctypes.CDLL(str(so))
-            _LIBS[name] = lib
+            _LIBS[tag] = lib
         return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, built with the host
+    C++ compiler on first use."""
+    return load(name, host=True)
 
 
 class CudaKernel:

@@ -19,7 +19,11 @@ so a file moves between runs of any rank count.
 
 JAX compiles an update into one program with ``aot_compile``; here each
 update is eager PyTorch on the env's device, so ``aot_compile`` and
-``cfg_jax_mem`` have no counterpart. Every draw comes from the state's
+``cfg_jax_mem`` have no counterpart. The NaN guards that ``aot_compile``
+turns on under ``MHS_NAN_GUARDS`` are ``utils/runtime.py``'s here: while
+they are on, ``update_iter`` checks the state before and after
+(``guard_state``) with the rollout's rewards, ``eval_elo`` the state
+after, and the PPO update's backward runs under anomaly detection. Every draw comes from the state's
 keys, split in the JAX version's order (``prng.py``), so the same seed
 gives JAX's training state and draws.
 """
@@ -60,11 +64,34 @@ from marl_hideandseek_torch.train.rollout import (
     collect_rollout,
 )
 from marl_hideandseek_torch.types import AGENT_HIDER
-from marl_hideandseek_torch.utils.runtime import sync_hosts
+from marl_hideandseek_torch.utils.runtime import (
+    anomaly_mode,
+    check_finite,
+    nan_guards_on,
+    sync_hosts,
+)
 
 METRIC_KEYS = ("loss", "action_loss", "value_loss", "entropy",
                "dropped_agent_frac", "mean_reward", "hidden_frac",
                "lock_rate", "grab_rate", "ramp_lock_rate", "ramp_move_rate")
+
+
+# State leaves that hold +inf by design: a ray's miss.
+PLUS_INF_LEAVES = ("rollout.env_state.act_hit_t",)
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """Nested dicts, tuples and lists -> ``{"a.b.0": leaf}``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(named_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 def ring_scalar(buf) -> float:
@@ -149,6 +176,9 @@ class TrainingManager:
         rollout's finished episodes, then PBT on the incremented update
         count."""
         cfg, st, mesh = self.cfg, self.state, self.mesh
+        guard = nan_guards_on()
+        if guard:
+            self.guard_state(f"before update {st.update_idx}")
         norm = self.policy.obs_preprocess
         new_rollout, buffer, roll_metrics = collect_rollout(
             cfg, self.env, self.policy, self.all_params(), st.obs_stats,
@@ -160,9 +190,10 @@ class TrainingManager:
             k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()},
             mesh)
         key, k_ppo, k_pbt = prng.split(st.key, 3).unbind(0)
-        params, opt_states, value_stats, ppo_metrics = ppo_update(
-            cfg, self.policy, st.params, st.opt_states, obs_stats,
-            st.value_stats, st.hyper_params, buffer, k_ppo, mesh)
+        with anomaly_mode():
+            params, opt_states, value_stats, ppo_metrics = ppo_update(
+                cfg, self.policy, st.params, st.opt_states, obs_stats,
+                st.value_stats, st.hyper_params, buffer, k_ppo, mesh)
 
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
@@ -192,7 +223,11 @@ class TrainingManager:
         for k, v in scalars.items():
             if k in metrics:
                 metrics[k][slot] = v
-        return self.replace(state=new_state.replace(metrics=metrics))
+        out = self.replace(state=new_state.replace(metrics=metrics))
+        if guard:
+            out.guard_state(f"after update {update_idx}",
+                            {"rollout.rewards": buffer.rewards})
+        return out
 
     def eval_elo(self, num_steps: Optional[int] = None) -> "TrainingManager":
         """A dedicated ELO pass (manager.py:251-289): ``num_steps``
@@ -220,7 +255,22 @@ class TrainingManager:
             st.elo, *elo_mod.matches_from_episode_results(
                 metrics["episode_results"], metrics["team_pol"],
                 metrics["dones_w"]), mesh)
-        return self.replace(state=st.replace(elo=elo))
+        out = self.replace(state=st.replace(elo=elo))
+        if nan_guards_on():
+            out.guard_state(f"after eval_elo at update {st.update_idx}",
+                            {"eval.episode_results":
+                             metrics["episode_results"]})
+        return out
+
+    def guard_state(self, where: str, extra=None) -> None:
+        """Raise naming the first non-finite floating leaf of the state
+        (``state_tree``'s names, ``act_hit_t``'s +inf on a miss allowed)
+        or of ``extra`` (name -> tensor); one reduction each and one copy
+        to the host. ``update_iter`` and ``eval_elo`` call it while the NaN
+        guards are on."""
+        leaves = named_leaves(self.state_tree())
+        leaves.update(extra or {})
+        check_finite(leaves, where, PLUS_INF_LEAVES)
 
     # -- checkpoints and logging ------------------------------------------
 

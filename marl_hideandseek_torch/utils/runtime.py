@@ -1,20 +1,85 @@
-"""Runtime helpers for runs of several processes: process-group bring-up,
-a barrier, the primary-rank test and a metric mean across ranks.
+"""Runtime helpers: NaN guards for training, and for runs of several
+processes the process-group bring-up, a barrier, the primary-rank test and
+a metric mean across ranks.
 
-Port of ``marl_hideandseek_tpu/utils/runtime.py:63-112``, on
+Port of ``marl_hideandseek_tpu/utils/runtime.py:61-112``, on
 ``torch.distributed``: one process per card (``torchrun``), where JAX runs
-one process per host. ``enable_compilation_cache`` and
-``enable_nan_guards`` configure XLA and have no counterpart here.
+one process per host. ``enable_compilation_cache`` configures XLA and has
+no counterpart here.
+
+NaN guards (``enable_nan_guards``, or ``MHS_NAN_GUARDS=1`` in the
+environment, as JAX's ``aot_compile`` reads it): while they are on, each
+``update_iter`` and ``eval_elo`` of the training manager checks its
+incoming and its new state's floating leaves, and the rollout's rewards,
+in one device reduction each (``check_finite``) and raises naming the
+first non-finite leaf and the update; the PPO update's backward runs
+under autograd's anomaly detection (``anomaly_mode``), which raises at
+the first backward op that returns a NaN, with the forward op that made
+it. Off (the default) they add no op and no sync. JAX's
+``checkify.float_checks`` also flag each division by zero inside the
+program; these guards see only the state, the rewards and the gradients.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import os
-from typing import Optional
+from typing import Collection, Mapping, Optional
 
 import torch
 import torch.distributed as dist
+
+_NAN_GUARDS: Optional[bool] = None
+
+
+def enable_nan_guards(enable: bool = True) -> None:
+    """Turn the training NaN guards on or off for this process (over
+    ``MHS_NAN_GUARDS``). Costly: a sync per check and anomaly detection in
+    the backward; for debugging."""
+    global _NAN_GUARDS
+    _NAN_GUARDS = bool(enable)
+
+
+def nan_guards_on() -> bool:
+    """Whether the NaN guards are on: ``enable_nan_guards``'s setting, else
+    ``MHS_NAN_GUARDS`` set to anything but empty or 0."""
+    if _NAN_GUARDS is not None:
+        return _NAN_GUARDS
+    return os.environ.get("MHS_NAN_GUARDS", "") not in ("", "0")
+
+
+def anomaly_mode():
+    """autograd's anomaly detection (NaN checks on every backward op's
+    outputs) while the guards are on; else a context that does nothing."""
+    if nan_guards_on():
+        return torch.autograd.set_detect_anomaly(True, check_nan=True)
+    return contextlib.nullcontext()
+
+
+def check_finite(leaves: Mapping[str, torch.Tensor], where: str,
+                 plus_inf: Collection[str] = ()) -> None:
+    """Raise ``FloatingPointError`` naming the first leaf (in the order of
+    ``leaves``) with a NaN or an infinity; the leaves named in
+    ``plus_inf`` may hold +inf by design (a ray's miss) but no NaN and no
+    -inf. One reduction per leaf and one copy to the host for all."""
+    names, ok = [], []
+    for name, x in leaves.items():
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            continue
+        good = torch.isfinite(x)
+        if name in plus_inf:
+            good = good | (x == math.inf)
+        names.append(name)
+        ok.append(good.all())
+    if not ok:
+        return
+    flags = torch.stack([f.to(ok[0].device) for f in ok]).cpu()
+    if not bool(flags.all()):
+        first = names[int((~flags).nonzero()[0, 0])]
+        raise FloatingPointError(f"NaN guard: non-finite values in {first} "
+                                 f"{where}")
 
 # A rank that raises leaves the others waiting in a collective; they give
 # up after this long instead of hanging.

@@ -6,7 +6,8 @@ K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
 the inference loop through K4 and K1, and a PPO update at train.sh's
 configuration against the CPU's at the update's rounding bars
 (``marl_hideandseek_torch/testing.py``), which each planted Adam fault
-must fail.
+must fail; the record path at infer.sh's 16 worlds through K4 and K1, and
+the viewer at one world through K3, K1 and K5.
 
 Marked ``gpu``; every test skips here without a card (decided in the
 ``cuda`` fixture). On a machine with one:
@@ -471,6 +472,83 @@ def test_inference_loop_uses_megastep_and_raycast(cuda):
     assert out["episodes_finished"] == 512
     assert seen == [[0.0] * 4]
     assert out["forward_ms"] > 0 and out["env_ms"] > 0
+
+
+def test_record_path_at_16_worlds(cuda, tmp_path):
+    """infer.sh's 16 worlds recorded (``infer.RecordLog``) over an
+    episode end: K4 every step, K1 on the init and the reset, each frame
+    the checkpoint record of its step's state, and K4 and K1 on the last
+    state against their plain versions."""
+    from marl_hideandseek_torch.env.checkpoint import (
+        pack_checkpoints,
+        save_checkpoints,
+    )
+    from marl_hideandseek_torch.infer import RecordLog
+    from marl_hideandseek_torch.utils.ckptlog import CkptLogReader
+
+    cfg, pol, params, _, stats = _policy_inputs(cuda, 16)
+    env = PackedEnv(cfg.replace(episode_len=20), device=cuda)
+    log = RecordLog(env.cfg, str(tmp_path / "record.bin"))
+    states = []
+
+    def cb(i, ps):
+        log(i, ps)
+        states.append(ps)
+
+    k4, k1 = ops_step.MEGASTEP.launches, ops_rays.RAYCAST.launches
+    run_inference(env, pol, params, stats, 25, state_cb=cb)
+    log.close()
+    assert ops_step.MEGASTEP.launches - k4 == 25
+    assert ops_rays.RAYCAST.launches - k1 >= 4        # init + the reset
+    with CkptLogReader(str(tmp_path / "record.bin")) as r:
+        assert (r.num_frames, r.num_worlds, r.frame_bytes) == (25, 16, 1044)
+        for i, ps in enumerate(states):
+            want = pack_checkpoints(save_checkpoints(env.cfg,
+                                                     unpack_state(ps)))
+            assert (r.read(i) == want.cpu().numpy()).all(), i
+    ps = states[-1]
+    _check_raycast(env.cfg, ps)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    acts = torch.cat([torch.randint(0, 5, (4, 3, 16), generator=g,
+                                    device=cuda),
+                      torch.randint(0, 2, (4, 2, 16), generator=g,
+                                    device=cuda)], 1).to(torch.int32)
+    rk = ops_step.megastep_packed(env.cfg, ps, acts)
+    rp = ops_step.megastep_plain(env.cfg, ps, acts)
+    for name, (tol, need) in KERNEL.items():
+        a, b = getattr(rk[0].bodies, name), getattr(rp[0].bodies, name)
+        assert ((a - b).abs() < tol).float().mean().item() >= need, name
+    assert torch.equal(rk[2], rp[2]) and torch.equal(rk[3], rp[3])
+
+
+def test_viewer_at_one_world(cuda, tmp_path):
+    """The viewer's command script with the follow camera at one world:
+    K3 every step, K1 on the init, the load and the resets, K5 every
+    frame; then K3, K1 and K5 on its state against their plain
+    versions."""
+    from marl_hideandseek_torch import viewer
+    from marl_hideandseek_torch.types import pack_state
+
+    n0 = (ops_fused.FUSED.launches, ops_rays.RAYCAST.launches,
+          ops_rgbd.RGBD.launches)
+    v = viewer.Viewer(str(tmp_path), follow=True, device=cuda)
+    v.run("w w g l m d d n f q 3 r x".split())
+    n = (ops_fused.FUSED.launches - n0[0], ops_rays.RAYCAST.launches - n0[1],
+         ops_rgbd.RGBD.launches - n0[2])
+    assert n[0] == 9 and n[1] >= 2 * 4 and n[2] == 8
+    assert len(v.written) == 12
+    ps = pack_state(v.state)
+    _check_raycast(v.cfg, ps)
+    _check_rgbd(v.cfg, ps, 64)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ps, ext_f, ext_t = _pre_physics(v.cfg, ps, g)
+    bk, sk = ops_fused.fused_step_packed(v.cfg, ps, ext_f, ext_t)
+    bp, sp = ops_fused.fused_step_plain(v.cfg, ps, ext_f, ext_t)
+    assert torch.equal(sk.vis_seen, sp.vis_seen)
+    assert torch.equal(sk.act_id, sp.act_id)
+    for name, (tol, need) in KERNEL.items():
+        a, b = getattr(bk, name), getattr(bp, name)
+        assert ((a - b).abs() < tol).float().mean().item() >= need, name
 
 
 @pytest.fixture(scope="module")
