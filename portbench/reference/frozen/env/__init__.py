@@ -1,0 +1,4 @@
+# Frozen copy of marl_hideandseek_torch/env/__init__.py at commit fbfc592641d85df17e7487fd9f1855010c549ebb,
+# the plain reference of the benchmark: imports renamed to this folder,
+# every kernel dispatch replaced by its plain version. Do not edit.
+"""Environment: state systems, physics, rays, observations, level generation."""

@@ -1,0 +1,131 @@
+# Frozen copy of marl_hideandseek_torch/ops/fused.py at commit fbfc592641d85df17e7487fd9f1855010c549ebb,
+# the plain reference of the benchmark: imports renamed to this folder,
+# every kernel dispatch replaced by its plain version. Do not edit.
+"""K3: the physics step fused with the post-physics ray sweep.
+
+``fused_step_packed`` (packed state) and ``fused_step`` (world-major,
+pallas_step.py:681) launch ``csrc/megastep.cu``'s ``mhs_fused`` for CUDA
+tensors: one warp per world runs the ``physics_step`` and ``sweep``
+device functions that the megastep (K4) runs too - visibility, lidar, the
+next step's grab/lock rays and the seeker-sees-hider flag on the moved
+bodies, with the sweep's wall loop bounded by the batch's largest
+active-wall count (computed on the device, no host sync). For CPU tensors
+they run the plain version, ``fused_step_plain``: the plain physics, then
+``standalone_sweep_packed`` with the plain raycast - the composite the
+JAX kernel is tested against (tests/test_pallas_kernels.py:70-146).
+Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::fused_step_packed`` /
+``fused_step`` (``_fused_pallas``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from portbench.reference.frozen.config import NUM_LIDAR_SAMPLES, EnvConfig
+from portbench.reference.frozen.env import observations as obs_mod
+from portbench.reference.frozen.ops import physics as ops_physics
+from portbench.reference.frozen.ops import rays as ops_rays
+from portbench.reference.frozen.ops.build import CudaKernel
+from portbench.reference.frozen.ops.common import (
+    ARRAY_ENTRY,
+    launch_arrays,
+    wall_bound,
+)
+from portbench.reference.frozen.types import (
+    EnvState,
+    RigidBodies,
+    SweepResults,
+    pack_state,
+)
+
+FUSED = CudaKernel("megastep", "mhs_fused", ARRAY_ENTRY)
+
+
+def fused_inputs(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):
+    """What one K3 launch reads with the world axis, in StepArgs' pointer
+    order: the physics block, then the sweep's per-world inputs."""
+    na = cfg.max_agents
+    i32, u8 = torch.int32, torch.uint8
+    return ops_physics.physics_inputs(
+        cfg, ps.bodies, ps.statics, ps.grab, ext_force, ext_torque) + [
+        (ps.agent_type, (na,), i32), (ps.agent_active.view(u8), (na,), u8),
+        (ps.num_active_boxes, (), i32), (ps.num_active_ramps, (), i32),
+    ]
+
+
+def fused_step_plain(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque,
+                     tally: Optional[Dict[str, int]] = None):
+    """Plain version: packed ``ps``, ``ext_force, ext_torque [B, 3, W]``
+    -> (bodies, SweepResults), packed. ``tally`` collects the physics'
+    work counts."""
+    from portbench.reference.frozen.env.packed import standalone_sweep_packed
+
+    bodies = ops_physics.physics_plain(cfg, ps.bodies, ps.statics, ps.grab,
+                                       ext_force, ext_torque, tally=tally)
+    sweep = standalone_sweep_packed(cfg, ps.replace(bodies=bodies),
+                                    raycast=ops_rays.raycast_packed_plain)
+    return bodies, sweep
+
+
+def fused_step_packed(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):
+    """Physics, then the sweep on the moved bodies; see
+    ``fused_step_plain`` for the contract. CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    if True:  # frozen: always the plain version
+        return fused_step_plain(cfg, ps, ext_force, ext_torque)
+    return _fused_cuda(cfg, ps, ext_force, ext_torque)
+
+
+def fused_step(cfg: EnvConfig, state: EnvState, ext_force, ext_torque):
+    """World-major fused step (pallas_step.py:681): ``state`` with the
+    world axis first, ``ext_force, ext_torque [W, B, 3]`` -> (bodies,
+    SweepResults), world axis first (vis ``[W, A, T]``, lidar ``[W, A,
+    30]``, act_t / act_id ``[W, A]``, rew_seen ``[W]``). Transposes to
+    the packed layout around ``fused_step_packed``."""
+    pk = lambda x: torch.movedim(x, 0, -1).contiguous()
+    wm = lambda x: torch.movedim(x, -1, 0).contiguous()
+    bodies, sweep = fused_step_packed(cfg, pack_state(state), pk(ext_force),
+                                      pk(ext_torque))
+    return (state.bodies.replace(pos=wm(bodies.pos), quat=wm(bodies.quat),
+                                 vel=wm(bodies.vel), omega=wm(bodies.omega)),
+            SweepResults(*(wm(x) for x in sweep)))
+
+
+def fused_buffers(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):
+    """Checked input pointers, allocated outputs and the scalar parameters
+    of one K3 launch: (ptrs, iparams, fparams, body outputs, sweep
+    outputs, keepalive). The pointer order is StepArgs' in
+    csrc/megastep.cu."""
+    dev = ps.step.device
+    w = ps.step.shape[0]
+    na = cfg.max_agents
+    n_tgt = obs_mod.num_vis_targets(cfg)
+    ins = ops_physics.checked(fused_inputs(cfg, ps, ext_force, ext_torque),
+                              w, dev, "fused")
+    n_phys = len(ins) - 4              # the sweep block's four inputs
+    out = ops_physics.body_outputs(cfg, w, dev)
+    ptrs = ins[:n_phys] + [t.data_ptr() for t in out.values()] + ins[n_phys:]
+    bound = wall_bound(ps.statics.wall_active)
+    cos_t, sin_t = obs_mod.lidar_angles(dev)
+    lidar_cs = torch.stack([cos_t, sin_t]).contiguous()
+    e = lambda *shape, dtype=torch.float32: torch.empty(
+        shape + (w,), dtype=dtype, device=dev)
+    sweep = SweepResults(vis_seen=e(na, n_tgt),
+                         lidar=e(na, NUM_LIDAR_SAMPLES), act_t=e(na),
+                         act_id=e(na, dtype=torch.int32),
+                         rew_seen=e(dtype=torch.bool))
+    ptrs += [bound.data_ptr(), lidar_cs.data_ptr()]
+    ptrs += [t.data_ptr() for t in sweep]
+    iparams, fparams = ops_physics.step_params(cfg, ps.statics, w)
+    return ptrs, iparams, fparams, out, sweep, (bound, lidar_cs)
+
+
+def _fused_cuda(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):
+    # `_keep` holds the inputs made here until the launch is queued.
+    ptrs, iparams, fparams, out, sweep, _keep = fused_buffers(
+        cfg, ps, ext_force, ext_torque)
+    launch_arrays(FUSED, ptrs, iparams, fparams, ps.step.device)
+    bodies: RigidBodies = ps.bodies.replace(**out)
+    return bodies, sweep

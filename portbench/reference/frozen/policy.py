@@ -1,0 +1,224 @@
+# Frozen copy of marl_hideandseek_torch/policy.py at commit fbfc592641d85df17e7487fd9f1855010c549ebb,
+# the plain reference of the benchmark: imports renamed to this folder,
+# every kernel dispatch replaced by its plain version. Do not edit.
+"""Default hide-and-seek policy assembly.
+
+Port of ``marl_hideandseek_tpu/policy.py``: a per-entity-class embedding
+backbone with max-pooling (embed 64 + LayerNorm + leaky-relu per class,
+max over entities, concat, MLP 256x3), an LSTM(256) recurrent encoder per
+branch, separate actor and critic backbones, a discrete actor head over
+[5, 5, 5, 2, 2] buckets and a Dreamer-V3 critic, with the EMA observation
+normalizer's prep and skip sets. An entity self-attention backbone and a
+simhash lookup backbone are the alternatives.
+
+Every module holds ``num_policies`` policies stacked on a leading axis
+(``models/layers.py``); ``make_policy`` draws them as flax's ``init``
+does from one key per policy, or leaves them for
+``bridge.policy_params_from_numpy`` to fill from a flax tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from portbench.reference.frozen import prng
+from portbench.reference.frozen.config import NUM_LIDAR_SAMPLES
+from portbench.reference.frozen.models import (
+    MLP,
+    ActorCritic,
+    BackboneSeparate,
+    DenseLayerDiscreteActor,
+    DreamerV3Critic,
+    EntitySelfAttentionNet,
+    LayerNorm,
+    ObservationsEMANormalizer,
+    Policy,
+    RecurrentBackboneEncoder,
+)
+from portbench.reference.frozen.models.layers import (
+    EmbedBlock,
+    Stacked,
+    he_normal,
+    init_params,
+    normal,
+)
+from portbench.reference.frozen.models.rnn import LSTM
+
+DEFAULT_ACTION_BUCKETS = (5, 5, 5, 2, 2)  # reference: jax_train.py:147
+
+# Features per entity of the observations (env/observations.py): the self
+# vector is prep_counter 1 + self_data 13 + self_type 1 + self_lidar 30;
+# the other agents, boxes and ramps have 14, 17 and 14 each.
+ENTITY_FEATURES = {"self": 1 + 13 + 1 + NUM_LIDAR_SAMPLES, "agents": 14,
+                   "boxes": 17, "ramps": 14}
+# Entities of each class at full capacity: 5 other agents, 9 boxes,
+# 2 ramps (they size HashNet's flat input, as flax sizes it from the
+# observations it is initialised on).
+ENTITY_COUNTS = {"agents": 5, "boxes": 9, "ramps": 2}
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; CUDA without a card raises rather
+    than running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}(device='cuda') but torch.cuda.is_available() is False; "
+            f"pass device='cpu' to run on the CPU")
+    return device
+
+
+def split_obs(obs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Group the 11 named tensors into self + entity-class groups, with
+    the visibility masks applied to the entity rows (policy.py:41-73).
+
+    Takes the reference layout (``box_data [.., 9, 17]`` with
+    ``vis_boxes_mask [.., 9, 1]``) or the packed env's flat layout
+    (``box_data [.., 153]`` with ``vis_boxes_mask [.., 9]``), reshaped here
+    with the entity count taken from the mask.
+    """
+    self_ob = torch.cat([obs["prep_counter"], obs["self_data"],
+                         obs["self_type"], obs["self_lidar"]], dim=-1)
+
+    def entity(data, mask):
+        if mask.dim() == data.dim() and mask.shape[-1] == 1:
+            return data * mask
+        data = data.reshape(*data.shape[:-1], mask.shape[-1], -1)
+        return data * mask[..., None]
+
+    return {"self": self_ob,
+            "agents": entity(obs["agent_data"], obs["vis_agents_mask"]),
+            "boxes": entity(obs["box_data"], obs["vis_boxes_mask"]),
+            "ramps": entity(obs["ramp_data"], obs["vis_ramps_mask"])}
+
+
+class PooledEntityNet(nn.Module):
+    """Embed each entity class, max-pool over entities, concat, MLP
+    (policy.py:76-95)."""
+
+    def __init__(self, num_policies: int, dtype=torch.float32,
+                 embed_dim: int = 64, num_channels: int = 256,
+                 num_layers: int = 3, device=None):
+        super().__init__()
+        self.num_channels = num_channels
+        for name, f in ENTITY_FEATURES.items():
+            setattr(self, f"embed_{name}", EmbedBlock(
+                num_policies, f, embed_dim, dtype, device))
+        self.MLP_0 = MLP(num_policies, 4 * embed_dim, num_channels,
+                         num_layers, dtype, device)
+
+    def forward(self, obs, train: bool = False):
+        grouped = split_obs(obs)
+        feats = [self.embed_self(grouped["self"])]
+        for name in ("agents", "boxes", "ramps"):
+            e = getattr(self, f"embed_{name}")(grouped[name])
+            feats.append(torch.amax(e, dim=-2))
+        return self.MLP_0(torch.cat(feats, dim=-1), train)
+
+
+class HashNet(Stacked):
+    """Simhash lookup-table backbone (policy.py:98-133): a random
+    projection of the concatenated observation to sign bits, the bits as a
+    table index, the table row through the custom LayerNorm. ``proj [P, H,
+    F]`` is a parameter, carried across with the rest, and so is ``table
+    [P, 2**H, D]``; both in the compute dtype, as flax creates them."""
+
+    def __init__(self, num_policies: int, dtype=torch.float32,
+                 hash_power: int = 8, feature_dim: int = 32, device=None):
+        super().__init__(num_policies, device)
+        self.hash_power = hash_power
+        self.num_channels = feature_dim
+        n_in = ENTITY_FEATURES["self"] + sum(
+            n * ENTITY_FEATURES[k] for k, n in ENTITY_COUNTS.items())
+        self.add("proj", (hash_power, n_in), normal, dtype)
+        self.add("table", (2 ** hash_power, feature_dim), he_normal, dtype)
+        self.LayerNorm_0 = LayerNorm(num_policies, feature_dim, device=device)
+
+    def forward(self, obs, train: bool = False):
+        g = split_obs(obs)
+        flat = torch.cat([g["self"]] + [g[k].flatten(-2) for k in
+                                        ("agents", "boxes", "ramps")], -1)
+        lead = flat.shape[1:-1]
+        f2 = flat.reshape(flat.shape[0], -1, flat.shape[-1])
+        dots = torch.matmul(f2, self.proj.transpose(1, 2))     # [P, M, H]
+        powers = 2 ** torch.arange(self.hash_power, device=flat.device,
+                                   dtype=torch.int32)
+        idx = ((dots > 0).to(torch.int32) * powers).sum(-1)    # [P, M]
+        p = self.table.shape[0]
+        rows = torch.arange(p, device=flat.device)[:, None]
+        feats = self.table[rows, idx.long()]
+        return self.LayerNorm_0(feats.reshape(p, *lead, -1))
+
+
+class AttentionEntityNet(nn.Module):
+    """Entity self-attention backbone (policy.py:136-153)."""
+
+    def __init__(self, num_policies: int, dtype=torch.float32,
+                 num_embed_channels: int = 128, num_out_channels: int = 256,
+                 num_heads: int = 4, device=None):
+        super().__init__()
+        self.num_channels = num_out_channels
+        self.EntitySelfAttentionNet_0 = EntitySelfAttentionNet(
+            num_policies, ENTITY_FEATURES, num_embed_channels,
+            num_out_channels, num_heads, dtype, device)
+
+    def forward(self, obs, train: bool = False):
+        return self.EntitySelfAttentionNet_0(split_obs(obs), train)
+
+
+def make_policy(dtype=torch.float32,
+                action_buckets: Sequence[int] = DEFAULT_ACTION_BUCKETS,
+                backbone: str = "pooled", num_rnn_channels: int = 256, *,
+                num_policies: int = 1, device="cuda",
+                key: Optional[torch.Tensor] = None) -> Policy:
+    """Build the default policy (policy.py:156-210) with ``num_policies``
+    policies stacked, its parameters on ``device``: policy ``i`` drawn
+    as flax's ``init`` draws it from ``split(key, num_policies)[i]``
+    (``key`` a ``prng`` key; ``PRNGKey(0)`` when None)."""
+    device = resolve_device(device, "make_policy")
+    p = num_policies
+
+    def encoder():
+        if backbone == "pooled":
+            net = PooledEntityNet(p, dtype, device=device)
+        elif backbone == "attention":
+            net = AttentionEntityNet(p, dtype, device=device)
+        elif backbone == "hash":
+            net = HashNet(p, dtype, device=device)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        return RecurrentBackboneEncoder(
+            net=net, rnn=LSTM(p, net.num_channels, num_rnn_channels,
+                              num_layers=1, dtype=dtype, device=device))
+
+    actor_critic = ActorCritic(
+        backbone=BackboneSeparate(prefix=None, actor_encoder=encoder(),
+                                  critic_encoder=encoder()),
+        actor=DenseLayerDiscreteActor(p, num_rnn_channels, action_buckets,
+                                      dtype, device),
+        critic=DreamerV3Critic(p, num_rnn_channels, dtype, device=device),
+    )
+    key = prng.key(0) if key is None else prng.as_key(key)
+    init_params(actor_critic, prng.split(key, p))
+
+    obs_preprocess = ObservationsEMANormalizer.create(
+        decay=0.99999,
+        dtype=dtype,
+        prep_fns={
+            "prep_counter":
+                lambda x: (x.to(torch.float32) / 96.0).to(dtype),
+            "self_type": lambda x: x.to(dtype),
+            "vis_agents_mask": lambda x: x.to(dtype),
+            "vis_boxes_mask": lambda x: x.to(dtype),
+            "vis_ramps_mask": lambda x: x.to(dtype),
+        },
+        skip_normalization={
+            "prep_counter", "self_type", "self_mask", "vis_agents_mask",
+            "vis_boxes_mask", "vis_ramps_mask",
+        },
+    )
+    return Policy(actor_critic=actor_critic, obs_preprocess=obs_preprocess,
+                  get_episode_scores=lambda episode_result: episode_result)

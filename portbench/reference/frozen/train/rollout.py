@@ -1,0 +1,406 @@
+# Frozen copy of marl_hideandseek_torch/train/rollout.py at commit fbfc592641d85df17e7487fd9f1855010c549ebb,
+# the plain reference of the benchmark: imports renamed to this folder,
+# every kernel dispatch replaced by its plain version. Do not edit.
+"""Rollout collection for training, and policy ensembles on the agent batch.
+
+Port of ``marl_hideandseek_tpu/train/rollout.py``. ``collect_rollout``
+steps the packed env (K4 every step, K1 on reset steps) for
+``steps_per_update`` transitions with the policy ensemble choosing the
+actions, and stores them as ``num_bptt_chunks`` sequences with the LSTM
+state at each chunk's start, for BPTT. ``apply_ensemble`` runs every
+policy on the whole agent batch and gives each agent its assigned
+policy's outputs; ``compute_gae`` turns a buffer into advantages and
+returns. Every draw comes from the rollout's key, split in the JAX
+version's order (``prng.py``): the same key gives JAX's step keys,
+actions and matchups.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from portbench.reference.frozen import prng
+from portbench.reference.frozen.config import NUM_PREP_STEPS
+from portbench.reference.frozen.env.packed import PackedEnv
+from portbench.reference.frozen.models import DiscreteActionDistributions, Policy
+from portbench.reference.frozen.models.actor_critic import tree_map
+from portbench.reference.frozen.parallel.mesh import (
+    LOCAL,
+    Mesh,
+    make_sharded_packed_step,
+)
+from portbench.reference.frozen.train.cfg import TrainConfig
+from portbench.reference.frozen.types import (
+    AGENT_HIDER,
+    EnvState,
+    body_slot_ranges,
+)
+
+
+@dataclasses.dataclass
+class RolloutState:
+    """Actor state carried between updates (rollout.py:29-45): the packed
+    env state, the prepped (not normalized) current observations flattened
+    to the ``[N = W * A]`` agent batch, the recurrent state, each agent's
+    policy and the key of the rollout's draws."""
+
+    env_state: EnvState
+    obs: Dict[str, torch.Tensor]
+    rnn_states: Any
+    assignments: torch.Tensor   # [N] i32
+    key: torch.Tensor           # [2] u32
+
+    def replace(self, **kwargs) -> "RolloutState":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass
+class RolloutBuffer:
+    """``[C, T/C, N, ...]`` stored sequences, C = BPTT chunks
+    (rollout.py:48-58)."""
+
+    obs: Dict[str, torch.Tensor]
+    actions: torch.Tensor           # [C, T, N, n_action_dims] i64
+    log_probs: torch.Tensor         # [C, T, N]
+    values: torch.Tensor            # [C, T, N]
+    rewards: torch.Tensor           # [C, T, N]
+    dones: torch.Tensor             # [C, T, N] bool
+    assignments: torch.Tensor       # [C, T, N] i32
+    rnn_start_states: Any           # [C, L, N, H] leaves: chunk-start state
+    bootstrap_value: torch.Tensor   # [N] value of the post-rollout obs
+
+
+class MethodCall(nn.Module):
+    """A method of an actor-critic (``act``, ``sequence``) as a module's
+    forward, so that ``functional_call`` can run it with other
+    parameters (their names prefixed ``ac.``)."""
+
+    def __init__(self, actor_critic: nn.Module, method: str):
+        super().__init__()
+        self.ac = actor_critic
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.ac, self.method)(*args, **kwargs)
+
+
+def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
+                   rnn_states, obs, assignments: torch.Tensor,
+                   num_policies: int, num_train: Optional[int] = None):
+    """Apply every policy to the whole agent batch, then give each agent
+    its assigned policy's outputs (rollout.py:61-126).
+
+    all_params: the flat parameter dict, leading policy axis P. Every
+    layer runs as one batched product over the P policies (the stacked
+    modules of ``models/layers.py``), which computes what JAX's
+    ``vmap`` over the policy axis computes. Returns (logits ``[N, L]``,
+    values ``[N]``, new recurrent state ``[.., N, C]``) per agent.
+
+    With ``num_train`` set, policies at index >= num_train are frozen past
+    policies: they run actor-only (values 0, the critic's recurrent state
+    passed through).
+
+    Each agent's policy is picked with a gather where JAX contracts with a
+    one-hot: the same for finite values, but a non-finite output of a
+    policy the agent does not use turns JAX's one-hot sum into NaN and
+    leaves the gather untouched.
+    """
+    ac = policy.actor_critic
+
+    def one(params):
+        dists, critic_out, new_rnn = functional_call(
+            ac, dict(params), (rnn_states, obs), strict=True)
+        return dists.logits, critic_out["value"][..., 0], new_rnn
+
+    if num_policies == 1:
+        logits, values, new_rnn = one({k: v[:1] for k, v in
+                                       all_params.items()})
+        return logits[0], values[0], tree_map(lambda x: x[0], new_rnn)
+
+    if num_train is not None and 0 < num_train < num_policies:
+        n_past = num_policies - num_train
+        lg_t, val_t, rnn_t = one({k: v[:num_train]
+                                  for k, v in all_params.items()})
+        dists, rnn_p = functional_call(
+            MethodCall(ac, "act"), {f"ac.{k}": v[num_train:]
+                       for k, v in all_params.items()},
+            (rnn_states, obs), strict=True)
+        logits_all = torch.cat([lg_t, dists.logits], 0)
+        values_all = torch.cat([val_t, val_t.new_zeros(
+            (n_past,) + val_t.shape[1:])], 0)
+        rnn_all = tree_map(lambda a, b: torch.cat(
+            [a, b.expand(n_past, *b.shape[1:])], 0), rnn_t, rnn_p)
+    else:
+        logits_all, values_all, rnn_all = one(all_params)   # [P, N, ..]
+
+    idx = assignments.to(torch.long)
+
+    def sel(arr):
+        """arr [P, ..., N, C] or [P, N]: each agent's policy's slice."""
+        n_axis = arr.dim() - 2 if arr.dim() >= 3 else 1
+        shape = [1] * arr.dim()
+        shape[n_axis] = -1
+        i = idx.reshape(shape).expand(1, *arr.shape[1:])
+        return torch.gather(arr, 0, i)[0]
+
+    return sel(logits_all), sel(values_all), tree_map(sel, rnn_all)
+
+
+def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,
+                       assignments: torch.Tensor) -> torch.Tensor:
+    """Critic outputs (normalized-return space) -> returns, per agent
+    through its policy's EMA statistics (rollout.py:128-141). Identity for
+    the Dreamer critic, which normalizes inside (symlog, two-hot)."""
+    if cfg.dreamer_v3_critic or value_stats is None:
+        return values
+    idx = assignments.to(torch.long)
+    return values * value_stats["sigma"][idx] + value_stats["mu"][idx]
+
+
+def _resample_assignments(key: torch.Tensor, dones_w: torch.Tensor,
+                          assignments: torch.Tensor, cfg: TrainConfig,
+                          num_worlds: int, agents_per_world: int,
+                          agent_type: torch.Tensor,
+                          mesh: Mesh = LOCAL) -> torch.Tensor:
+    """New team -> policy matchups for the worlds whose episode ended
+    (rollout.py:144-191); the other worlds keep theirs.
+
+    The train side plays a policy drawn from the train policies; the
+    other side, per the PBT portions, the same policy (self-play), another
+    train policy (cross-play) or a past policy. Which role (hiders or
+    seekers) the train side takes is a fair coin per world. Teams are
+    keyed by ``agent_type`` ``[W, A]`` (the post-step state: on reset
+    steps, the new episode's teams). Without PBT every agent plays
+    policy 0 and nothing is drawn. Draws as JAX does from ``k1..k5 =
+    split(key, 5)``: the train side's policy ``randint(k1)``, the portion
+    draw ``uniform(k2)``, the past and cross policies ``randint(k3)``,
+    ``randint(k4)``, the role ``bernoulli(k5, 0.5)``. Over ``mesh`` the
+    ``num_worlds`` worlds are this rank's, and draw their slice of the
+    draws of all the worlds."""
+    pbt = cfg.pbt
+    if pbt is None or pbt.total_policies == 1:
+        return assignments
+    n_train = pbt.num_train_policies
+    n_total = pbt.total_policies
+    w = num_worlds
+    first = mesh.rank * w
+
+    # Every key's randint bits and uniforms in one launch each (k2's
+    # randint bits and k1, k3, k4's uniforms are drawn too, unused).
+    ks = prng.split(key, 5)
+    hi, lo = (x[:, first:first + w]
+              for x in prng.randint_bits(ks, (w * mesh.size,)))
+    u = prng.uniform(ks, (w * mesh.size,))[:, first:first + w]
+    t0 = prng.randint_from_bits(hi[0], lo[0], 0, n_train)
+    past = prng.randint_from_bits(hi[2], lo[2], n_train,
+                                  max(n_total, n_train + 1))
+    cross = prng.randint_from_bits(hi[3], lo[3], 0, n_train)
+    r = u[1]
+    other = past if pbt.num_past_policies > 0 else cross
+    t1 = torch.where(r < pbt.self_play_portion, t0,
+                     torch.where(r < pbt.self_play_portion +
+                                 pbt.cross_play_portion, cross, other))
+    hiders_train = u[4] < 0.5
+    h_pol = torch.where(hiders_train, t0, t1)
+    s_pol = torch.where(hiders_train, t1, t0)
+    world_assign = torch.where(agent_type == AGENT_HIDER, h_pol[:, None],
+                               s_pol[:, None])                   # [W, A]
+    done_flat = dones_w.repeat_interleave(agents_per_world)
+    return torch.where(done_flat, world_assign.reshape(-1),
+                       assignments).to(torch.int32)
+
+
+def rollout_keys(key: torch.Tensor, steps: int):
+    """The rollout's next key and each step's (action key, matchup key)
+    ``[steps, 2, 2]``: ``key, sub = split(key)``, then step t's pair is
+    ``split(split(sub, steps)[t])`` (rollout.py:228,331-338); three
+    launches for the whole rollout."""
+    key, sub = prng.split(key).unbind(0)
+    return key, prng.split(prng.split(sub, steps))
+
+
+def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
+                    all_params: Mapping[str, torch.Tensor], obs_stats,
+                    rollout: RolloutState, value_stats=None,
+                    mesh: Mesh = LOCAL):
+    """Run ``steps_per_update`` env steps; return (rollout', buffer,
+    metrics) (rollout.py:194-376).
+
+    obs_stats: the observation normalizer's statistics, frozen during the
+    rollout (the caller updates them from the buffer). value_stats: the
+    plain critic's EMA return statistics; stored values and the bootstrap
+    are denormalized so that GAE runs on returns.
+
+    Per step: normalize, the ensemble forward (past policies actor-only),
+    an action draw, ``env.step``, the LSTM state cleared for agents whose
+    episode ended, and new matchups for the worlds that ended, keyed by
+    the post-step teams. ELO attribution (``team_pol``) and the seek-phase
+    gate use the pre-step state: the episode the transition belongs to.
+    Runs without autograd.
+
+    Over ``mesh`` the rollout holds this rank's worlds (``env`` is
+    configured for all of them): they step with their global ids, draw
+    their slice of the global draws, and the metrics are the whole
+    batch's.
+    """
+    cfg_env = env.cfg
+    w, a = rollout.env_state.step.shape[0], cfg_env.max_agents
+    n = w * a
+    env_step = make_sharded_packed_step(env, mesh)
+    t_chunk = cfg.steps_per_update // cfg.num_bptt_chunks
+    n_total = cfg.total_policies
+    norm = policy.obs_preprocess
+    ac = policy.actor_critic
+    buckets = tuple(cfg.actions.actions_num_buckets)
+    key, step_keys = rollout_keys(rollout.key, cfg.steps_per_update)
+    (box_lo, box_hi), (ramp_lo, ramp_hi), _ = body_slot_ranges(cfg_env)
+
+    def flat(o):
+        return {k: v.reshape((n,) + v.shape[2:]) for k, v in
+                norm.prep(o).items()}
+
+    keys = ("obs", "actions", "log_probs", "values", "rewards", "dones",
+            "assignments", "episode_results", "dones_w", "team_pol",
+            "seek", "hidden", "locked", "grab", "ramp_locked", "ramp_move")
+    store = {k: [] for k in keys}
+    rnn_start = []
+    env_state, obs = rollout.env_state, rollout.obs
+    rnn, assignments = rollout.rnn_states, rollout.assignments
+    with torch.no_grad():
+        for ci in range(cfg.num_bptt_chunks):
+            rnn_start.append(rnn)
+            for ti in range(t_chunk):
+                k_act, k_assign = step_keys[ci * t_chunk + ti].unbind(0)
+                logits, values, new_rnn = apply_ensemble(
+                    policy, all_params, rnn, norm.normalize(obs_stats, obs),
+                    assignments, n_total, num_train=cfg.num_train_policies)
+                values = denormalize_values(cfg, value_stats, values,
+                                            assignments)
+                dists = DiscreteActionDistributions(buckets, logits)
+                actions = dists.sample(k_act, (mesh.rank * n, mesh.size * n))
+                log_probs = dists.log_prob(actions)
+
+                pre_step = env_state.step
+                pre_is_h = (env_state.agent_type == AGENT_HIDER).T   # [W, A]
+                pre_act = env_state.agent_active.to(torch.bool).T
+                pre_sf = env_state.seekers_first.to(torch.bool)
+                env_state, result = env_step(
+                    env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
+                next_obs = flat(result.obs)
+                dones = result.dones.T.reshape(-1).to(torch.bool)
+                new_rnn = ac.clear_recurrent_state(new_rnn, dones)
+                dones_w = result.dones[0].to(torch.bool)
+                new_assign = _resample_assignments(
+                    k_assign, dones_w, assignments, cfg, w, a,
+                    env_state.agent_type.T, mesh)
+
+                # The pre-step episode's (first-spawned, second-spawned)
+                # team policies, for ELO (rollout.py:256-268).
+                assign_wa = assignments.reshape(w, a)
+                h_pol = torch.where(pre_is_h & pre_act, assign_wa,
+                                    -1).amax(1)
+                s_pol = torch.where(~pre_is_h & pre_act, assign_wa,
+                                    -1).amax(1)
+                team_pol = torch.stack([torch.where(pre_sf, s_pol, h_pol),
+                                        torch.where(pre_sf, h_pol, s_pol)],
+                                       -1)
+
+                # Seek-phase world-steps (the pre-step counter, so the last
+                # seek step of an episode counts), with the hiders hidden;
+                # world-steps with a locked box, a grab, a locked ramp, a
+                # moving ramp (post-step state; rollout.py:270-302).
+                bodies = env_state.bodies
+                ramp_speed = torch.linalg.vector_norm(
+                    bodies.vel[ramp_lo:ramp_hi, :2], dim=1)
+                in_seek = (pre_step >= NUM_PREP_STEPS - 1).to(torch.float32)
+                step_vals = {
+                    "obs": obs, "actions": actions, "log_probs": log_probs,
+                    "values": values,
+                    "rewards": result.rewards.T.reshape(-1),
+                    "dones": dones, "assignments": assignments,
+                    "episode_results": result.episode_results.T,
+                    "dones_w": dones_w, "team_pol": team_pol,
+                    "seek": in_seek.sum(),
+                    "hidden": ((result.team_reward > 0.0).to(torch.float32)
+                               * in_seek).sum(),
+                    "locked": bodies.locked[box_lo:box_hi].any(0).sum(),
+                    "grab": (env_state.grab.target >= 0).any(0).sum(),
+                    "ramp_locked": bodies.locked[ramp_lo:ramp_hi].any(0).sum(),
+                    "ramp_move": ((ramp_speed > 0.25) &
+                                  bodies.active[ramp_lo:ramp_hi]).any(0).sum(),
+                }
+                for k in keys:
+                    store[k].append(step_vals[k])
+                obs, rnn, assignments = next_obs, new_rnn, new_assign
+
+        _, boot_values, _ = apply_ensemble(
+            policy, all_params, rnn, norm.normalize(obs_stats, obs),
+            assignments, n_total, num_train=cfg.num_train_policies)
+        boot_values = denormalize_values(cfg, value_stats, boot_values,
+                                         assignments)
+
+    c = cfg.num_bptt_chunks
+
+    def chunked(xs):
+        x = torch.stack(xs)
+        return x.reshape((c, t_chunk) + x.shape[1:])
+
+    buffer = RolloutBuffer(
+        obs={k: chunked([o[k] for o in store["obs"]])
+             for k in store["obs"][0]},
+        actions=chunked(store["actions"]),
+        log_probs=chunked(store["log_probs"]),
+        values=chunked(store["values"]),
+        rewards=chunked(store["rewards"]),
+        dones=chunked(store["dones"]),
+        assignments=chunked(store["assignments"]),
+        rnn_start_states=tree_map(lambda *xs: torch.stack(xs), *rnn_start),
+        bootstrap_value=boot_values,
+    )
+    # World-step counts and the reward sum over every rank's worlds.
+    total_ws = float(cfg.steps_per_update * w * mesh.size)
+    names = ("hidden", "seek", "locked", "grab", "ramp_locked", "ramp_move")
+    sums = dict(zip(names + ("reward",), mesh.all_sum_many(
+        [torch.stack(store[k]).sum().to(torch.float32) for k in names] +
+        [buffer.rewards.sum()])))
+    metrics = {
+        "episode_results": torch.stack(store["episode_results"]),
+        "dones_w": torch.stack(store["dones_w"]),
+        "team_pol": torch.stack(store["team_pol"]),
+        "mean_reward": sums["reward"] / (total_ws * a),
+        "hidden_frac": sums["hidden"] / torch.clamp(sums["seek"], min=1.0),
+        "lock_rate": sums["locked"] / total_ws,
+        "grab_rate": sums["grab"] / total_ws,
+        "ramp_lock_rate": sums["ramp_locked"] / total_ws,
+        "ramp_move_rate": sums["ramp_move"] / total_ws,
+    }
+    new_rollout = RolloutState(env_state=env_state, obs=obs, rnn_states=rnn,
+                               assignments=assignments, key=key)
+    return new_rollout, buffer, metrics
+
+
+def compute_gae(cfg: TrainConfig, buffer: RolloutBuffer):
+    """Masked GAE over the ``C * T`` time axis (rollout.py:379-406):
+    A_t = delta_t + gamma * lambda * (1 - done_t) * A_{t+1}, as a reverse
+    loop where JAX runs an associative scan (the same recurrence; the sums
+    round differently in the last bits). Returns (advantages, returns),
+    each ``[C, T, N]``."""
+    c, t, n = buffer.rewards.shape
+    rewards = buffer.rewards.reshape(c * t, n)
+    values = buffer.values.reshape(c * t, n)
+    nonterminal = 1.0 - buffer.dones.reshape(c * t, n).to(torch.float32)
+    next_values = torch.cat([values[1:], buffer.bootstrap_value[None]], 0)
+    delta = rewards + cfg.gamma * next_values * nonterminal - values
+    coef = cfg.gamma * cfg.gae_lambda * nonterminal
+    advantages = torch.empty_like(delta)
+    adv = torch.zeros_like(delta[0])
+    for i in range(c * t - 1, -1, -1):
+        adv = delta[i] + coef[i] * adv
+        advantages[i] = adv
+    returns = advantages + values
+    return advantages.reshape(c, t, n), returns.reshape(c, t, n)
