@@ -59,6 +59,7 @@ from marl_hideandseek_torch.types import (
     pack_state,
     unpack_state,
 )
+from marl_hideandseek_torch.utils import tracing
 
 
 def _contiguous(state: EnvState) -> EnvState:
@@ -176,7 +177,8 @@ class HideAndSeekEnv:
         cfg = self.cfg
         w = trigger.shape[0]
         adv = state.replace(step=state.step + 1)
-        n_trig = int(trigger.sum())
+        with tracing.span("host_read.reset_trigger"):
+            n_trig = int(trigger.sum())
         if n_trig == 0:
             return adv, sweep
         level_ids = torch.where(resets != 0, resets, 1).long()
@@ -214,12 +216,15 @@ class HideAndSeekEnv:
         sub = state.map(on_bits(lambda x: x[idx]))
         regen = self._regen(base_key, world_ids[idx], sub, level_ids[idx])
         sub_sweep = self._standalone_sweep(regen)
-        cols = idx[first]
+        with tracing.span("host_read.compact_cols"):
+            cols = idx[first]
 
         @on_bits
         def merge(old, new):
             out = old.clone()
-            out[cols] = new[first].to(old.dtype)
+            with tracing.span("host_read.compact_merge"):
+                picked = new[first]
+            out[cols] = picked.to(old.dtype)
             return out
 
         new_sweep = SweepResults(*(merge(o, n) for o, n in

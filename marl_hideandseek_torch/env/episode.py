@@ -30,6 +30,7 @@ from marl_hideandseek_torch.config import EnvConfig
 from marl_hideandseek_torch.env import levelgen
 from marl_hideandseek_torch.env.rng import episode_keys
 from marl_hideandseek_torch.types import EnvState
+from marl_hideandseek_torch.utils import tracing
 
 # worldgen(base_key [2] u32, world_ids [k] i64, episode_counter [k] i64,
 #   level_ids [k] i64) -> packed EnvState of k fresh worlds (episode
@@ -116,7 +117,8 @@ def regen_world(worldgen, base_key, world_ids, ps: EnvState,
     episode counter advances, the step restarts at 0, and the episode
     scores carry over (they are cleared at step 0 of the next step)."""
     counter = _inc_u32(ps.episode_counter)
-    new = worldgen(base_key, world_ids, _words(counter), level_ids)
+    with tracing.span("env.levelgen"):
+        new = worldgen(base_key, world_ids, _words(counter), level_ids)
     return new.replace(
         episode_counter=counter,
         step=torch.zeros_like(new.step),
@@ -128,6 +130,7 @@ def fresh_world(worldgen, base_key, world_ids, level_ids) -> EnvState:
     """The first episode of each world (``_fresh_world``): counter 0."""
     counter = torch.zeros(world_ids.shape[0], dtype=torch.long,
                           device=world_ids.device)
-    new = worldgen(base_key, world_ids, counter, level_ids)
+    with tracing.span("env.levelgen"):
+        new = worldgen(base_key, world_ids, counter, level_ids)
     return new.replace(episode_counter=counter.to(torch.uint32),
                        step=torch.zeros_like(new.step))

@@ -23,6 +23,7 @@ import torch
 
 from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import MAX_WALLS
+from marl_hideandseek_torch.utils import tracing
 
 DOOR_SIZE_CONNECT = 0.1
 DOOR_SIZE_ADD = 0.2
@@ -294,7 +295,8 @@ def make_walls(keys: torch.Tensor) -> WallSet:
     t = torch.ones(n, dtype=torch.bool, device=device)
 
     def pt(x, y):
-        return torch.tensor([x, y], device=device).expand(n, 2)
+        with tracing.span("host_read.levelgen_consts"):
+            return torch.tensor([x, y], device=device).expand(n, 2)
 
     ws = _append_wall(ws, pt(0.0, 0.0), pt(1.0, 0.0), t)
     ws = _append_wall(ws, pt(0.0, 0.0), pt(0.0, 1.0), t)

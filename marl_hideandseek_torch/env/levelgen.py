@@ -40,6 +40,7 @@ from marl_hideandseek_torch.types import (
     body_slot_ranges,
     pack_state,
 )
+from marl_hideandseek_torch.utils import tracing
 
 CUBE_HALF = (1.0, 1.0, 1.0)
 ELONGATED_HALF = (4.0, 0.75, 1.0)
@@ -197,7 +198,8 @@ def _training_geometry(cfg: EnvConfig, level_key: torch.Tensor):
     placed_mask[:, :MAX_WALLS] = wall_act
 
     def const(c):
-        return torch.tensor(c, device=device).expand(n, len(c))
+        with tracing.span("host_read.levelgen_consts"):
+            return torch.tensor(c, device=device).expand(n, len(c))
 
     for slot in range(nb + nr + na):
         if slot < nb:
@@ -404,7 +406,12 @@ def generate_world(cfg: EnvConfig, level_key, ep_key, level_ids,
     lvl = torch.clamp(level_ids, 1, 8)
     st = generate_training_world(cfg, level_key, ep_key, num_hiders,
                                  num_seekers, seekers_first)
-    debug = sorted(int(v) for v in torch.unique(lvl).tolist() if v != 1)
+    # Two waits: unique's output size, then the copy to the host.
+    with tracing.span("host_read.levels"):
+        levels = torch.unique(lvl)
+    with tracing.span("host_read.levels"):
+        levels = levels.tolist()
+    debug = sorted(int(v) for v in levels if v != 1)
     for level in debug:
         m = lvl == level
         tmpl = debug_level(cfg, level).map(lambda x: x.to(m.device))

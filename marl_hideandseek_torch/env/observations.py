@@ -35,6 +35,7 @@ from marl_hideandseek_torch.types import (
     EnvState,
     body_slot_ranges,
 )
+from marl_hideandseek_torch.utils import tracing
 
 COS_HALF_FOV = float(np.cos(np.deg2rad(VIS_FOV_DEGREES / 2.0)))
 
@@ -81,7 +82,8 @@ def _vis_targets(cfg: EnvConfig, st: EnvState):
     """Per-agent target slots [A, T] and validity [W, A, T]."""
     n_a = cfg.max_agents
     dev = st.step.device
-    others = torch.as_tensor(others_index_matrix(n_a), device=dev)
+    with tracing.span("host_read.sweep_consts"):
+        others = torch.as_tensor(others_index_matrix(n_a), device=dev)
     o_in_range = others < n_a
     o_safe = torch.clamp(others, max=n_a - 1)
     o_active = st.agent_active[:, o_safe] & o_in_range       # [W, A, 5]
@@ -95,7 +97,8 @@ def _vis_targets(cfg: EnvConfig, st: EnvState):
         box_obs[:, None].expand(w, n_a, cfg.max_boxes),
         ramp_obs[:, None].expand(w, n_a, cfg.max_ramps),
     ], dim=2)
-    slots = torch.as_tensor(vis_target_slots(cfg), device=dev)
+    with tracing.span("host_read.sweep_consts"):
+        slots = torch.as_tensor(vis_target_slots(cfg), device=dev)
     return slots, tgt_valid
 
 
@@ -199,9 +202,10 @@ def reward_flag_from_vis(cfg: EnvConfig, st: EnvState, vis_seen):
     """[W] bool: some active seeker sees some hider (the agent columns of
     the visibility sweep)."""
     n_a = cfg.max_agents
-    o_safe = torch.clamp(torch.as_tensor(others_index_matrix(n_a),
-                                         device=vis_seen.device),
-                         max=n_a - 1)
+    with tracing.span("host_read.sweep_consts"):
+        others = torch.as_tensor(others_index_matrix(n_a),
+                                 device=vis_seen.device)
+    o_safe = torch.clamp(others, max=n_a - 1)
     is_seeker = st.agent_active & (st.agent_type == AGENT_SEEKER)
     col_is_hider = st.agent_type[:, o_safe] == AGENT_HIDER     # [W, A, 5]
     pair_seen = ((vis_seen[:, :, :MAX_AGENTS - 1] > 0.5) &
@@ -292,8 +296,10 @@ def build_observations_packed(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
     ramp_data = to_wa([f * ramp_gate for f in ramp_feats + ramp_lock], dim=2)
 
     others = others_index_matrix(n_a)
-    o_in_range = torch.as_tensor(others < n_a, device=dev)
-    o_safe = torch.as_tensor(np.minimum(others, n_a - 1), device=dev)
+    with tracing.span("host_read.obs_consts"):
+        o_in_range = torch.as_tensor(others < n_a, device=dev)
+    with tracing.span("host_read.obs_consts"):
+        o_safe = torch.as_tensor(np.minimum(others, n_a - 1), device=dev)
 
     def gather_o(c):
         return tuple(x[o_safe] for x in c)                # [A, 5, W]

@@ -58,6 +58,7 @@ from marl_hideandseek_torch.types import (
     body_slot_ranges,
     on_bits,
 )
+from marl_hideandseek_torch.utils import tracing
 
 # Movement constants (reference: src/sim.cpp:202-254). Default variant:
 # 11 buckets, F_max 60, tau_max 15; ZeroAgentVelocity: 5, 800, 240.
@@ -251,19 +252,21 @@ def standalone_sweep_packed(cfg: EnvConfig, ps: EnvState,
     """The per-step ray sweep on packed state as two raycast launches
     (obs rays, then the grab/lock rays). ``raycast`` defaults to the K1
     wrapper; the megastep's plain version passes the plain raycast."""
-    st = obs_mod.world_first(ps)
-    o, d, m, e = obs_mod.obs_ray_queries(cfg, st)
-    obs_t, obs_id = raycast(cfg, ps, _packed_rays(o), _packed_rays(d),
-                            _packed_rays(m), _packed_rays(e))
-    vis_seen, lidar = obs_mod.consume_obs_sweep(cfg, st, obs_id.T, obs_t.T)
-    o, d, m, e = obs_mod.action_ray_queries(cfg, st)
-    act_t, act_id = raycast(cfg, ps, _packed_rays(o), _packed_rays(d),
-                            _packed_rays(m), _packed_rays(e))
-    rew_seen = obs_mod.reward_flag_from_vis(cfg, st, vis_seen)
-    return SweepResults(
-        vis_seen=torch.movedim(vis_seen, 0, -1).contiguous(),
-        lidar=torch.movedim(lidar, 0, -1).contiguous(),
-        act_t=act_t, act_id=act_id, rew_seen=rew_seen)
+    with tracing.span("env.sweep"):
+        st = obs_mod.world_first(ps)
+        o, d, m, e = obs_mod.obs_ray_queries(cfg, st)
+        obs_t, obs_id = raycast(cfg, ps, _packed_rays(o), _packed_rays(d),
+                                _packed_rays(m), _packed_rays(e))
+        vis_seen, lidar = obs_mod.consume_obs_sweep(cfg, st, obs_id.T,
+                                                    obs_t.T)
+        o, d, m, e = obs_mod.action_ray_queries(cfg, st)
+        act_t, act_id = raycast(cfg, ps, _packed_rays(o), _packed_rays(d),
+                                _packed_rays(m), _packed_rays(e))
+        rew_seen = obs_mod.reward_flag_from_vis(cfg, st, vis_seen)
+        return SweepResults(
+            vis_seen=torch.movedim(vis_seen, 0, -1).contiguous(),
+            lidar=torch.movedim(lidar, 0, -1).contiguous(),
+            act_t=act_t, act_id=act_id, rew_seen=rew_seen)
 
 
 # ---------------------------------------------------------------------------
@@ -316,14 +319,16 @@ class PackedEnv:
         ``PRNGKey(cfg.rand_seed)``), swept, with zero rewards: the worlds
         ``world_ids`` (default all, ``arange(cfg.num_worlds)``), each as
         it is in the whole batch (a shard's init)."""
-        ids = (torch.arange(self.cfg.num_worlds, device=self.device)
-               if world_ids is None else world_ids.to(self.device))
-        w = ids.shape[0]
-        ps = fresh_world(self.worldgen, self._key(key), ids,
-                         torch.ones(w, dtype=torch.long, device=self.device))
-        sweep = standalone_sweep_packed(self.cfg, ps)
-        ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
-        return ps, self._result(ps, sweep, None, None)
+        with tracing.span("env.init"):
+            ids = (torch.arange(self.cfg.num_worlds, device=self.device)
+                   if world_ids is None else world_ids.to(self.device))
+            w = ids.shape[0]
+            ps = fresh_world(self.worldgen, self._key(key), ids,
+                             torch.ones(w, dtype=torch.long,
+                                        device=self.device))
+            sweep = standalone_sweep_packed(self.cfg, ps)
+            ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
+            return ps, self._result(ps, sweep, None, None)
 
     # -- stepping -----------------------------------------------------------
 
@@ -337,6 +342,10 @@ class PackedEnv:
         draws (default ``PRNGKey(cfg.rand_seed)``); world_ids [W] global
         world indices handed to the level generator (default
         arange(W))."""
+        with tracing.span("env.step"):
+            return self._step(ps, actions, resets, base_key, world_ids)
+
+    def _step(self, ps, actions, resets, base_key, world_ids):
         cfg = self.cfg
         w = ps.step.shape[0]
         dev = ps.step.device
@@ -345,24 +354,29 @@ class PackedEnv:
         if world_ids is None:
             world_ids = torch.arange(w, device=dev)
 
-        ps, sweep, rewards, dones, team_r = ops_step.megastep_packed(
-            cfg, ps, actions.to(torch.int32).contiguous())
+        with tracing.span("env.megastep"):
+            ps, sweep, rewards, dones, team_r = ops_step.megastep_packed(
+                cfg, ps, actions.to(torch.int32).contiguous())
 
         trigger = resets != 0
         if not cfg.ignore_episode_length:
             trigger = trigger | (ps.step == cfg.episode_len - 1)
-        n_trig = int(trigger.sum())
+        with tracing.span("host_read.reset_trigger"):
+            n_trig = int(trigger.sum())
         level_ids = torch.where(resets != 0, resets, 1).long()
         if n_trig == 0:
             ps = ps.replace(step=ps.step + 1)
         elif 0 < cfg.reset_budget < w and n_trig <= cfg.reset_budget:
             self.reset_counts["compact"] += 1
-            ps, sweep = self._compact_resets(ps, sweep, trigger, level_ids,
-                                             world_ids, self._key(base_key))
+            with tracing.span("env.reset"):
+                ps, sweep = self._compact_resets(
+                    ps, sweep, trigger, level_ids, world_ids,
+                    self._key(base_key))
         else:
             self.reset_counts["full"] += 1
-            ps, sweep = self._full_resets(ps, trigger, level_ids, world_ids,
-                                          self._key(base_key))
+            with tracing.span("env.reset"):
+                ps, sweep = self._full_resets(ps, trigger, level_ids,
+                                              world_ids, self._key(base_key))
         ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
         return ps, self._result(ps, sweep, rewards, dones, team_r)
 
@@ -403,12 +417,15 @@ class PackedEnv:
                             level_ids[idx])
         sub_sweep = standalone_sweep_packed(self.cfg, regen)
 
-        cols = idx[first]
+        with tracing.span("host_read.compact_cols"):
+            cols = idx[first]
 
         @on_bits
         def merge(old, new):
             out = old.clone()
-            out[..., cols] = canon_float(new)[..., first].to(old.dtype)
+            with tracing.span("host_read.compact_merge"):
+                picked = canon_float(new)[..., first]
+            out[..., cols] = picked.to(old.dtype)
             return out
 
         adv = ps.replace(step=ps.step + 1)
@@ -422,7 +439,9 @@ class PackedEnv:
         cfg = self.cfg
         w = ps.step.shape[0]
         dev = ps.step.device
-        obs = build_observations_packed(cfg, ps, sweep.vis_seen, sweep.lidar)
+        with tracing.span("env.observations"):
+            obs = build_observations_packed(cfg, ps, sweep.vis_seen,
+                                            sweep.lidar)
         if rewards is None:
             rewards = torch.zeros((cfg.max_agents, w), device=dev)
         if dones is None:

@@ -22,6 +22,7 @@ render. infer.sh's arguments run as written.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from typing import Callable, Optional
 
@@ -38,6 +39,7 @@ from marl_hideandseek_torch.train.elo import print_elos
 from marl_hideandseek_torch.train.evaluate import eval_load_ckpt
 from marl_hideandseek_torch.train.rollout import apply_ensemble
 from marl_hideandseek_torch.types import AGENT_HIDER, EnvState
+from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.utils.ckptlog import CkptLogWriter
 
 
@@ -60,12 +62,14 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     (``logits``, ``values``), the ``actions``, the recurrent state after
     the clear (``rnn_next``), the per-world ``dones`` and the env's
     ``result``. ``state_cb(i, env_state)`` gets the packed state after
-    step ``i`` (the record log's hook). With ``timing`` (CUDA only), CUDA
-    events time each step's forward (normalize, ensemble, action draw) and
-    env step.
+    step ``i`` (the record log's hook). With ``timing``, the loop runs in
+    a ``tracing.recording()`` of its own: each step's forward (normalize,
+    ensemble, action draw) is the span ``serve.forward``, its env step
+    ``env.step``.
 
     Returns the wins per team slot ``[2]``, the episodes finished, and
-    with ``timing`` the mean forward and env-step milliseconds."""
+    with ``timing`` the mean forward and env-step milliseconds of those
+    spans (the device clock's on CUDA, the host's on the CPU)."""
     cfg = env.cfg
     w, a = cfg.num_worlds, cfg.max_agents
     n = w * a
@@ -74,7 +78,6 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     ac = policy.actor_critic
     buckets = ac.actor.buckets
     n_pol = next(iter(params.values())).shape[0]
-    key = prng.key(7, dev)
     w_idx = torch.arange(w, device=dev)
     t0 = w_idx % n_pol
     t1 = (w_idx + 1 + w_idx // n_pol) % n_pol
@@ -85,34 +88,28 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
 
     wins = torch.zeros(2, device=dev)
     finished = torch.zeros((), dtype=torch.long, device=dev)
-    events = []
-    with torch.no_grad():
+    scope = tracing.recording() if timing else contextlib.nullcontext()
+    with torch.no_grad(), scope as spans:
+        key = prng.key(7, dev)
         env_state, result = env.init(prng.key(7, dev))
         obs = flat(result.obs)
         rnn = ac.init_recurrent_state(n, dev)
         for i in range(num_steps):
-            if timing:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                ev[0].record()
-            normalized = norm.normalize(obs_stats, obs)
-            is_h = (env_state.agent_type == AGENT_HIDER).T       # [W, A]
-            assignments = torch.where(is_h, t0[:, None],
-                                      t1[:, None]).reshape(-1)
-            logits, values, new_rnn = apply_ensemble(
-                policy, params, rnn, normalized, assignments, n_pol)
-            dists = DiscreteActionDistributions(buckets, logits)
-            if deterministic:
-                actions = dists.best()
-            else:
-                key, sub = prng.split(key).unbind(0)
-                actions = dists.sample(sub)
-            if timing:
-                ev[1].record()
+            with tracing.span("serve.forward"):
+                normalized = norm.normalize(obs_stats, obs)
+                is_h = (env_state.agent_type == AGENT_HIDER).T   # [W, A]
+                assignments = torch.where(is_h, t0[:, None],
+                                          t1[:, None]).reshape(-1)
+                logits, values, new_rnn = apply_ensemble(
+                    policy, params, rnn, normalized, assignments, n_pol)
+                dists = DiscreteActionDistributions(buckets, logits)
+                if deterministic:
+                    actions = dists.best()
+                else:
+                    key, sub = prng.split(key).unbind(0)
+                    actions = dists.sample(sub)
             env_state, result = env.step(
                 env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
-            if timing:
-                ev[2].record()
-                events.append(ev)
             dones = result.dones.T.reshape(-1).to(torch.bool)
             rnn_next = ac.clear_recurrent_state(new_rnn, dones)
             dones_w = result.dones[0].to(torch.bool)              # [W]
@@ -127,13 +124,15 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
             if state_cb is not None:
                 state_cb(i, env_state)
             obs, rnn = flat(result.obs), rnn_next
-    out = {"wins": wins, "episodes_finished": int(finished)}
+        with tracing.span("host_read.episodes_finished"):
+            out = {"wins": wins, "episodes_finished": int(finished)}
     if timing:
-        torch.cuda.synchronize(dev)
-        out["forward_ms"] = float(np.mean(
-            [e[0].elapsed_time(e[1]) for e in events]))
-        out["env_ms"] = float(np.mean(
-            [e[1].elapsed_time(e[2]) for e in events]))
+        taken = spans.take().spans
+        for name, k in (("serve.forward", "forward_ms"),
+                        ("env.step", "env_ms")):
+            out[k] = float(np.mean([
+                s.host_ms if s.device_ms is None else s.device_ms
+                for s in taken if s.name == name and s.parent is None]))
     return out
 
 

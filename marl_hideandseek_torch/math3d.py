@@ -16,13 +16,17 @@ import math
 
 import torch
 
+from marl_hideandseek_torch.utils import tracing
+
 FWD = (0.0, 1.0, 0.0)
 RIGHT = (1.0, 0.0, 0.0)
 
 
 def vec(c, like: torch.Tensor) -> torch.Tensor:
-    """A constant 3- or 4-vector on ``like``'s device and dtype."""
-    return torch.tensor(c, dtype=like.dtype, device=like.device)
+    """A constant 3- or 4-vector on ``like``'s device and dtype (a copy
+    from the host: on the card, the host waits for the stream)."""
+    with tracing.span("host_read.vec"):
+        return torch.tensor(c, dtype=like.dtype, device=like.device)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

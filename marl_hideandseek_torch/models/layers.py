@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from marl_hideandseek_torch import prng
+from marl_hideandseek_torch.utils import tracing
 
 # init(keys [P, 2] u32, shape) -> [P, *shape] float32 on the keys' device:
 # one slice per policy key.
@@ -510,7 +511,8 @@ class DreamerV3Critic(nn.Module):
         hi_step = torch.tensor(self.hi, dtype=f32) * inv
         lo_part = self.lo * (1.0 - i * inv)
         c = (i.double() * hi_step.double() + lo_part.double()).to(f32)
-        return torch.cat([c, torch.tensor([self.hi])]).to(device)
+        with tracing.span("host_read.bin_centers"):
+            return torch.cat([c, torch.tensor([self.hi])]).to(device)
 
     def forward(self, features: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = self.Dense_0(features).to(torch.float32)

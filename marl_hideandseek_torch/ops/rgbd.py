@@ -27,6 +27,7 @@ from marl_hideandseek_torch.ops.common import (
     wall_bound,
 )
 from marl_hideandseek_torch.types import EnvState, body_slot_ranges
+from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
 RGBD = CudaKernel("rgbd", "mhs_rgbd", ARRAY_ENTRY)
@@ -77,6 +78,11 @@ def render_rgbd_packed_fast(cfg: EnvConfig, ps: EnvState, img_h: int = 64,
     u32, depth ``[A, H*W, W]`` f32). ``out``, from ``rgbd_buffers``, is
     written in place and returned. CPU tensors take the plain renderer,
     CUDA tensors the kernel."""
+    with tracing.span("rgbd.render"):
+        return _render(cfg, ps, img_h, img_w, fov_deg, max_depth, out)
+
+
+def _render(cfg, ps, img_h, img_w, fov_deg, max_depth, out):
     w = ps.step.shape[-1]
     dev = ps.step.device
     if dev.type == "cpu":

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from marl_hideandseek_torch.ops import threefry as tf
+from marl_hideandseek_torch.utils import tracing
 
 M32 = tf.M32
 _F32 = torch.float32
@@ -47,7 +48,8 @@ def key(seed: int, device="cpu") -> torch.Tensor:
     and the JAX package's): the seed narrows to int32, so the words are
     [0, seed & 0xFFFFFFFF]."""
     k = torch.zeros(2, dtype=torch.int32, device=device)
-    k[1] = _signed(int(seed) & M32)
+    with tracing.span("host_read.key"):
+        k[1] = _signed(int(seed) & M32)
     return u32(k)
 
 

@@ -64,6 +64,7 @@ from marl_hideandseek_torch.train.rollout import (
     collect_rollout,
 )
 from marl_hideandseek_torch.types import AGENT_HIDER
+from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.utils.runtime import (
     anomaly_mode,
     check_finite,
@@ -175,6 +176,10 @@ class TrainingManager:
         loss normalizes with the new statistics), PPO, ELO from the
         rollout's finished episodes, then PBT on the incremented update
         count."""
+        with tracing.span("update"):
+            return self._update()
+
+    def _update(self) -> "TrainingManager":
         cfg, st, mesh = self.cfg, self.state, self.mesh
         guard = nan_guards_on()
         if guard:
@@ -186,26 +191,29 @@ class TrainingManager:
         if self.hooks is not None:
             roll_metrics = self.hooks.post_rollout(st.update_idx, buffer,
                                                    roll_metrics)
-        obs_stats = norm.update_state(st.obs_stats, {
-            k: v.reshape((-1,) + v.shape[3:]) for k, v in buffer.obs.items()},
-            mesh)
+        with tracing.span("normalizer"):
+            obs_stats = norm.update_state(st.obs_stats, {
+                k: v.reshape((-1,) + v.shape[3:])
+                for k, v in buffer.obs.items()}, mesh)
         key, k_ppo, k_pbt = prng.split(st.key, 3).unbind(0)
         with anomaly_mode():
             params, opt_states, value_stats, ppo_metrics = ppo_update(
                 cfg, self.policy, st.params, st.opt_states, obs_stats,
                 st.value_stats, st.hyper_params, buffer, k_ppo, mesh)
 
-        elo = elo_mod.update_elo_pairwise(
-            st.elo, *elo_mod.matches_from_episode_results(
-                roll_metrics["episode_results"], roll_metrics["team_pol"],
-                roll_metrics["dones_w"]), mesh)
+        with tracing.span("elo"):
+            elo = elo_mod.update_elo_pairwise(
+                st.elo, *elo_mod.matches_from_episode_results(
+                    roll_metrics["episode_results"], roll_metrics["team_pol"],
+                    roll_metrics["dones_w"]), mesh)
         update_idx = st.update_idx + 1
         past_params, hyper_params = st.past_params, st.hyper_params
         if cfg.pbt is not None and update_idx % cfg.pbt.explore_interval == 0:
-            params, opt_states, hyper_params = pbt_mod.explore_exploit(
-                cfg, k_pbt, elo, params, opt_states, hyper_params)
-            past_params, elo = pbt_mod.refresh_past_policies(
-                cfg, update_idx, params, past_params, elo)
+            with tracing.span("pbt"):
+                params, opt_states, hyper_params = pbt_mod.explore_exploit(
+                    cfg, k_pbt, elo, params, opt_states, hyper_params)
+                past_params, elo = pbt_mod.refresh_past_policies(
+                    cfg, update_idx, params, past_params, elo)
 
         scalars = {k: v.mean() for k, v in ppo_metrics.items()}
         scalars.update({k: v for k, v in roll_metrics.items()

@@ -19,6 +19,7 @@ import torch
 
 from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.train.cfg import ParamExplore, TrainConfig
+from marl_hideandseek_torch.utils import tracing
 
 
 def sample_param(key: torch.Tensor, spec: ParamExplore,
@@ -98,8 +99,10 @@ def explore_exploit(cfg: TrainConfig, key: torch.Tensor,
     n = cfg.num_train_policies
     if n < 2:
         return params, opt_states, hyper_params
-    best = int(torch.argmax(elo[:n]))
-    worst = int(torch.argmin(elo[:n]))
+    with tracing.span("host_read.pbt_rank"):
+        best = int(torch.argmax(elo[:n]))
+    with tracing.span("host_read.pbt_rank"):
+        worst = int(torch.argmin(elo[:n]))
 
     def copy_into(x):
         x = x.clone()
@@ -138,7 +141,8 @@ def refresh_past_policies(cfg: TrainConfig, update_idx: int,
     n_train = pbt.num_train_policies
     slot = (update_idx // max(pbt.past_policy_update_interval, 1)) % \
         pbt.num_past_policies
-    best = int(torch.argmax(elo[:n_train]))
+    with tracing.span("host_read.pbt_rank"):
+        best = int(torch.argmax(elo[:n_train]))
     new_past = {}
     for k, v in past_params.items():
         new_past[k] = v.clone()

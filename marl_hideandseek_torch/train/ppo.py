@@ -34,6 +34,7 @@ from marl_hideandseek_torch.train.rollout import (
     RolloutBuffer,
     compute_gae,
 )
+from marl_hideandseek_torch.utils import tracing
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # optax.scale_by_adam's
 
@@ -326,89 +327,97 @@ def ppo_update(cfg: TrainConfig, policy: Policy,
     the loss are summed in one all-reduce a minibatch, so every rank takes
     the same Adam step.
     """
-    n_train = cfg.num_train_policies
-    c, t, n = buffer.log_probs.shape
-    dev = buffer.log_probs.device
-    first = mesh.rank * n
-    advantages, returns = compute_gae(cfg, buffer)
-    value_stats = update_value_stats(cfg, value_stats, returns,
-                                     buffer.assignments, mesh)
-    data = {
-        "obs": buffer.obs,
-        "actions": buffer.actions,
-        "log_probs": buffer.log_probs,
-        "values": buffer.values,
-        "dones": buffer.dones,
-        "assignments": buffer.assignments,
-        "advantages": advantages,
-        "returns": returns,
-        "rnn_start": buffer.rnn_start_states,
-    }
+    with tracing.span("ppo"):
+        n_train = cfg.num_train_policies
+        c, t, n = buffer.log_probs.shape
+        dev = buffer.log_probs.device
+        first = mesh.rank * n
+        with tracing.span("ppo.gae"):
+            advantages, returns = compute_gae(cfg, buffer)
+            value_stats = update_value_stats(cfg, value_stats, returns,
+                                             buffer.assignments, mesh)
+        data = {
+            "obs": buffer.obs,
+            "actions": buffer.actions,
+            "log_probs": buffer.log_probs,
+            "values": buffer.values,
+            "dones": buffer.dones,
+            "assignments": buffer.assignments,
+            "advantages": advantages,
+            "returns": returns,
+            "rnn_start": buffer.rnn_start_states,
+        }
 
-    # Every leaf has its agent axis at 2 ([C, T, N, ...]; rnn_start
-    # [C, L, N, H]). slots: the global agent at each position of each
-    # policy's group [P, cap] (grouped), or of the batch [1, N].
-    grouped = use_grouped_ppo(cfg)
-    if grouped:
-        g_idx, size = group_gather_indices(
-            n_train, n * mesh.size,
-            mesh.all_gather(buffer.assignments[0, 0], 0))
-        dropped_agent_frac = grouped_dropped_frac(buffer.assignments, g_idx,
-                                                  n_train, mesh)
-        slots = g_idx
-    else:
-        size = n * mesh.size
-        dropped_agent_frac = torch.zeros(n_train, device=dev)
-        slots = torch.arange(size, device=dev)[None]
+        # Every leaf has its agent axis at 2 ([C, T, N, ...]; rnn_start
+        # [C, L, N, H]). slots: the global agent at each position of each
+        # policy's group [P, cap] (grouped), or of the batch [1, N].
+        grouped = use_grouped_ppo(cfg)
+        with tracing.span("ppo.batch"):
+            if grouped:
+                g_idx, size = group_gather_indices(
+                    n_train, n * mesh.size,
+                    mesh.all_gather(buffer.assignments[0, 0], 0))
+                dropped_agent_frac = grouped_dropped_frac(
+                    buffer.assignments, g_idx, n_train, mesh)
+                slots = g_idx
+            else:
+                size = n * mesh.size
+                dropped_agent_frac = torch.zeros(n_train, device=dev)
+                slots = torch.arange(size, device=dev)[None]
 
-    def take(seg):
-        """The minibatch of positions ``seg``: each leaf's members at
-        ``[P,] C, T, K``, the padding out of every policy's mask."""
-        idx, real = _members(slots, first, n, seg, mesh)
-        if grouped:
-            mb = tree_map(lambda x: x[:, :, idx].movedim(2, 0), data)
-            pad = ~real[:, None, None, :]
+        def take(seg):
+            """The minibatch of positions ``seg``: each leaf's members at
+            ``[P,] C, T, K``, the padding out of every policy's mask."""
+            with tracing.span("ppo.batch"):
+                idx, real = _members(slots, first, n, seg, mesh)
+                if grouped:
+                    mb = tree_map(lambda x: x[:, :, idx].movedim(2, 0), data)
+                    pad = ~real[:, None, None, :]
+                else:
+                    mb = tree_map(lambda x: x[:, :, idx[0]], data)
+                    pad = ~real[0]
+                mb["assignments"] = torch.where(pad, -1, mb["assignments"])
+                return mb
+
+        num_mb = cfg.algo.num_mini_batches
+        if size % num_mb != 0:
+            raise ValueError(f"{size} agents do not divide into {num_mb} "
+                             f"minibatches")
+        mb_size = size // num_mb
+        params = {k: v.detach() for k, v in all_params.items()}
+        opt = all_opt_states
+        p_idx = torch.arange(n_train, device=dev)
+        lr, ent_coef = hyper_params["lr"], hyper_params["entropy_coef"]
+        aux = []
+        if num_mb > 1:
+            with tracing.span("ppo.batch"):
+                perms = epoch_permutations(key, cfg.algo.num_epochs, size)
         else:
-            mb = tree_map(lambda x: x[:, :, idx[0]], data)
-            pad = ~real[0]
-        mb["assignments"] = torch.where(pad, -1, mb["assignments"])
-        return mb
-
-    num_mb = cfg.algo.num_mini_batches
-    if size % num_mb != 0:
-        raise ValueError(f"{size} agents do not divide into {num_mb} "
-                         f"minibatches")
-    mb_size = size // num_mb
-    params = {k: v.detach() for k, v in all_params.items()}
-    opt = all_opt_states
-    p_idx = torch.arange(n_train, device=dev)
-    lr, ent_coef = hyper_params["lr"], hyper_params["entropy_coef"]
-    aux = []
-    if num_mb > 1:
-        perms = epoch_permutations(key, cfg.algo.num_epochs, size)
-    else:
-        # One minibatch: without groups, every rank's own agents in order.
-        whole = (take(torch.arange(size, device=dev)) if grouped else data)
-    for e in range(cfg.algo.num_epochs):
-        for i in range(num_mb):
-            mb = (whole if num_mb == 1 else
-                  take(perms[e, i * mb_size:(i + 1) * mb_size]))
-            leaves = {k: v.detach().requires_grad_() for k, v in
-                      params.items()}
-            with torch.enable_grad():
-                a_l, v_l, ent, *_ = _policy_loss(
-                    cfg, policy, leaves, obs_stats, value_stats, mb, p_idx,
-                    per_policy=grouped, mesh=mesh)
-                total = a_l + cfg.algo.value_loss_coef * v_l - ent_coef * ent
-                grads = torch.autograd.grad(total.sum(),
-                                            list(leaves.values()))
-            grads = mesh.all_sum_many(grads)
-            updates, opt = clipped_adam(dict(zip(leaves, grads)), opt,
-                                        cfg.algo.max_grad_norm)
-            params = {k: params[k] + (-_per_policy(lr, u)) * u
-                      for k, u in updates.items()}
-            aux.append(torch.stack([total, a_l, v_l, ent]).detach())
-    aux = mesh.all_sum(torch.stack(aux)).mean(0)          # [4, P]
-    metrics = {"loss": aux[0], "action_loss": aux[1], "value_loss": aux[2],
-               "entropy": aux[3], "dropped_agent_frac": dropped_agent_frac}
-    return params, opt, value_stats, metrics
+            # One minibatch: without groups, every rank's own agents in order.
+            whole = (take(torch.arange(size, device=dev)) if grouped else data)
+        for e in range(cfg.algo.num_epochs):
+            for i in range(num_mb):
+                mb = (whole if num_mb == 1 else
+                      take(perms[e, i * mb_size:(i + 1) * mb_size]))
+                with tracing.span("ppo.loss"):
+                    leaves = {k: v.detach().requires_grad_() for k, v in
+                              params.items()}
+                    with torch.enable_grad():
+                        a_l, v_l, ent, *_ = _policy_loss(
+                            cfg, policy, leaves, obs_stats, value_stats, mb,
+                            p_idx, per_policy=grouped, mesh=mesh)
+                        total = (a_l + cfg.algo.value_loss_coef * v_l -
+                                 ent_coef * ent)
+                        grads = torch.autograd.grad(total.sum(),
+                                                    list(leaves.values()))
+                    grads = mesh.all_sum_many(grads)
+                with tracing.span("ppo.adam"):
+                    updates, opt = clipped_adam(dict(zip(leaves, grads)), opt,
+                                                cfg.algo.max_grad_norm)
+                    params = {k: params[k] + (-_per_policy(lr, u)) * u
+                              for k, u in updates.items()}
+                aux.append(torch.stack([total, a_l, v_l, ent]).detach())
+        aux = mesh.all_sum(torch.stack(aux)).mean(0)          # [4, P]
+        metrics = {"loss": aux[0], "action_loss": aux[1], "value_loss": aux[2],
+                   "entropy": aux[3], "dropped_agent_frac": dropped_agent_frac}
+        return params, opt, value_stats, metrics

@@ -37,6 +37,7 @@ from marl_hideandseek_torch.types import (
     EnvState,
     body_slot_ranges,
 )
+from marl_hideandseek_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -245,6 +246,13 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     their slice of the global draws, and the metrics are the whole
     batch's.
     """
+    with tracing.span("rollout"):
+        return _collect(cfg, env, policy, all_params, obs_stats, rollout,
+                        value_stats, mesh)
+
+
+def _collect(cfg, env, policy, all_params, obs_stats, rollout, value_stats,
+             mesh):
     cfg_env = env.cfg
     w, a = rollout.env_state.step.shape[0], cfg_env.max_agents
     n = w * a
@@ -272,15 +280,18 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
         for ci in range(cfg.num_bptt_chunks):
             rnn_start.append(rnn)
             for ti in range(t_chunk):
-                k_act, k_assign = step_keys[ci * t_chunk + ti].unbind(0)
-                logits, values, new_rnn = apply_ensemble(
-                    policy, all_params, rnn, norm.normalize(obs_stats, obs),
-                    assignments, n_total, num_train=cfg.num_train_policies)
-                values = denormalize_values(cfg, value_stats, values,
-                                            assignments)
-                dists = DiscreteActionDistributions(buckets, logits)
-                actions = dists.sample(k_act, (mesh.rank * n, mesh.size * n))
-                log_probs = dists.log_prob(actions)
+                with tracing.span("rollout.forward"):
+                    k_act, k_assign = step_keys[ci * t_chunk + ti].unbind(0)
+                    logits, values, new_rnn = apply_ensemble(
+                        policy, all_params, rnn,
+                        norm.normalize(obs_stats, obs), assignments, n_total,
+                        num_train=cfg.num_train_policies)
+                    values = denormalize_values(cfg, value_stats, values,
+                                                assignments)
+                    dists = DiscreteActionDistributions(buckets, logits)
+                    actions = dists.sample(k_act,
+                                           (mesh.rank * n, mesh.size * n))
+                    log_probs = dists.log_prob(actions)
 
                 pre_step = env_state.step
                 pre_is_h = (env_state.agent_type == AGENT_HIDER).T   # [W, A]
@@ -288,97 +299,108 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                 pre_sf = env_state.seekers_first.to(torch.bool)
                 env_state, result = env_step(
                     env_state, actions.reshape(w, a, -1).permute(1, 2, 0))
-                next_obs = flat(result.obs)
-                dones = result.dones.T.reshape(-1).to(torch.bool)
-                new_rnn = ac.clear_recurrent_state(new_rnn, dones)
-                dones_w = result.dones[0].to(torch.bool)
-                new_assign = _resample_assignments(
-                    k_assign, dones_w, assignments, cfg, w, a,
-                    env_state.agent_type.T, mesh)
+                with tracing.span("rollout.record"):
+                    next_obs = flat(result.obs)
+                    dones = result.dones.T.reshape(-1).to(torch.bool)
+                    new_rnn = ac.clear_recurrent_state(new_rnn, dones)
+                    dones_w = result.dones[0].to(torch.bool)
+                    new_assign = _resample_assignments(
+                        k_assign, dones_w, assignments, cfg, w, a,
+                        env_state.agent_type.T, mesh)
 
-                # The pre-step episode's (first-spawned, second-spawned)
-                # team policies, for ELO (rollout.py:256-268).
-                assign_wa = assignments.reshape(w, a)
-                h_pol = torch.where(pre_is_h & pre_act, assign_wa,
-                                    -1).amax(1)
-                s_pol = torch.where(~pre_is_h & pre_act, assign_wa,
-                                    -1).amax(1)
-                team_pol = torch.stack([torch.where(pre_sf, s_pol, h_pol),
-                                        torch.where(pre_sf, h_pol, s_pol)],
-                                       -1)
+                    # The pre-step episode's (first-spawned,
+                    # second-spawned) team policies, for ELO
+                    # (rollout.py:256-268).
+                    assign_wa = assignments.reshape(w, a)
+                    h_pol = torch.where(pre_is_h & pre_act, assign_wa,
+                                        -1).amax(1)
+                    s_pol = torch.where(~pre_is_h & pre_act, assign_wa,
+                                        -1).amax(1)
+                    team_pol = torch.stack(
+                        [torch.where(pre_sf, s_pol, h_pol),
+                         torch.where(pre_sf, h_pol, s_pol)], -1)
 
-                # Seek-phase world-steps (the pre-step counter, so the last
-                # seek step of an episode counts), with the hiders hidden;
-                # world-steps with a locked box, a grab, a locked ramp, a
-                # moving ramp (post-step state; rollout.py:270-302).
-                bodies = env_state.bodies
-                ramp_speed = torch.linalg.vector_norm(
-                    bodies.vel[ramp_lo:ramp_hi, :2], dim=1)
-                in_seek = (pre_step >= NUM_PREP_STEPS - 1).to(torch.float32)
-                step_vals = {
-                    "obs": obs, "actions": actions, "log_probs": log_probs,
-                    "values": values,
-                    "rewards": result.rewards.T.reshape(-1),
-                    "dones": dones, "assignments": assignments,
-                    "episode_results": result.episode_results.T,
-                    "dones_w": dones_w, "team_pol": team_pol,
-                    "seek": in_seek.sum(),
-                    "hidden": ((result.team_reward > 0.0).to(torch.float32)
-                               * in_seek).sum(),
-                    "locked": bodies.locked[box_lo:box_hi].any(0).sum(),
-                    "grab": (env_state.grab.target >= 0).any(0).sum(),
-                    "ramp_locked": bodies.locked[ramp_lo:ramp_hi].any(0).sum(),
-                    "ramp_move": ((ramp_speed > 0.25) &
-                                  bodies.active[ramp_lo:ramp_hi]).any(0).sum(),
-                }
-                for k in keys:
-                    store[k].append(step_vals[k])
+                    # Seek-phase world-steps (the pre-step counter, so the
+                    # last seek step of an episode counts), with the hiders
+                    # hidden; world-steps with a locked box, a grab, a
+                    # locked ramp, a moving ramp (post-step state;
+                    # rollout.py:270-302).
+                    bodies = env_state.bodies
+                    ramp_speed = torch.linalg.vector_norm(
+                        bodies.vel[ramp_lo:ramp_hi, :2], dim=1)
+                    in_seek = (pre_step >= NUM_PREP_STEPS - 1).to(
+                        torch.float32)
+                    ramps = slice(ramp_lo, ramp_hi)
+                    step_vals = {
+                        "obs": obs, "actions": actions,
+                        "log_probs": log_probs, "values": values,
+                        "rewards": result.rewards.T.reshape(-1),
+                        "dones": dones, "assignments": assignments,
+                        "episode_results": result.episode_results.T,
+                        "dones_w": dones_w, "team_pol": team_pol,
+                        "seek": in_seek.sum(),
+                        "hidden": ((result.team_reward > 0.0).to(
+                            torch.float32) * in_seek).sum(),
+                        "locked": bodies.locked[box_lo:box_hi].any(0).sum(),
+                        "grab": (env_state.grab.target >= 0).any(0).sum(),
+                        "ramp_locked": bodies.locked[ramps].any(0).sum(),
+                        "ramp_move": ((ramp_speed > 0.25) &
+                                      bodies.active[ramps]).any(0).sum(),
+                    }
+                    for k in keys:
+                        store[k].append(step_vals[k])
                 obs, rnn, assignments = next_obs, new_rnn, new_assign
 
-        _, boot_values, _ = apply_ensemble(
-            policy, all_params, rnn, norm.normalize(obs_stats, obs),
-            assignments, n_total, num_train=cfg.num_train_policies)
-        boot_values = denormalize_values(cfg, value_stats, boot_values,
-                                         assignments)
+        with tracing.span("rollout.forward"):
+            _, boot_values, _ = apply_ensemble(
+                policy, all_params, rnn, norm.normalize(obs_stats, obs),
+                assignments, n_total, num_train=cfg.num_train_policies)
+            boot_values = denormalize_values(cfg, value_stats, boot_values,
+                                             assignments)
 
-    c = cfg.num_bptt_chunks
+    with tracing.span("rollout.buffer"):
+        c = cfg.num_bptt_chunks
 
-    def chunked(xs):
-        x = torch.stack(xs)
-        return x.reshape((c, t_chunk) + x.shape[1:])
+        def chunked(xs):
+            x = torch.stack(xs)
+            return x.reshape((c, t_chunk) + x.shape[1:])
 
-    buffer = RolloutBuffer(
-        obs={k: chunked([o[k] for o in store["obs"]])
-             for k in store["obs"][0]},
-        actions=chunked(store["actions"]),
-        log_probs=chunked(store["log_probs"]),
-        values=chunked(store["values"]),
-        rewards=chunked(store["rewards"]),
-        dones=chunked(store["dones"]),
-        assignments=chunked(store["assignments"]),
-        rnn_start_states=tree_map(lambda *xs: torch.stack(xs), *rnn_start),
-        bootstrap_value=boot_values,
-    )
-    # World-step counts and the reward sum over every rank's worlds.
-    total_ws = float(cfg.steps_per_update * w * mesh.size)
-    names = ("hidden", "seek", "locked", "grab", "ramp_locked", "ramp_move")
-    sums = dict(zip(names + ("reward",), mesh.all_sum_many(
-        [torch.stack(store[k]).sum().to(torch.float32) for k in names] +
-        [buffer.rewards.sum()])))
-    metrics = {
-        "episode_results": torch.stack(store["episode_results"]),
-        "dones_w": torch.stack(store["dones_w"]),
-        "team_pol": torch.stack(store["team_pol"]),
-        "mean_reward": sums["reward"] / (total_ws * a),
-        "hidden_frac": sums["hidden"] / torch.clamp(sums["seek"], min=1.0),
-        "lock_rate": sums["locked"] / total_ws,
-        "grab_rate": sums["grab"] / total_ws,
-        "ramp_lock_rate": sums["ramp_locked"] / total_ws,
-        "ramp_move_rate": sums["ramp_move"] / total_ws,
-    }
-    new_rollout = RolloutState(env_state=env_state, obs=obs, rnn_states=rnn,
-                               assignments=assignments, key=key)
-    return new_rollout, buffer, metrics
+        buffer = RolloutBuffer(
+            obs={k: chunked([o[k] for o in store["obs"]])
+                 for k in store["obs"][0]},
+            actions=chunked(store["actions"]),
+            log_probs=chunked(store["log_probs"]),
+            values=chunked(store["values"]),
+            rewards=chunked(store["rewards"]),
+            dones=chunked(store["dones"]),
+            assignments=chunked(store["assignments"]),
+            rnn_start_states=tree_map(lambda *xs: torch.stack(xs),
+                                      *rnn_start),
+            bootstrap_value=boot_values,
+        )
+        # World-step counts and the reward sum over every rank's worlds.
+        total_ws = float(cfg.steps_per_update * w * mesh.size)
+        names = ("hidden", "seek", "locked", "grab", "ramp_locked",
+                 "ramp_move")
+        sums = dict(zip(names + ("reward",), mesh.all_sum_many(
+            [torch.stack(store[k]).sum().to(torch.float32) for k in names] +
+            [buffer.rewards.sum()])))
+        metrics = {
+            "episode_results": torch.stack(store["episode_results"]),
+            "dones_w": torch.stack(store["dones_w"]),
+            "team_pol": torch.stack(store["team_pol"]),
+            "mean_reward": sums["reward"] / (total_ws * a),
+            "hidden_frac": sums["hidden"] / torch.clamp(sums["seek"],
+                                                        min=1.0),
+            "lock_rate": sums["locked"] / total_ws,
+            "grab_rate": sums["grab"] / total_ws,
+            "ramp_lock_rate": sums["ramp_locked"] / total_ws,
+            "ramp_move_rate": sums["ramp_move"] / total_ws,
+        }
+        new_rollout = RolloutState(env_state=env_state, obs=obs,
+                                   rnn_states=rnn, assignments=assignments,
+                                   key=key)
+        return new_rollout, buffer, metrics
 
 
 def compute_gae(cfg: TrainConfig, buffer: RolloutBuffer):
