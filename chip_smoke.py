@@ -15,7 +15,12 @@ just before and read just after (the threefry kernel's on every path):
   bench.py's configuration (16,384 worlds, 2 hiders and 2 seekers, 9
   boxes, 2 ramps, ZeroAgentVelocity | RandomFlipTeams, seed 5) - for 300
   steps across the episode-end full reset, then 20 steps with 1 % random
-  resets (the compact branch): K4 megastep and K1 raycast;
+  resets (the compact branch): K4 megastep, K1 raycast and K6
+  observation assembly (one launch a step and at init);
+* k6_check - K6 against the plain assembly on the main path's state at
+  step 100, leaf by leaf (integers and masks equal, floats within 1e-5),
+  then at 65,536 worlds (that state four times over): ms a launch, the
+  byte bound, the plain version's ms, the largest error;
 * the classic path - ``HideAndSeekEnv`` at scripts/headless.py's
   configuration (16,384 worlds, 3 hiders and 2 seekers, SimFlags.Default,
   seed 5) - for 250 steps across the full reset, then 5 steps with 1 %
@@ -348,6 +353,7 @@ def main() -> int:
 def run(args, work: str) -> int:
     """The phases of ``main``; ``work`` a directory for their files."""
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env import observations as O
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.ops import build, rays, step
     from marl_hideandseek_torch.ops import threefry as tfk
@@ -364,10 +370,10 @@ def run(args, work: str) -> int:
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["raycast", "megastep", "rgbd", "threefry"],
+    build.build(["raycast", "megastep", "rgbd", "threefry", "observations"],
                 host=["ckptlog"])
     phase("build", t0)
-    for name in ("raycast", "megastep", "rgbd", "threefry"):
+    for name in ("raycast", "megastep", "rgbd", "threefry", "observations"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
     occ = step.megastep_occupancy()
     log(f"megastep.cu (K2, K3, K4): one warp per world, "
@@ -378,6 +384,13 @@ def run(args, work: str) -> int:
     for name, label in (("raycast", "K1"), ("rgbd", "K5")):
         o = block_occupancy(name)
         log(f"{name}.cu ({label}): one warp per world, "
+            f"{o['worlds_per_block']} worlds per block, "
+            f"{o['smem_bytes_per_block']} B of shared memory per block; "
+            f"resident worlds per SM {o['worlds_per_sm']}")
+
+    for teams in (1, 2, 3):
+        o = obs_occupancy(teams)
+        log(f"observations.cu (K6), {teams}v{teams}: "
             f"{o['worlds_per_block']} worlds per block, "
             f"{o['smem_bytes_per_block']} B of shared memory per block; "
             f"resident worlds per SM {o['worlds_per_sm']}")
@@ -425,6 +438,7 @@ def run(args, work: str) -> int:
     rays.RAYCAST.launches = 0
     step.MEGASTEP.launches = 0
     tfk.THREEFRY.launches = 0
+    O.OBSERVATIONS.launches = 0
     env = PackedEnv(cfg, device=dev)
     ps, res = env.init()
     tf_init = tfk.THREEFRY.launches
@@ -464,7 +478,8 @@ def run(args, work: str) -> int:
     check_finite(ps, res, "compact")
     launches = {"raycast": rays.RAYCAST.launches,
                 "megastep": step.MEGASTEP.launches,
-                "threefry": tfk.THREEFRY.launches}
+                "threefry": tfk.THREEFRY.launches,
+                "observations": O.OBSERVATIONS.launches}
     tf_compact = launches["threefry"] - tf_main
     require(env.reset_counts["compact"] >= 1, "the compact reset never ran")
     n_reset_steps = env.reset_counts["full"] + env.reset_counts["compact"]
@@ -472,7 +487,8 @@ def run(args, work: str) -> int:
             tf_main - tf_init == tf_reset * full_main,
             f"threefry launches on the main path: init {tf_init}, full "
             f"reset {tf_reset}, {MAIN_STEPS} steps {tf_main - tf_init}")
-    require(launches["raycast"] > 0 and launches["megastep"] > 0,
+    require(launches["raycast"] > 0 and launches["megastep"] > 0 and
+            launches["observations"] == 1 + MAIN_STEPS + COMPACT_STEPS,
             f"kernel launches on the main path: {launches}")
     obs_shapes = {k: tuple(v.shape) for k, v in res.obs.items()}
     require(obs_shapes["box_data"] == (WORLDS, na, 9 * 17) and
@@ -512,8 +528,13 @@ def run(args, work: str) -> int:
     log(f"K4 {k4_ms:.4f} ms/launch, plain {k4_plain_ms:.3f} ms, bound "
         f"{k4_bound:.5f} ms ({k4_by}: {k4_bytes} B; physics work per "
         f"launch {tally})")
-    del moving
     phase("k4_check_moving", t0)
+
+    # ---- 5b. K6 vs plain on the moved state; K6 at 16,384 and 65,536 ------
+    t0 = time.perf_counter()
+    k6 = check_k6(cfg, rk[0], rk[1])
+    del moving, rk
+    phase("k6_check", t0)
 
     # ---- 6. render path: bench.py BENCH_RENDER=1 ----------------------------
     t0 = time.perf_counter()
@@ -640,6 +661,15 @@ def run(args, work: str) -> int:
              source="marl_hideandseek_torch/csrc/rgbd.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_rgbd.py:325",
              **render["kernel"], **new_paths("rgbd")),
+        dict(name="observations", route="cuda",
+             source="marl_hideandseek_torch/csrc/observations.cu",
+             replaces="none: XLA's fusion of "
+                      "marl_hideandseek_tpu/env/observations.py:226",
+             launches=launches["observations"],
+             serve_launches=serve["launches"]["observations"],
+             eval_launches=evaluation["launches"]["observations"],
+             train_launches=training["launches"]["observations"],
+             library_ms=None, **k6, **new_paths("observations")),
         dict(launches=launches["threefry"],
              classic_launches=classic["launches"]["threefry"],
              serve_launches=serve["launches"]["threefry"],
@@ -814,6 +844,7 @@ def serve_path(dev, gpu):
     on step SERVE_CHECK_AT's inputs against the same modules on the CPU
     for SERVE_CHECK_AGENTS agents; the forward's time and FLOP/s."""
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env import observations as O
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.infer import run_inference
     from marl_hideandseek_torch.models import DiscreteActionDistributions
@@ -874,6 +905,7 @@ def serve_path(dev, gpu):
     rays.RAYCAST.launches = 0
     step.MEGASTEP.launches = 0
     tfk.THREEFRY.launches = 0
+    O.OBSERVATIONS.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_inference(env, policy, params, stats, SERVE_STEPS,
@@ -882,7 +914,8 @@ def serve_path(dev, gpu):
     wall = time.perf_counter() - t0
     launches = {"megastep": step.MEGASTEP.launches,
                 "raycast": rays.RAYCAST.launches,
-                "threefry": tfk.THREEFRY.launches}
+                "threefry": tfk.THREEFRY.launches,
+                "observations": O.OBSERVATIONS.launches}
     # Per step: the step key's split, the buckets' split and their Gumbel
     # noise; more on the reset steps and at init.
     require(launches["threefry"] > 3 * SERVE_STEPS,
@@ -891,6 +924,9 @@ def serve_path(dev, gpu):
     require(launches["megastep"] == SERVE_STEPS,
             f"serve path: K4 launches {launches['megastep']}, expected "
             f"{SERVE_STEPS}")
+    require(launches["observations"] == SERVE_STEPS + 1,
+            f"serve path: K6 launches {launches['observations']}, expected "
+            f"{SERVE_STEPS + 1} (the loop's init and every step)")
     require(launches["raycast"] > saved["k1_before_reset"],
             f"serve path: no K1 launch on the reset step ({launches})")
     require(env.reset_counts["full"] >= 1, "serve path: no episode end")
@@ -970,6 +1006,7 @@ def eval_path(dev, policy, params, gpu):
     EVAL_WORLDS worlds: K3 on every step, K1 on the reset steps, at least
     one finished episode, and ELOs moved from 1,500 and finite."""
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
+    from marl_hideandseek_torch.env import observations as O
     from marl_hideandseek_torch.env.env import HideAndSeekEnv
     from marl_hideandseek_torch.ops import fused, rays
     from marl_hideandseek_torch.ops import threefry as tfk
@@ -993,6 +1030,7 @@ def eval_path(dev, policy, params, gpu):
     fused.FUSED.launches = 0
     rays.RAYCAST.launches = 0
     tfk.THREEFRY.launches = 0
+    O.OBSERVATIONS.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eval_policies(dev, ecfg, env, policy, params, stats)
@@ -1000,14 +1038,16 @@ def eval_path(dev, policy, params, gpu):
     wall = time.perf_counter() - t0
     launches = {"fused": fused.FUSED.launches,
                 "raycast": rays.RAYCAST.launches,
-                "threefry": tfk.THREEFRY.launches}
+                "threefry": tfk.THREEFRY.launches,
+                "observations": O.OBSERVATIONS.launches}
     elo = out["elo"].cpu()
     log(f"eval path: {EVAL_STEPS} steps x {EVAL_WORLDS} worlds in "
         f"{wall:.3f} s = {EVAL_STEPS * EVAL_WORLDS / wall:.1f} steps x "
         f"worlds / s; episodes finished {out['episodes_finished']}; ELOs "
         f"{[round(float(e), 3) for e in elo]}; launches {launches}; {gpu}")
     require(launches["fused"] == EVAL_STEPS and launches["raycast"] > 0 and
-            launches["threefry"] > 3 * EVAL_STEPS,
+            launches["threefry"] > 3 * EVAL_STEPS and
+            launches["observations"] >= EVAL_STEPS,
             f"eval path launches {launches}")
     require(out["episodes_finished"] >= 1, "eval path: no episode finished")
     require(bool(torch.isfinite(elo).all()) and
@@ -1016,21 +1056,22 @@ def eval_path(dev, policy, params, gpu):
     return dict(launches=launches)
 
 
-KERNEL_COUNTERS = {"raycast": ("rays", "RAYCAST"),
-                   "physics": ("physics", "PHYSICS"),
-                   "fused": ("fused", "FUSED"),
-                   "megastep": ("step", "MEGASTEP"),
-                   "rgbd": ("rgbd", "RGBD"),
-                   "threefry": ("threefry", "THREEFRY")}
+KERNEL_COUNTERS = {"raycast": ("ops.rays", "RAYCAST"),
+                   "physics": ("ops.physics", "PHYSICS"),
+                   "fused": ("ops.fused", "FUSED"),
+                   "megastep": ("ops.step", "MEGASTEP"),
+                   "rgbd": ("ops.rgbd", "RGBD"),
+                   "threefry": ("ops.threefry", "THREEFRY"),
+                   "observations": ("env.observations", "OBSERVATIONS")}
 
 
 def kernel_counters() -> dict:
-    """Each kernel wrapper (``ops/*.py``) by the name of the ``kernels``
-    line."""
+    """Each kernel wrapper (``ops/*.py``, ``env/observations.py``) by the
+    name of the ``kernels`` line."""
     import importlib
 
     return {name: getattr(importlib.import_module(
-        f"marl_hideandseek_torch.ops.{mod}"), attr)
+        f"marl_hideandseek_torch.{mod}"), attr)
         for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
@@ -1769,6 +1810,101 @@ def check_k1(cfg, ps, label: str) -> dict:
         f"{b_ms:.5f} ms ({b_by}: {n_bytes} B)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def obs_occupancy(teams: int) -> dict:
+    """K6's launch shape at teams v teams, full capacity (9 boxes, 2
+    ramps), as the CUDA runtime reckons it (``mhs_observations_occupancy``):
+    worlds and shared bytes per block, blocks and worlds resident per SM."""
+    import ctypes
+
+    from marl_hideandseek_torch.ops.build import load
+
+    fn = load("observations").mhs_observations_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(9, 2, 2 * teams, ctypes.cast(out, ctypes.c_void_p))
+    require(err == 0, f"mhs_observations_occupancy: cudaError {err}")
+    return {"worlds_per_block": out[0], "smem_bytes_per_block": out[1],
+            "blocks_per_sm": out[2], "worlds_per_sm": out[0] * out[2]}
+
+
+def obs_bytes(cfg, w: int) -> int:
+    """The bytes K6 must move for ``w`` worlds, each read or written once:
+    every body's pose and velocity, the boxes' sizes, the boxes' and
+    ramps' locks and owners, each agent's grab, type and flag, three
+    per-world ints, the sweep's visibility and lidar; the eleven
+    leaves."""
+    from marl_hideandseek_torch.env import observations as O
+
+    nb, nr, na = cfg.max_boxes, cfg.max_ramps, cfg.max_agents
+    read = (4 * 13 * cfg.num_dyn_bodies + 4 * 3 * nb + 5 * (nb + nr) +
+            9 * na + 12 + 4 * na * (O.num_vis_targets(cfg) + 30))
+    written = 4 * na * sum(f for _, f, _ in O.observation_leaves(cfg))
+    return w * (read + written)
+
+
+def check_k6(cfg, ps, sweep) -> dict:
+    """K6 against the plain assembly on packed state ``ps`` and its
+    sweep, leaf by leaf: integers and masks equal, floats within 1e-5
+    absolute plus 1e-5 relative. Then K6's time (launches from arguments
+    built once; ``call_ms``: whole calls of the wrapper, which at 16,384
+    worlds the host paces), its byte bound and the plain version's time,
+    there and at four times the worlds (the same worlds four times
+    over)."""
+    import ctypes
+
+    from marl_hideandseek_torch.env import observations as O
+    from marl_hideandseek_torch.ops.common import c_arrays, stream_ptr
+    from marl_hideandseek_torch.types import on_bits
+
+    out = {}
+    for label, times in (("", 1), ("_64k", 4)):
+        st, vis, lidar = ps, sweep.vis_seen, sweep.lidar
+        if times > 1:
+            st = ps.map(on_bits(lambda x: torch.cat([x] * times, -1)))
+            vis, lidar = (torch.cat([x] * times, -1) for x in (vis, lidar))
+        w = st.step.shape[-1]
+        got = O.build_observations_kernel(cfg, st, vis, lidar)
+        want = O.build_observations_plain(cfg, st, vis, lidar)
+        err = 0.0
+        for name, p in want.items():
+            k = got[name]
+            require(k.dtype == p.dtype and k.shape == p.shape,
+                    f"K6 {name}: {k.dtype} {tuple(k.shape)} against "
+                    f"{p.dtype} {tuple(p.shape)}")
+            if p.dtype != torch.float32 or "mask" in name:
+                require(torch.equal(k, p), f"K6 {name} differs")
+                continue
+            e = max_err(k, p)
+            rel = ((k - p).abs() - 1e-5 * p.abs()).max().item()
+            require(rel <= 1e-5, f"K6 {name}: error {e} beyond 1e-5 + 1e-5 x")
+            err = max(err, e)
+        call_ms = cuda_ms(lambda: O.build_observations_kernel(cfg, st, vis,
+                                                              lidar), 20)
+        ptrs, ip = O.observation_params(cfg, st, vis, lidar)
+        ptrs += [t.data_ptr() for t in got.values()]
+        pa, ia, fa = c_arrays(ptrs, ip, [])
+        launch = (ctypes.cast(pa, ctypes.c_void_p), len(ptrs),
+                  ctypes.cast(ia, ctypes.c_void_p), len(ip),
+                  ctypes.cast(fa, ctypes.c_void_p), 0,
+                  stream_ptr(st.step.device))
+        ms = cuda_ms(lambda: O.OBSERVATIONS(*launch), 50)
+        plain_ms = cuda_ms(lambda: O.build_observations_plain(cfg, st, vis,
+                                                              lidar), 3)
+        n_bytes = obs_bytes(cfg, w)
+        b_ms, b_by = bound(n_bytes, 0.0)
+        log(f"K6 at {w} worlds: {ms:.4f} ms/launch ({ms / b_ms:.2f}x the "
+            f"bound; a whole call {call_ms:.4f}), plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}: {n_bytes} B); max abs err "
+            f"against plain {err:.3g}")
+        out.update({f"ms{label}": ms, f"call_ms{label}": call_ms,
+                    f"plain_ms{label}": plain_ms, f"bound_ms{label}": b_ms,
+                    f"max_abs_err{label}": err})
+    out["bound_by"] = "bytes"
+    out["max_abs_err"] = max(out["max_abs_err"], out.pop("max_abs_err_64k"))
+    return out
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32):

@@ -107,6 +107,37 @@ MHS_HD Q4 quat_normalize(Q4 q) {
   return Q4{q.w / n, q.x / n, q.y / n, q.z / n};
 }
 
+// ---- component form (math3d.qrot / qconj / qnorm / euler) -----------------
+
+// math3d.qrot: v[i] + s * w * c[i] + 2 * d[i], s = -2 (inv) or 2.
+MHS_HD V3 qrot_c(Q4 q, V3 v, bool inv) {
+  V3 u = V3{q.x, q.y, q.z};
+  V3 c = cross(u, v);
+  V3 d = cross(u, c);
+  float sw = (inv ? -2.0f : 2.0f) * q.w;
+  return V3{v.x + sw * c.x + 2.0f * d.x, v.y + sw * c.y + 2.0f * d.y,
+            v.z + sw * c.z + 2.0f * d.z};
+}
+MHS_HD Q4 qconj(Q4 q) { return Q4{q.w, -q.x, -q.y, -q.z}; }
+MHS_HD Q4 qnorm(Q4 q) {
+  float inv = rsqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z + 1e-12f);
+  return Q4{q.w * inv, q.x * inv, q.y * inv, q.z * inv};
+}
+
+// math3d.euler (quatToEuler): atan2f and asinf, as torch.atan2 and
+// torch.asin compute them on the card; the pitch's clamp passes NaN.
+MHS_HD V3 euler(Q4 q) {
+  const float sinr = 2.0f * (q.w * q.x + q.y * q.z);
+  const float cosr = 1.0f - 2.0f * (q.x * q.x + q.y * q.y);
+  const float sinp = 2.0f * (q.w * q.y - q.z * q.x);
+  const float clamped = sinp < -1.0f ? -1.0f : (sinp > 1.0f ? 1.0f : sinp);
+  const float pitch = fabsf(sinp) >= 1.0f ? sgn(sinp) * 0x1.921fb6p+0f
+                                          : asinf(clamped);
+  const float siny = 2.0f * (q.w * q.z + q.x * q.y);
+  const float cosy = 1.0f - 2.0f * (q.y * q.y + q.z * q.z);
+  return V3{atan2f(sinr, cosr), pitch, atan2f(siny, cosy)};
+}
+
 // ---- rays (env/rays.py) ---------------------------------------------------
 //
 // Each test is split into the terms of the ray's origin and the work of

@@ -299,23 +299,6 @@ MHS_HD SweepParams sweep_params(const Args& A) {
                      A.cos_half_fov, A.interact_len, A.lidar_range,
                      A.lidar_cs};
 }
-// ---- component-form helpers (math3d.qrot / qmul / qconj / qnorm) ---------
-
-// math3d.qrot: v[i] + s * w * c[i] + 2 * d[i], s = -2 (inv) or 2.
-MHS_HD V3 qrot_c(Q4 q, V3 v, bool inv) {
-  V3 u = V3{q.x, q.y, q.z};
-  V3 c = cross(u, v);
-  V3 d = cross(u, c);
-  float sw = (inv ? -2.0f : 2.0f) * q.w;
-  return V3{v.x + sw * c.x + 2.0f * d.x, v.y + sw * c.y + 2.0f * d.y,
-            v.z + sw * c.z + 2.0f * d.z};
-}
-MHS_HD Q4 qconj(Q4 q) { return Q4{q.w, -q.x, -q.y, -q.z}; }
-MHS_HD Q4 qnorm(Q4 q) {
-  float inv = rsqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z + 1e-12f);
-  return Q4{q.w * inv, q.x * inv, q.y * inv, q.z * inv};
-}
-
 // ---- physics helpers (env/physics.py) -------------------------------------
 
 MHS_HD float norm3(V3 v) { return sqrtf(v.x * v.x + v.y * v.y + v.z * v.z); }

@@ -1,10 +1,21 @@
-"""Ray-sweep glue: ray queries and their consumption (plain PyTorch).
+"""Ray-sweep glue and observation assembly.
 
 Port of the sweep functions of ``marl_hideandseek_tpu/env/observations.py``
 (``obs_ray_queries``, ``action_ray_queries``, ``consume_obs_sweep``,
 ``reward_flag_from_vis``) with the world axis as a leading batch
 dimension. ``st`` arguments are world-first views of the state
 (``types.unpack_state`` without the copy: see ``world_first``).
+
+Observation assembly (``build_observations_packed``) runs the plain
+PyTorch version (``build_observations_plain``) on CPU tensors and K6,
+``csrc/observations.cu``, on CUDA tensors: one launch for all eleven
+leaves, instead of the plain version's ~760 kernels dispatched one by
+one from the host. K6 replaces no Pallas kernel, only XLA's fusion of
+the jnp assembly (``marl_hideandseek_tpu/env/observations.py:226``).
+Bytes bound it (~1.7 KB read and ~5.0 KB written a 2v2 world, 0.13 ms at
+65,536 worlds on 3.35 TB/s): a block stages a tile of worlds' inputs in
+shared memory with coalesced loads, computes each (world, agent, entity)
+row there and writes each leaf's contiguous range (the source's note).
 
 Row conventions: each agent has T = (MAX_AGENTS - 1) + max_boxes +
 max_ramps visibility targets (the other agent slots in slot order, the
@@ -27,6 +38,12 @@ from marl_hideandseek_torch.config import (
     NUM_LIDAR_SAMPLES,
     VIS_FOV_DEGREES,
     EnvConfig,
+)
+from marl_hideandseek_torch.ops.build import CudaKernel
+from marl_hideandseek_torch.ops.common import (
+    ARRAY_ENTRY,
+    check_view,
+    launch_arrays,
 )
 from marl_hideandseek_torch.types import (
     AGENT_HIDER,
@@ -225,7 +242,16 @@ def _lock_obs(locked, owner):
 
 def build_observations_packed(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
     """Flat-feature observations from packed state and the sweep
-    (vis_seen [A, T, W], lidar [A, 30, W]); leaves [W, A, F]."""
+    (vis_seen [A, T, W], lidar [A, 30, W]); leaves [W, A, F]
+    (``observation_leaves``). CPU tensors take the plain version, CUDA
+    tensors K6."""
+    if ps.step.device.type == "cpu":
+        return build_observations_plain(cfg, ps, vis_seen, lidar)
+    return build_observations_kernel(cfg, ps, vis_seen, lidar)
+
+
+def build_observations_plain(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
+    """Plain PyTorch version of ``build_observations_packed``."""
     n_a = cfg.max_agents
     (box_lo, box_hi), (ramp_lo, ramp_hi), (agent_lo, agent_hi) = \
         body_slot_ranges(cfg)
@@ -333,6 +359,102 @@ def build_observations_packed(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
         "vis_ramps_mask": torch.movedim(
             vis_seen[:, t_agents + cfg.max_boxes:], -1, 0).contiguous(),
     }
+
+
+# K6: observation assembly in one launch (csrc/observations.cu).
+OBSERVATIONS = CudaKernel("observations", "mhs_observations", ARRAY_ENTRY)
+
+
+def observation_leaves(cfg: EnvConfig) -> list:
+    """The assembly's leaves in K6's output order: (name, F, dtype) of
+    each ``[W, A, F]`` leaf."""
+    t = MAX_AGENTS - 1
+    f32, i32 = torch.float32, torch.int32
+    return [("prep_counter", 1, i32), ("self_data", 13, f32),
+            ("self_type", 1, i32), ("self_mask", 1, f32),
+            ("self_lidar", NUM_LIDAR_SAMPLES, f32),
+            ("agent_data", t * 14, f32),
+            ("box_data", cfg.max_boxes * 17, f32),
+            ("ramp_data", cfg.max_ramps * 14, f32),
+            ("vis_agents_mask", t, f32),
+            ("vis_boxes_mask", cfg.max_boxes, f32),
+            ("vis_ramps_mask", cfg.max_ramps, f32)]
+
+
+def observation_inputs(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
+    """What one K6 launch reads, in csrc/observations.cu's input order: a
+    list of (tensor, shape without the world axis, dtype)."""
+    nb, na = cfg.num_dyn_bodies, cfg.max_agents
+    b = ps.bodies
+    f32, i32, bool_ = torch.float32, torch.int32, torch.bool
+    return [
+        (b.pos, (nb, 3), f32), (b.quat, (nb, 4), f32), (b.vel, (nb, 3), f32),
+        (b.omega, (nb, 3), f32), (b.half_ext, (nb, 3), f32),
+        (b.locked, (nb,), bool_), (b.owner, (nb,), i32),
+        (ps.grab.target, (na,), i32), (ps.agent_type, (na,), i32),
+        (ps.agent_active, (na,), bool_), (ps.num_active_boxes, (), i32),
+        (ps.num_active_ramps, (), i32), (ps.step, (), i32),
+        (vis_seen, (na, num_vis_targets(cfg)), f32),
+        (lidar, (na, NUM_LIDAR_SAMPLES), f32),
+    ]
+
+
+def observation_params(cfg: EnvConfig, ps: EnvState, vis_seen, lidar):
+    """Checked input pointers and the ints of one K6 launch: the world
+    count, the entity counts, the preparation steps, then each input's
+    element strides (row dimensions padded with 0, then the world axis),
+    so that any layout is read as it lies."""
+    dev = ps.step.device
+    w = ps.step.shape[-1]
+    ptrs, strides = [], []
+    for i, (t, shape, dt) in enumerate(
+            observation_inputs(cfg, ps, vis_seen, lidar)):
+        shape = (*shape, w)
+        # check_view's tests, inline since this runs every step;
+        # check_view raises with the reason.
+        if t.device != dev or t.dtype != dt or t.shape != shape:
+            check_view(t, f"observations input {i}", shape, dt, dev)
+        ptrs.append(t.data_ptr())
+        st = t.stride()
+        strides += [*st[:-1], *(0,) * (3 - len(st)), st[-1]]
+    if max(strides) >= 2 ** 31:
+        raise ValueError("observations: a stride exceeds the kernel's int")
+    iparams = [w, cfg.max_boxes, cfg.max_ramps, cfg.max_agents,
+               cfg.num_prep_steps, *strides]
+    return ptrs, iparams
+
+
+def build_observations_kernel(cfg: EnvConfig, ps: EnvState, vis_seen,
+                              lidar) -> dict:
+    """K6: ``build_observations_plain``'s leaves in one launch, from
+    CUDA tensors in any layout. Raises on another device, dtype or
+    shape."""
+    dev = ps.step.device
+    if dev.type != "cuda":
+        raise ValueError(f"observations kernel: state on {dev}, expected a "
+                         f"CUDA device")
+    ptrs, iparams = observation_params(cfg, ps, vis_seen, lidar)
+    out = observation_outputs(cfg, iparams[0], dev)
+    launch_arrays(OBSERVATIONS, ptrs + [t.data_ptr() for t in out.values()],
+                  iparams, [], dev)
+    return out
+
+
+def observation_outputs(cfg: EnvConfig, w: int, device) -> dict:
+    """K6's leaves as contiguous views of one allocation (one call to the
+    caching allocator, not eleven: the wrapper's host time is the card's
+    idle time after the reset trigger's read), each starting on a
+    16-byte boundary, where the kernel's bulk copies need it."""
+    na = cfg.max_agents
+    leaves = observation_leaves(cfg)
+    sizes = [-(-w * na * f // 4) * 4 for _, f, _ in leaves]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    out, at = {}, 0
+    for (name, f, dt), n in zip(leaves, sizes):
+        leaf = buf.as_strided((w, na, f), (na * f, f, 1), at)
+        out[name] = leaf if dt == torch.float32 else leaf.view(dt)
+        at += n
+    return out
 
 
 def reference_obs(cfg: EnvConfig, obs: dict) -> dict:

@@ -9,14 +9,24 @@ import torch
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 # Entry signature of the kernels that take their arguments as arrays
-# (csrc/megastep.cu, csrc/rgbd.cu): pointers, ints and floats, each with
-# its count, then the stream.
+# (csrc/megastep.cu, csrc/rgbd.cu, csrc/observations.cu): pointers, ints
+# and floats, each with its count, then the stream.
 ARRAY_ENTRY = [PTR, INT, PTR, INT, PTR, INT, PTR]
 
 
 def check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
     """Raise unless ``t`` has this shape, dtype, device and is contiguous;
     return its data pointer."""
+    ptr = check_view(t, name, shape, dtype, device)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return ptr
+
+
+def check_view(t: torch.Tensor, name: str, shape, dtype, device) -> int:
+    """Raise unless ``t`` has this shape, dtype and device, in any
+    layout (a kernel that takes strides reads it as it is); return its
+    data pointer."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -24,8 +34,6 @@ def check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
     return t.data_ptr()
 
 

@@ -1,7 +1,8 @@
 """Checks shared by the card tests, ``chip_smoke.py`` and the CPU tests:
 the rounding bars of a PPO update, the comparison of two updates at those
-bars, the planted optimizer faults the bars must catch, and a launcher of
-ranks on one machine. No module of the training path imports this one.
+bars, the planted optimizer faults the bars must catch, a launcher of
+ranks on one machine, and drawn inputs of the observation assembly
+(``observation_case``). No module of the training path imports this one.
 
 Rounding bars. Two runs of one PPO update that differ only in rounding
 (the card's kernels against the CPU's, bf16 products, ranks' partial sums)
@@ -35,6 +36,8 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from marl_hideandseek_torch.config import NUM_LIDAR_SAMPLES
+from marl_hideandseek_torch.env.observations import num_vis_targets
 from marl_hideandseek_torch.train import ppo
 
 K = 4.0
@@ -226,3 +229,47 @@ def spawn_ranks(fn: Callable, nprocs: int, args: tuple = (),
             for p in ctx.processes:
                 p.kill()
             raise TimeoutError(f"{nprocs} ranks not done in {timeout} s")
+
+
+def observation_case(cfg, ps, seed: int):
+    """Inputs of the observation assembly drawn from ``seed``, on the
+    packed state's device and in its shapes: (state, vis_seen, lidar).
+    Every field the assembly reads is redrawn: unit quaternions (world 0's
+    bodies at pitch +90 degrees, where euler takes its clamp branch),
+    positions, velocities and sizes; boxes and ramps locked by each team
+    or by none; agents grabbing or not, active or not, hiders and
+    seekers; as many active boxes and ramps as the slots or fewer; steps
+    on both sides of the preparation phase; seen flags and lidar
+    depths."""
+    dev = ps.step.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb, na, w = cfg.num_dyn_bodies, cfg.max_agents, ps.step.shape[0]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    quat = normal(nb, 4, w)
+    quat = quat / quat.norm(dim=1, keepdim=True)
+    quat[:, 0, 0] = quat[:, 2, 0] = 0.5 ** 0.5
+    quat[:, 1, 0] = quat[:, 3, 0] = 0.0
+    bodies = ps.bodies.replace(
+        pos=10.0 * normal(nb, 3, w), quat=quat, vel=normal(nb, 3, w),
+        omega=normal(nb, 3, w), half_ext=0.5 + normal(nb, 3, w).abs(),
+        locked=ints(0, 2, nb, w).bool(), owner=ints(0, 4, nb, w))
+    ps = ps.replace(
+        bodies=bodies,
+        grab=ps.grab.replace(target=ints(-1, nb - na, na, w)),
+        agent_type=ints(0, 2, na, w),
+        agent_active=ints(0, 5, na, w) > 0,
+        num_active_boxes=ints(0, cfg.max_boxes + 1, w),
+        num_active_ramps=ints(0, cfg.max_ramps + 1, w),
+        step=ints(0, cfg.episode_len, w))
+    vis = ints(0, 2, na, num_vis_targets(cfg), w).float()
+    lidar = torch.where(ints(0, 4, na, NUM_LIDAR_SAMPLES, w) > 0,
+                        50.0 * torch.rand((na, NUM_LIDAR_SAMPLES, w),
+                                          generator=g, device=dev), 0.0)
+    return ps, vis, lidar

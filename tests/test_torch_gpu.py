@@ -1,8 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (K1 raycast, K2 physics, K3
-fused physics + sweep, K4 megastep, K5 RGBD, and the threefry kernel of
-every random draw) against its plain PyTorch version on CUDA tensors,
-the packed env's main path through K1 and K4, the classic env through
-K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
+fused physics + sweep, K4 megastep, K5 RGBD, K6 observation assembly,
+and the threefry kernel of every random draw) against its plain PyTorch
+version on CUDA tensors, the packed env's main path through K1, K4 and
+K6, the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
 the inference loop through K4 and K1, and a PPO update at train.sh's
 configuration against the CPU's at the update's rounding bars
 (``marl_hideandseek_torch/testing.py``), which each planted Adam fault
@@ -36,8 +36,10 @@ from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.ops import threefry as ops_threefry
 from marl_hideandseek_torch.policy import make_policy
+from marl_hideandseek_torch.testing import observation_case
 from marl_hideandseek_torch.train.rollout import apply_ensemble
 from marl_hideandseek_torch.types import unpack_state
+from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
 pytestmark = pytest.mark.gpu
@@ -271,6 +273,130 @@ def test_env_main_path_uses_both_kernels(cuda):
     for t in ps.leaves():
         if t.is_floating_point():
             assert bool((torch.isfinite(t) | (t == float("inf"))).all())
+    for v in res.obs.values():
+        assert bool(torch.isfinite(v.float()).all())
+
+
+# K6 against the plain assembly on the card: every float within 1e-5
+# absolute plus 1e-5 relative; integers and masks equal.
+OBS_TOL = 1e-5
+OBS_TEAMS = {"1v1": REDUCED, "2v2": FULL,
+             "3v3": dict(min_hiders=3, max_hiders=3, min_seekers=3,
+                         max_seekers=3)}
+
+
+def _check_obs(got: dict, want: dict) -> float:
+    """Leaf by leaf: names, dtypes, shapes; the largest float error."""
+    assert list(got) == list(want)
+    worst = 0.0
+    for name, p in want.items():
+        k = got[name]
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        if p.dtype != torch.float32 or "mask" in name:
+            assert torch.equal(k, p), name
+            continue
+        torch.testing.assert_close(k, p, atol=OBS_TOL, rtol=OBS_TOL,
+                                   msg=name)
+        worst = max(worst, (k - p).abs().max().item() if p.numel() else 0.0)
+    return worst
+
+
+def _k6(cfg, ps, vis, lidar) -> dict:
+    n0 = obs_mod.OBSERVATIONS.launches
+    out = obs_mod.build_observations_packed(cfg, ps, vis, lidar)
+    assert obs_mod.OBSERVATIONS.launches == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 33, 4097, 16384])
+def test_observations_kernel_matches_plain(cuda, w):
+    """bench_2v2 at full capacity, on the init state and after 3 steps of
+    random actions."""
+    cfg = EnvConfig(num_worlds=w, **FULL, sim_flags=FLAGS, rand_seed=w)
+    env = PackedEnv(cfg, device=cuda)
+    ps, _ = env.init()
+    g = torch.Generator(device=cuda).manual_seed(w)
+    worst = 0.0
+    for i in range(4):
+        sw = tp.standalone_sweep_packed(cfg, ps)
+        got = _k6(cfg, ps, sw.vis_seen, sw.lidar)
+        want = obs_mod.build_observations_plain(cfg, ps, sw.vis_seen,
+                                                sw.lidar)
+        worst = max(worst, _check_obs(got, want))
+        acts = torch.cat([
+            torch.randint(0, 5, (cfg.max_agents, 3, w), generator=g,
+                          device=cuda),
+            torch.randint(0, 2, (cfg.max_agents, 2, w), generator=g,
+                          device=cuda)], 1)
+        ps, _ = env.step(ps, acts)
+    print(f"K6 vs plain at {w} worlds: max abs err {worst:.3g}")
+
+
+@pytest.mark.parametrize("teams", list(OBS_TEAMS))
+def test_observations_kernel_drawn_cases(cuda, teams):
+    """Drawn inputs (testing.observation_case): inactive and grabbing
+    agents, boxes and ramps locked by each team, fewer active boxes and
+    ramps than the slots, a gimbal-locked world; 1v1 with 3 boxes and a
+    ramp, 2v2 and 3v3 at full capacity; a ragged 1,001 worlds."""
+    cfg, ps = _state(cuda, OBS_TEAMS[teams], 1001, 0)
+    ps, vis, lidar = observation_case(cfg, ps, 11)
+    worst = _check_obs(_k6(cfg, ps, vis, lidar),
+                       obs_mod.build_observations_plain(cfg, ps, vis, lidar))
+    print(f"K6 vs plain, drawn {teams}: max abs err {worst:.3g}")
+
+
+def test_observations_kernel_reads_world_major_views(cuda):
+    """The classic env's world-major state and sweep through
+    ``build_observations``: K6 reads the views through their strides."""
+    cfg = EnvConfig(num_worlds=300, **CLASSIC, rand_seed=3)
+    st, _ = HideAndSeekEnv(cfg, device=cuda).init()
+    st, vis, lidar = observation_case(cfg, obs_mod.world_last(st), 12)
+    st = unpack_state(st)
+    vis, lidar = (torch.movedim(x, -1, 0).contiguous() for x in (vis, lidar))
+    n0 = obs_mod.OBSERVATIONS.launches
+    got = obs_mod.build_observations(cfg, st, vis, lidar)
+    assert obs_mod.OBSERVATIONS.launches == n0 + 1
+    want = obs_mod.reference_obs(cfg, obs_mod.build_observations_plain(
+        cfg, obs_mod.world_last(st), torch.movedim(vis, 0, -1),
+        torch.movedim(lidar, 0, -1)))
+    _check_obs(got, want)
+
+
+def test_observations_wrapper_checks_inputs(cuda):
+    cfg, ps = _state(cuda, FULL, 64, 0)
+    sw = tp.standalone_sweep_packed(cfg, ps)
+    n0 = obs_mod.OBSERVATIONS.launches
+    with pytest.raises(ValueError, match="on cpu"):
+        obs_mod.build_observations_packed(cfg, ps, sw.vis_seen.cpu(),
+                                          sw.lidar)
+    with pytest.raises(ValueError, match="dtype"):
+        obs_mod.build_observations_packed(cfg, ps, sw.vis_seen,
+                                          sw.lidar.double())
+    with pytest.raises(ValueError, match="shape"):
+        obs_mod.build_observations_packed(cfg, ps, sw.vis_seen[:, 1:],
+                                          sw.lidar)
+    assert obs_mod.OBSERVATIONS.launches == n0
+
+
+def test_env_step_assembles_through_k6(cuda):
+    """One K6 launch a PackedEnv.step, the reset step's included, and no
+    host read of index tables while assembling."""
+    cfg = EnvConfig(num_worlds=256, **FULL, sim_flags=FLAGS)
+    env = PackedEnv(cfg, device=cuda)
+    ps, _ = env.init()
+    ps = ps.replace(step=torch.full_like(ps.step, 237))
+    acts = torch.zeros((cfg.max_agents, 5, 256), dtype=torch.int32,
+                       device=cuda)
+    n0 = obs_mod.OBSERVATIONS.launches
+    with tracing.recording() as rec:
+        for _ in range(4):
+            ps, res = env.step(ps, acts)
+    assert obs_mod.OBSERVATIONS.launches == n0 + 4
+    assert env.reset_counts["full"] == 1
+    names = [s.name for s in rec.take().spans]
+    assert names.count("env.observations") == 4
+    assert "host_read.obs_consts" not in names
+    assert names.count("host_read.reset_trigger") == 4
     for v in res.obs.values():
         assert bool(torch.isfinite(v.float()).all())
 

@@ -1,16 +1,17 @@
 """PyTorch port: the CUDA kernels' sources (csrc/raycast.cu,
 csrc/megastep.cu with its megastep, physics and fused entries,
-csrc/rgbd.cu, csrc/threefry.cu) compiled as plain host C++
+csrc/rgbd.cu, csrc/threefry.cu, csrc/observations.cu) compiled as plain
+host C++
 (-DMHS_HOST_BUILD, the same per-ray / per-world / per-pixel functions in
 a loop) and held to the plain PyTorch versions on CPU tensors. This
 checks the kernels' arithmetic and their argument layout without a card;
 the launch itself is checked on the card (tests/test_torch_gpu.py,
 chip_smoke.py). Needs a host C++ compiler.
 
-All three sources run a warp per world (rgbd.cu: per world and agent);
-as host C++ their lane helpers (csrc/lanes.cuh) run the lanes of each
-phase, the block's load and store items and the block's warps one after
-another. Each source is built twice, in forward and in reverse order
+Three sources run a warp per world (rgbd.cu: per world and agent), and
+observations.cu a block per tile of worlds; as host C++ their lane
+helpers (csrc/lanes.cuh) run the lanes of each phase, the block's load,
+compute and store items and the block's warps one after another. Each source is built twice, in forward and in reverse order
 (-DMHS_LANES_REVERSE): a phase that reads what another lane writes in the
 same phase - a missing barrier - gives different results in the two
 orders. The cases also run at a world count that is not a multiple of
@@ -37,7 +38,8 @@ from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.ops import threefry as ops_threefry
-from marl_hideandseek_torch.types import body_slot_ranges
+from marl_hideandseek_torch.testing import observation_case
+from marl_hideandseek_torch.types import body_slot_ranges, unpack_state
 
 REDUCED = dict(num_worlds=96, min_hiders=1, max_hiders=1, min_seekers=1,
                max_seekers=1, max_boxes=3, max_ramps=1)
@@ -70,7 +72,7 @@ def host_libs(tmp_path_factory):
     libs = {}
     for key, name, defs in [
             (f"{name}{suffix}", name, defs)
-            for name in ("raycast", "megastep", "rgbd")
+            for name in ("raycast", "megastep", "rgbd", "observations")
             for suffix, defs in (("", []),
                                  ("-reverse", ["-DMHS_LANES_REVERSE"]))]:
         so = out / f"{key}.so"
@@ -314,6 +316,78 @@ def test_rgbd_source_culls_exactly(host_libs, lanes):
     assert torch.equal(rgba_h.view(torch.int32), rgba_p.view(torch.int32))
     torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)
     assert counts[0] > 0 and counts[1] > 0, list(counts)
+
+
+# Team sizes of the observation cases: 1v1 with 3 boxes and a ramp, 2v2
+# and 3v3 at full capacity; 16 worlds (two blocks of 8) or one less.
+OBS_TEAMS = {
+    "1v1": dict(num_worlds=16, min_hiders=1, max_hiders=1, min_seekers=1,
+                max_seekers=1, max_boxes=3, max_ramps=1),
+    "2v2": dict(FULL, num_worlds=16),
+    "3v3": dict(num_worlds=16, min_hiders=3, max_hiders=3, min_seekers=3,
+                max_seekers=3),
+}
+
+
+@pytest.fixture(scope="module")
+def obs_states():
+    """Each team size's packed init state and a drawn case of it."""
+    out = {}
+    for name, kw in OBS_TEAMS.items():
+        cfg, ps = _env_state(kw, 0)
+        out[name] = (cfg, ps, observation_case(cfg, ps, len(out)))
+    return out
+
+
+def _host_observations(lib, cfg, ps, vis, lidar):
+    ptrs, ip = obs_mod.observation_params(cfg, ps, vis, lidar)
+    out = obs_mod.observation_outputs(cfg, ip[0], "cpu")
+    _host_call(lib.mhs_observations_host,
+               ptrs + [t.data_ptr() for t in out.values()], ip, [])
+    return out
+
+
+def _sweep(cfg, ps):
+    sw = tp.standalone_sweep_packed(cfg, ps)
+    return sw.vis_seen, sw.lidar
+
+
+@pytest.mark.parametrize("teams", list(OBS_TEAMS))
+@pytest.mark.parametrize("case", ["init", "drawn"])
+@pytest.mark.parametrize("layout", ["packed", "world_major"])
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_observations_source_matches_plain(host_libs, obs_states, teams,
+                                           case, layout, worlds, lanes):
+    """K6's eleven leaves against the plain assembly's: the same names,
+    dtypes and shapes; integer leaves and masks equal; every float within
+    rounding of the math library's atan2f / asinf (host libm against
+    PyTorch's CPU kernels). The packed layout, and world-major views of
+    the same values (the classic env's), read through their strides."""
+    cfg, ps, drawn = obs_states[teams]
+    ins = (ps, *_sweep(cfg, ps)) if case == "init" else drawn
+    if worlds == "ragged":
+        w = cfg.num_worlds - 1
+        ins = tuple(x.map(lambda t: t[..., :w]) if hasattr(x, "map")
+                    else x[..., :w] for x in ins)
+    want = obs_mod.build_observations_plain(cfg, *ins)
+    st, vis, lidar = ins
+    if layout == "world_major":
+        st = obs_mod.world_last(unpack_state(st))
+        vis = torch.movedim(torch.movedim(vis, -1, 0).contiguous(), 0, -1)
+        lidar = torch.movedim(torch.movedim(lidar, -1, 0).contiguous(), 0,
+                              -1)
+        assert st.bodies.pos.stride()[-1] != 1 and vis.stride()[-1] != 1
+    got = _host_observations(_lib(host_libs, "observations", lanes), cfg,
+                             st, vis, lidar)
+    assert list(got) == list(want)
+    for name, p in want.items():
+        h = got[name]
+        assert h.dtype == p.dtype and h.shape == p.shape, name
+        if p.dtype != torch.float32 or "mask" in name or name == "self_lidar":
+            assert torch.equal(h, p), name
+        else:
+            torch.testing.assert_close(h, p, atol=1e-5, rtol=1e-5, msg=name)
 
 
 @pytest.fixture(scope="module")
