@@ -5,7 +5,7 @@ env (port of scripts/infer.py).
         [--num-worlds 16] [--num-steps 3600] [--num-hiders 3]
         [--num-seekers 3] [--record-log PATH] [--deterministic]
         [--single-policy K] [--train-only] [--bf16] [--print-obs]
-        [--device cuda|cpu]
+        [--backbone pooled] [--device cuda|cpu]
 
 Loads a checkpoint written by ``bridge.save_policy_checkpoint`` (any
 ensemble size; a JAX orbax checkpoint converts to one, README.md), runs
@@ -16,7 +16,9 @@ scores, the wins per team slot and the policies' ELOs. The loop is
 to a checkpoint record log (``utils/ckptlog.py``), frame ``i`` the
 checkpoint record of the state after step ``i``
 (``env/checkpoint.py::record_frame``), which ``replay`` and ``replay3d``
-render. infer.sh's arguments run as written.
+render. infer.sh's arguments run as written. ``--backbone`` names the
+checkpoint's policy; ``openai_hns`` acts with the env's force-based
+movement (``UseFixedWorld`` alone).
 """
 
 from __future__ import annotations
@@ -34,7 +36,11 @@ from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.checkpoint import record_frame
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
-from marl_hideandseek_torch.policy import make_policy
+from marl_hideandseek_torch.policy import (
+    BACKBONES,
+    backbone_recipe,
+    make_policy,
+)
 from marl_hideandseek_torch.train.elo import print_elos
 from marl_hideandseek_torch.train.evaluate import eval_load_ckpt
 from marl_hideandseek_torch.train.rollout import apply_ensemble
@@ -179,18 +185,24 @@ def parse_args(argv=None):
                    help="evaluate one policy against itself")
     p.add_argument("--train-only", action="store_true",
                    help="drop past policies from the eval population")
+    p.add_argument("--backbone", type=str, default="pooled",
+                   choices=BACKBONES)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
 def infer_config(args) -> EnvConfig:
     """The env configuration of ``main``'s arguments: a fixed world,
-    ``UseFixedWorld | ZeroAgentVelocity``, seed 5."""
+    ``UseFixedWorld | ZeroAgentVelocity`` (``UseFixedWorld`` alone for
+    ``--backbone openai_hns``, whose actions are forces), seed 5."""
+    flags = SimFlags.UseFixedWorld
+    if backbone_recipe(args.backbone).instant_velocity:
+        flags |= SimFlags.ZeroAgentVelocity
     return EnvConfig(
         num_worlds=args.num_worlds,
         min_hiders=args.num_hiders, max_hiders=args.num_hiders,
         min_seekers=args.num_seekers, max_seekers=args.num_seekers,
-        sim_flags=SimFlags.UseFixedWorld | SimFlags.ZeroAgentVelocity,
+        sim_flags=flags,
         rand_seed=5,
     )
 
@@ -200,7 +212,8 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     cfg = infer_config(args)
     env = PackedEnv(cfg, device=args.device)
-    policy = make_policy(dtype=dtype, device=env.device)
+    policy = make_policy(dtype=dtype, backbone=args.backbone,
+                         device=env.device)
     params, obs_stats, elo = eval_load_ckpt(
         policy, args.ckpt_path, single_policy=args.single_policy,
         train_only=args.train_only, device=env.device)

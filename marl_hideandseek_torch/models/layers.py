@@ -323,10 +323,13 @@ class EmbedBlock(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """flax ``nn.SelfAttention`` without a mask or dropout, written out as
-    products and a softmax: query, key and value kernels ``[P, C, H, D]``
-    with biases ``[P, H, D]``, the query divided by sqrt(D), and the out
-    kernel ``[P, H, D, C_out]``. Every token attends to every token."""
+    """flax ``nn.SelfAttention`` without dropout, written out as products
+    and a softmax: query, key and value kernels ``[P, C, H, D]`` with
+    biases ``[P, H, D]``, the query divided by sqrt(D), and the out kernel
+    ``[P, H, D, C_out]``. Without a mask every token attends to every
+    token; a key mask ``[P|1, ..., T]`` (True where a token may be
+    attended to) sets the other keys' scores to -inf before the softmax,
+    which subtracts the row's largest score (every row needs one key)."""
 
     def __init__(self, num_policies: int, in_features: int, num_heads: int,
                  qkv_features: int, out_features: int, dtype=torch.float32,
@@ -341,11 +344,14 @@ class SelfAttention(nn.Module):
         self.out = Dense(num_policies, (num_heads, head_dim), out_features,
                          kernel_init=kernel_init, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)  # [.., T, H, D]
         depth = q.shape[-1]
         q = q / torch.sqrt(torch.tensor(float(depth))).to(q.dtype)
         w = torch.einsum("...qhd,...khd->...hqk", q, k)
+        if mask is not None:
+            w = w.masked_fill(~mask[..., None, None, :], float("-inf"))
         w = torch.softmax(w, dim=-1).to(q.dtype)
         y = torch.einsum("...hqk,...khd->...qhd", w, v)
         return self.out(y)
@@ -387,6 +393,60 @@ class EntitySelfAttentionNet(nn.Module):
         seq = self.LayerNorm_0(seq + self.SelfAttention_0(seq))
         pooled = seq.mean(dim=-2)
         return leaky_relu(self.LayerNorm_1(self.Dense_0(pooled)))
+
+
+class ResidualSelfAttention(nn.Module):
+    """A residual self-attention block with LayerNorm before the
+    products and after the residual (Baker et al. 2019's
+    ``residual_sa_block`` with one layer, no MLP after it):
+    ``LayerNorm_1(x + SelfAttention_0(LayerNorm_0(x), mask))``. Each
+    forward is the span ``model.attn``."""
+
+    def __init__(self, num_policies: int, num_channels: int, num_heads: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(num_policies, num_channels,
+                                     device=device)
+        self.SelfAttention_0 = SelfAttention(
+            num_policies, num_channels, num_heads, num_channels,
+            num_channels, dtype=dtype, device=device)
+        self.LayerNorm_1 = LayerNorm(num_policies, num_channels,
+                                     device=device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        with tracing.span("model.attn"):
+            y = self.SelfAttention_0(self.LayerNorm_0(x), mask)
+            return self.LayerNorm_1(x + y)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of x ``[.., T, C]`` over the tokens where mask ``[.., T]``
+    is set (at least one a row)."""
+    m = mask.to(x.dtype)
+    return (x * m[..., None]).sum(-2) / m.sum(-1, keepdim=True)
+
+
+class CircularConv1d(Dense):
+    """flax ``nn.Conv`` over one spatial axis with circular padding and
+    stride 1, stacked over policies: kernel ``[P, width, C_in, C_out]``,
+    bias ``[P, C_out]``. x ``[P|1, ..., L, C_in]`` -> ``[P, ..., L,
+    C_out]``: each position's window wraps around the ends, and one
+    batched product contracts every window. The kernel is drawn as the
+    Dense kernel ``[width * C_in, C_out]`` it is."""
+
+    def __init__(self, num_policies: int, in_channels: int,
+                 out_channels: int, width: int, dtype=torch.float32,
+                 device=None):
+        super().__init__(num_policies, (width, in_channels), out_channels,
+                         dtype=dtype, device=device)
+        self.width = width
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = self.width // 2
+        wrapped = torch.cat([x[..., x.shape[-2] - half:, :], x,
+                             x[..., :self.width - 1 - half, :]], dim=-2)
+        windows = wrapped.unfold(-2, self.width, 1)      # [.., L, C_in, w]
+        return super().forward(windows.transpose(-1, -2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,7 +524,10 @@ class DenseLayerDiscreteActor(nn.Module):
 
 
 class DenseLayerCritic(nn.Module):
-    """Plain scalar value head, float32 out (layers.py:188-197)."""
+    """Plain scalar value head, float32 out (layers.py:188-197), as
+    ``{"value": [.., 1]}``: the rollout and the PPO loss read a critic's
+    value by that key (JAX's returns the array, and no JAX path uses
+    it)."""
 
     def __init__(self, num_policies: int, in_features: int,
                  dtype=torch.float32, device=None):
@@ -473,8 +536,8 @@ class DenseLayerCritic(nn.Module):
                              kernel_init=orthogonal(1.0), dtype=dtype,
                              device=device)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        return self.Dense_0(features).to(torch.float32)
+    def forward(self, features: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"value": self.Dense_0(features).to(torch.float32)}
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:

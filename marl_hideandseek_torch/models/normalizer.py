@@ -32,19 +32,28 @@ class NormalizerState:
 
 @dataclasses.dataclass(frozen=True)
 class ObservationsEMANormalizer:
-    """Per-key EMA mean/variance normalization of observation dicts."""
+    """Per-key EMA mean/variance normalization of observation dicts.
+
+    ``entity_rows`` maps a key of entity rows to its features per entity
+    (``{"box_data": 17, ...}``): a row that is all zero before
+    normalization (a slot the env left empty) stays all zero after it, so
+    the policy can tell empty slots from entities. The statistics are
+    taken over every row alike."""
 
     decay: float = 0.99999
     dtype: torch.dtype = torch.float32
     prep_fns: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
     skip_normalization: FrozenSet[str] = frozenset()
     eps: float = 1e-5
+    entity_rows: Mapping[str, int] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def create(decay, dtype, prep_fns=None, skip_normalization=()):
+    def create(decay, dtype, prep_fns=None, skip_normalization=(),
+               entity_rows=None):
         return ObservationsEMANormalizer(
             decay=decay, dtype=dtype, prep_fns=dict(prep_fns or {}),
-            skip_normalization=frozenset(skip_normalization))
+            skip_normalization=frozenset(skip_normalization),
+            entity_rows=dict(entity_rows or {}))
 
     def prep(self, obs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Apply per-key preprocessing casts, then the compute dtype."""
@@ -90,8 +99,14 @@ class ObservationsEMANormalizer:
         for k, v in obs.items():
             if k in state.mean:
                 inv_std = torch.rsqrt(state.var[k] + self.eps)
-                v = ((v.to(torch.float32) - state.mean[k]) * inv_std
-                     ).to(self.dtype)
+                normed = ((v.to(torch.float32) - state.mean[k]) * inv_std
+                          ).to(self.dtype)
+                if k in self.entity_rows:
+                    rows = v.shape[:-1] + (-1, self.entity_rows[k])
+                    filled = (v.reshape(rows) != 0).any(-1, keepdim=True)
+                    normed = torch.where(filled, normed.reshape(rows),
+                                         0.0).reshape(v.shape)
+                v = normed
             out[k] = v
         return out
 

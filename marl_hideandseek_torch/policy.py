@@ -8,6 +8,15 @@ branch, separate actor and critic backbones, a discrete actor head over
 normalizer's prep and skip sets. An entity self-attention backbone and a
 simhash lookup backbone are the alternatives.
 
+``backbone="openai_hns"`` (the port's own; the JAX package has none) is
+the policy of Baker et al., *Emergent Tool Use From Multi-Agent
+Autocurricula* (2019), on this env: a circular convolution over the lidar,
+entity embeddings, one masked residual self-attention block and masked
+mean pooling, then the LSTM, with the env's force-based movement
+(``FORCE_ACTION_BUCKETS``) and a plain value head (``backbone_recipe``). Its actor attends only
+to what the agent sees; its critic, with parameters of its own, to every
+entity that exists (``OpenAIHnsNet``).
+
 Every module holds ``num_policies`` policies stacked on a leading axis
 (``models/layers.py``); ``make_policy`` draws them as flax's ``init``
 does from one key per policy, or leaves them for
@@ -16,7 +25,8 @@ does from one key per policy, or leaves them for
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import dataclasses
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -36,15 +46,24 @@ from marl_hideandseek_torch.models import (
     RecurrentBackboneEncoder,
 )
 from marl_hideandseek_torch.models.layers import (
+    CircularConv1d,
+    Dense,
+    DenseLayerCritic,
     EmbedBlock,
+    ResidualSelfAttention,
     Stacked,
     he_normal,
     init_params,
+    masked_mean,
     normal,
 )
 from marl_hideandseek_torch.models.rnn import LSTM
 
 DEFAULT_ACTION_BUCKETS = (5, 5, 5, 2, 2)  # reference: jax_train.py:147
+# The env's default movement (env/packed.py DEFAULT_BUCKETS): 11 force
+# buckets on x and y, 11 torque buckets on z, then grab and lock.
+FORCE_ACTION_BUCKETS = (11, 11, 11, 2, 2)
+BACKBONES = ("pooled", "attention", "hash", "openai_hns")
 
 # Features per entity of the observations (env/observations.py): the self
 # vector is prep_counter 1 + self_data 13 + self_type 1 + self_lidar 30;
@@ -166,37 +185,166 @@ class AttentionEntityNet(nn.Module):
         return self.EntitySelfAttentionNet_0(split_obs(obs), train)
 
 
+class VisibleKeyTally:
+    """Keys the actor's attention may attend to, summed on the device
+    over every actor query row (``add``), with the number of rows: its
+    ``read`` (a host read, for after a timed stretch) is the mean
+    visible keys per actor query, the self token included."""
+
+    def __init__(self):
+        self.sums: Optional[torch.Tensor] = None   # [keys, rows] float64
+
+    def add(self, mask: torch.Tensor) -> None:
+        if self.sums is None:
+            self.sums = torch.zeros(2, dtype=torch.float64,
+                                    device=mask.device)
+        self.sums[0] += mask.sum()
+        self.sums[1] += mask[..., 0].numel()
+
+    def read(self) -> Optional[float]:
+        if self.sums is None:
+            return None
+        keys, rows = self.sums.tolist()
+        return keys / rows
+
+
+def entity_group(obs, data: str, mask: str) -> torch.Tensor:
+    """An entity group ``[.., N, F]`` from the packed env's flat layout
+    (``[.., N * F]``, N the mask's count)."""
+    x = obs[data]
+    return x.reshape(*x.shape[:-1], obs[mask].shape[-1], -1)
+
+
+class OpenAIHnsNet(nn.Module):
+    """Baker et al. 2019's entity encoder (appendix B; the code's
+    ``ma_policy/layers.py``), one of ``view`` ``"actor"`` or ``"critic"``:
+
+    - self token: a circular convolution of the 30 lidar samples (9
+      filters of width 3), ReLU, flattened position-major, joined to
+      ``prep_counter / 96``, ``self_data`` and ``self_type``; Dense 285 ->
+      128 and ReLU;
+    - one token for each other agent, box and ramp slot: Dense of its own
+      features, weights per entity type, and ReLU;
+    - the key mask: the self token and, for the actor, the entities the
+      agent sees (``vis_*_mask``); for the critic every slot that holds
+      an entity (a row not all zero: the env zeroes empty slots, and the
+      normalizer keeps them zero, ``entity_rows``);
+    - one residual self-attention block (4 heads of 32) under that mask,
+      the mean of its outputs over the mask, Dense 128 -> 256, ReLU and
+      LayerNorm.
+
+    The actor's masks go into its ``visible_keys`` tally."""
+
+    # (entity type, data key, visibility key)
+    GROUPS = (("agents", "agent_data", "vis_agents_mask"),
+              ("boxes", "box_data", "vis_boxes_mask"),
+              ("ramps", "ramp_data", "vis_ramps_mask"))
+    FILTERS, EMBED, HEADS, OUT = 9, 128, 4, 256
+
+    def __init__(self, num_policies: int, view: str, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if view not in ("actor", "critic"):
+            raise ValueError(f"unknown view {view!r}")
+        self.view = view
+        self.visible_keys = VisibleKeyTally() if view == "actor" else None
+        self.num_channels = self.OUT
+        p, c = num_policies, self.EMBED
+        self.lidar_conv = CircularConv1d(p, 1, self.FILTERS, 3, dtype, device)
+        n_self = 1 + 13 + 1 + self.FILTERS * NUM_LIDAR_SAMPLES
+        self.embed_self = Dense(p, n_self, c, dtype=dtype, device=device)
+        for name, _, _ in self.GROUPS:
+            setattr(self, f"embed_{name}", Dense(
+                p, ENTITY_FEATURES[name], c, dtype=dtype, device=device))
+        self.attn = ResidualSelfAttention(p, c, self.HEADS, dtype, device)
+        self.Dense_0 = Dense(p, c, self.OUT, dtype=dtype, device=device)
+        self.LayerNorm_0 = LayerNorm(p, self.OUT, device=device)
+
+    def forward(self, obs, train: bool = False):
+        conv = torch.relu(self.lidar_conv(obs["self_lidar"][..., None]))
+        own = torch.cat([obs["prep_counter"], obs["self_data"],
+                         obs["self_type"]], -1)               # [P|1, .., 15]
+        self_in = torch.cat([own.expand(conv.shape[0], *own.shape[1:]),
+                             conv.flatten(-2)], -1)
+        tokens = [torch.relu(self.embed_self(self_in)).unsqueeze(-2)]
+        masks = [torch.ones_like(obs["vis_agents_mask"][..., :1],
+                                 dtype=torch.bool)]
+        for name, data, vis in self.GROUPS:
+            rows = entity_group(obs, data, vis)
+            tokens.append(torch.relu(getattr(self, f"embed_{name}")(rows)))
+            masks.append(obs[vis] != 0 if self.view == "actor"
+                         else (rows != 0).any(-1))
+        mask = torch.cat(masks, -1)                           # [P|1, .., T]
+        if self.visible_keys is not None:
+            self.visible_keys.add(mask)
+        x = self.attn(torch.cat(tokens, -2), mask)            # [P, .., T, C]
+        pooled = masked_mean(x, mask)
+        return self.LayerNorm_0(torch.relu(self.Dense_0(pooled)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    """What a backbone brings beside its encoder: its action heads, its
+    critic (the Dreamer-V3 critic, or a plain value head on EMA-normalized
+    returns: ``TrainConfig.dreamer_v3_critic``), and the env's movement
+    (``SimFlags.ZeroAgentVelocity``'s instant velocities, or forces)."""
+
+    action_buckets: Tuple[int, ...] = DEFAULT_ACTION_BUCKETS
+    dreamer_critic: bool = True
+    instant_velocity: bool = True
+
+
+def backbone_recipe(backbone: str) -> Recipe:
+    """train.sh's recipe for the upstream backbones; Baker et al.'s force
+    movement and plain value head for ``openai_hns``."""
+    if backbone == "openai_hns":
+        return Recipe(FORCE_ACTION_BUCKETS, dreamer_critic=False,
+                      instant_velocity=False)
+    return Recipe()
+
+
 def make_policy(dtype=torch.float32,
-                action_buckets: Sequence[int] = DEFAULT_ACTION_BUCKETS,
+                action_buckets: Optional[Sequence[int]] = None,
                 backbone: str = "pooled", num_rnn_channels: int = 256, *,
                 num_policies: int = 1, device="cuda",
                 key: Optional[torch.Tensor] = None) -> Policy:
     """Build the default policy (policy.py:156-210) with ``num_policies``
     policies stacked, its parameters on ``device``: policy ``i`` drawn
     as flax's ``init`` draws it from ``split(key, num_policies)[i]``
-    (``key`` a ``prng`` key; ``PRNGKey(0)`` when None)."""
+    (``key`` a ``prng`` key; ``PRNGKey(0)`` when None). ``action_buckets``
+    defaults to the backbone's (``backbone_recipe``)."""
     device = resolve_device(device, "make_policy")
     p = num_policies
+    recipe = backbone_recipe(backbone)
+    if action_buckets is None:
+        action_buckets = recipe.action_buckets
 
-    def encoder():
+    def encoder(view):
         if backbone == "pooled":
             net = PooledEntityNet(p, dtype, device=device)
         elif backbone == "attention":
             net = AttentionEntityNet(p, dtype, device=device)
         elif backbone == "hash":
             net = HashNet(p, dtype, device=device)
+        elif backbone == "openai_hns":
+            net = OpenAIHnsNet(p, view, dtype, device=device)
         else:
             raise ValueError(f"unknown backbone {backbone!r}")
         return RecurrentBackboneEncoder(
             net=net, rnn=LSTM(p, net.num_channels, num_rnn_channels,
                               num_layers=1, dtype=dtype, device=device))
 
+    if recipe.dreamer_critic:
+        critic = DreamerV3Critic(p, num_rnn_channels, dtype, device=device)
+    else:
+        critic = DenseLayerCritic(p, num_rnn_channels, dtype, device=device)
     actor_critic = ActorCritic(
-        backbone=BackboneSeparate(prefix=None, actor_encoder=encoder(),
-                                  critic_encoder=encoder()),
+        backbone=BackboneSeparate(prefix=None,
+                                  actor_encoder=encoder("actor"),
+                                  critic_encoder=encoder("critic")),
         actor=DenseLayerDiscreteActor(p, num_rnn_channels, action_buckets,
                                       dtype, device),
-        critic=DreamerV3Critic(p, num_rnn_channels, dtype, device=device),
+        critic=critic,
     )
     key = prng.key(0) if key is None else prng.as_key(key)
     init_params(actor_critic, prng.split(key, p))
@@ -216,6 +364,10 @@ def make_policy(dtype=torch.float32,
             "prep_counter", "self_type", "self_mask", "vis_agents_mask",
             "vis_boxes_mask", "vis_ramps_mask",
         },
+        entity_rows=({"agent_data": ENTITY_FEATURES["agents"],
+                      "box_data": ENTITY_FEATURES["boxes"],
+                      "ramp_data": ENTITY_FEATURES["ramps"]}
+                     if backbone == "openai_hns" else None),
     )
     return Policy(actor_critic=actor_critic, obs_preprocess=obs_preprocess,
                   get_episode_scores=lambda episode_result: episode_result)

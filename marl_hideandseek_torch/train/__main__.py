@@ -14,7 +14,10 @@
 train.sh's recipe is ``--num-worlds 1024 --num-updates 100000
 --pbt-ensemble-size 2 --pbt-past-policies 2 --num-hiders 2 --num-seekers 2
 --bf16`` with the defaults above. The env runs ``RandomFlipTeams |
-UseFixedWorld | ZeroAgentVelocity``, seed 5. Updates run in blocks of 10,
+UseFixedWorld | ZeroAgentVelocity``, seed 5. ``--backbone openai_hns``
+(Baker et al. 2019's policy, ``policy.OpenAIHnsNet``) brings its own
+action heads (11, 11, 11, 2, 2), its plain value head on EMA-normalized
+returns, and the env's force-based movement (no ``ZeroAgentVelocity``). Updates run in blocks of 10,
 each block followed by a log of the update count, the training rate
 (steps x worlds / s), the ELOs and the ring-buffered metrics; every
 ``--eval-frequency`` updates an ``eval_elo`` pass and a checkpoint,
@@ -50,7 +53,11 @@ import torch
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.parallel.mesh import LOCAL, make_mesh
-from marl_hideandseek_torch.policy import make_policy
+from marl_hideandseek_torch.policy import (
+    BACKBONES,
+    backbone_recipe,
+    make_policy,
+)
 from marl_hideandseek_torch.train import (
     ActionsConfig,
     PBTConfig,
@@ -104,7 +111,7 @@ def parse_args(argv=None):
     p.add_argument("--eval-frequency", type=int, default=500)
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--backbone", type=str, default="pooled",
-                   choices=["pooled", "attention", "hash"])
+                   choices=BACKBONES)
     p.add_argument("--device", default="cuda")
     p.add_argument("--data-parallel", action="store_true",
                    help="split the worlds over torchrun's ranks, one card "
@@ -117,12 +124,15 @@ def parse_args(argv=None):
 
 def build(args):
     """(env, TrainConfig, policy) of scripts/train.py:98-184."""
+    recipe = backbone_recipe(args.backbone)
+    flags = SimFlags.RandomFlipTeams | SimFlags.UseFixedWorld
+    if recipe.instant_velocity:
+        flags |= SimFlags.ZeroAgentVelocity
     env = PackedEnv(EnvConfig(
         num_worlds=args.num_worlds,
         min_hiders=args.num_hiders, max_hiders=args.num_hiders,
         min_seekers=args.num_seekers, max_seekers=args.num_seekers,
-        sim_flags=(SimFlags.RandomFlipTeams | SimFlags.UseFixedWorld |
-                   SimFlags.ZeroAgentVelocity),
+        sim_flags=flags,
         rand_seed=5,
         num_pbt_policies=args.pbt_ensemble_size,
     ), device=args.device)
@@ -156,7 +166,7 @@ def build(args):
         num_worlds=args.num_worlds,
         num_agents_per_world=args.num_hiders + args.num_seekers,
         num_updates=args.num_updates,
-        actions=ActionsConfig(actions_num_buckets=(5, 5, 5, 2, 2)),
+        actions=ActionsConfig(actions_num_buckets=recipe.action_buckets),
         steps_per_update=args.steps_per_update,
         num_bptt_chunks=args.num_bptt_chunks,
         lr=lr,
@@ -172,7 +182,7 @@ def build(args):
             clip_value_loss=args.clip_value_loss,
         ),
         pbt=pbt_cfg,
-        dreamer_v3_critic=True,
+        dreamer_v3_critic=recipe.dreamer_critic,
         compute_dtype=dtype,
         seed=5,
         metrics_buffer_size=10,
@@ -183,8 +193,8 @@ def build(args):
             and args.pbt_past_policies > 0
             and args.num_hiders == args.num_seekers),
     )
-    policy = make_policy(dtype=dtype, action_buckets=(5, 5, 5, 2, 2),
-                         backbone=args.backbone, device=env.device)
+    policy = make_policy(dtype=dtype, backbone=args.backbone,
+                         device=env.device)
     return env, cfg, policy
 
 

@@ -3,7 +3,9 @@ fused physics + sweep, K4 megastep, K5 RGBD, K6 observation assembly,
 and the threefry kernel of every random draw) against its plain PyTorch
 version on CUDA tensors, the packed env's main path through K1, K4 and
 K6, the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
-the inference loop through K4 and K1, and a PPO update at train.sh's
+the ``openai_hns`` policy's forward against its plain reference at 1,024
+3v3 worlds (K4 with the default force movement beside it), the inference
+loop through K4 and K1, and a PPO update at train.sh's
 configuration against the CPU's at the update's rounding bars
 (``marl_hideandseek_torch/testing.py``), which each planted Adam fault
 must fail; the record path at infer.sh's 16 worlds through K4 and K1, and
@@ -125,11 +127,31 @@ def test_megastep_kernel_matches_plain(cuda, kw, w):
     """Three chained launches at the JAX kernels' bars; 1001 worlds leave
     a ragged last block (4 worlds per block)."""
     cfg, ps = _state(cuda, kw, w, 100)
+    _chained_megastep(cuda, cfg, ps, 5)
+
+
+@pytest.mark.parametrize("w", [1001, 1024])
+def test_megastep_kernel_default_movement_matches_plain(cuda, w):
+    """K4 with the env's default movement (no ZeroAgentVelocity: 11 force
+    and torque buckets, F_max 60), 3v3 at full capacity, the ``openai_hns``
+    configuration's env: three chained launches at the JAX kernels'
+    bars."""
+    cfg = EnvConfig(num_worlds=w, min_hiders=3, max_hiders=3,
+                    min_seekers=3, max_seekers=3,
+                    sim_flags=SimFlags.RandomFlipTeams, rand_seed=3)
+    assert not cfg.zero_agent_velocity
+    ps, _ = PackedEnv(cfg, device=cuda).init()
+    _chained_megastep(cuda, cfg, ps.replace(step=torch.full_like(ps.step,
+                                                                 100)), 11)
+
+
+def _chained_megastep(cuda, cfg, ps, buckets):
+    w = ps.step.shape[0]
     g = torch.Generator(device=cuda).manual_seed(0)
     na = cfg.max_agents
     for _ in range(3):
         acts = torch.cat([
-            torch.randint(0, 5, (na, 3, w), generator=g, device=cuda),
+            torch.randint(0, buckets, (na, 3, w), generator=g, device=cuda),
             torch.randint(0, 2, (na, 2, w), generator=g, device=cuda)],
             1).to(torch.int32)
         rk = ops_step.megastep_packed(cfg, ps, acts)
@@ -574,6 +596,62 @@ def test_ensemble_forward_matches_cpu(cuda):
     for a, b in zip([x for e in card[2] for x in e],
                     [x for e in cpu[2] for x in e]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def test_openai_hns_forward_matches_plain_reference(cuda):
+    """The ``openai_hns`` policy (2 policies, seeded weights with every
+    constant leaf moved) on 1,024 3v3 worlds of the packed env, after 20
+    steps of random force actions: logits, values and LSTM states within
+    1e-5 (relative to the largest, at least 1) of the plain reference
+    (``plainref/openai_hns.py``) on the same card, float32 without TF32
+    (the two sum their products in other orders; TF32 moves them ~1e-3)."""
+    from torch.func import functional_call
+
+    from plainref import openai_hns as ref
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    pol = make_policy(backbone="openai_hns", num_policies=2, device=cuda,
+                      key=prng.key(3))
+    params = dict(pol.actor_critic.named_parameters())
+    with torch.no_grad():
+        for p in params.values():
+            if bool((p == 0).all()) or bool((p == 1).all()):
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).to(cuda))
+    cfg = EnvConfig(num_worlds=1024, min_hiders=3, max_hiders=3,
+                    min_seekers=3, max_seekers=3,
+                    sim_flags=SimFlags.RandomFlipTeams, rand_seed=3)
+    env = PackedEnv(cfg, device=cuda)
+    ps, res = env.init()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(20):
+        acts = torch.cat([
+            torch.randint(0, 11, (6, 3, 1024), generator=g, device=cuda),
+            torch.randint(0, 2, (6, 2, 1024), generator=g, device=cuda)], 1)
+        ps, res = env.step(ps, acts.to(torch.int32))
+    norm = pol.obs_preprocess
+    obs = {k: v.flatten(0, 1) for k, v in norm.prep(res.obs).items()}
+    stats = norm.update_state(norm.init_state(obs), obs)
+    nobs = norm.normalize(stats, obs)
+    vis = torch.cat([nobs[k] for k in ("vis_agents_mask", "vis_boxes_mask",
+                                       "vis_ramps_mask")], -1)
+    assert bool((vis.sum(-1) == 0).any()) and bool((vis == 0).any())
+    n = nobs["self_data"].shape[0]
+    rnn = tuple(tuple(0.5 * torch.randn(1, n, 256, generator=gen).to(cuda)
+                      for _ in range(2)) for _ in range(2))
+    with torch.no_grad():
+        got = pol.actor_critic(rnn, nobs)
+        want = functional_call(ref.ActorCritic(2, cuda), params, (rnn, nobs),
+                               strict=True)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    assert rel(got[0].logits, want[0].logits) <= 1e-5
+    assert rel(got[1]["value"], want[1]["value"]) <= 1e-5
+    for a, b in zip([x for e in got[2] for x in e],
+                    [x for e in want[2] for x in e]):
+        assert rel(a, b) <= 1e-5
 
 
 def test_inference_loop_uses_megastep_and_raycast(cuda):

@@ -228,6 +228,54 @@ def test_update_and_env_steps_give_the_span_tree(policy):
     assert env.reset_counts == {"full": 1, "compact": 1}
 
 
+def test_openai_hns_attention_spans_nest_in_forward_and_loss():
+    """The ``openai_hns`` policy's update: a ``model.attn`` span for each
+    attention block's forward, inside ``rollout.forward`` (the train
+    policies' actor and critic and the past policies' actor, each step)
+    and ``ppo.loss`` (both encoders, each epoch); its visible-key tally
+    moves on the device with no host read, and the update's reads are the
+    flagship's less the Dreamer critic's bin centres."""
+    import dataclasses
+
+    pol = tpolicy.make_policy(backbone="openai_hns", num_rnn_channels=32,
+                              device="cpu")
+    env = PackedEnv(ENV.replace(sim_flags=SimFlags.RandomFlipTeams |
+                                SimFlags.UseFixedWorld), device="cpu")
+    cfg = dataclasses.replace(
+        train_config(), dreamer_v3_critic=False,
+        actions=tcfg.ActionsConfig(tpolicy.FORCE_ACTION_BUCKETS))
+    mgr = tmanager.init_training("cpu", cfg, env, pol)
+    ro = mgr.state.rollout
+    mgr = mgr.replace(state=mgr.state.replace(rollout=ro.replace(
+        env_state=ro.env_state.replace(step=torch.full_like(
+            ro.env_state.step, ENV.episode_len - 3)))))
+    with tracing.recording() as rec:
+        mgr.update_iter()
+    phases, reads, _ = split(rec.take().spans)
+    attn = {k: v for k, v in phases.items() if k[0] == "model.attn"}
+    assert attn == {("model.attn", "rollout.forward"): 3 * (STEPS + 1),
+                    ("model.attn", "ppo.loss"): 2 * EPOCHS}
+    assert not any(parent == "model.attn" for _, parent in reads)
+    assert reads == collections.Counter({
+        ("host_read.reset_trigger", "env.step"): STEPS,
+        ("host_read.obs_consts", "env.observations"): 2 * STEPS,
+        ("host_read.key", "env.reset"): 1,
+        ("host_read.levels", "env.levelgen"): 2,
+        ("host_read.pbt_rank", "pbt"): 3,
+    })
+    keys = pol.actor_critic.backbone.actor_encoder.net.visible_keys
+    tally = keys.sums
+    assert tally.device.type == "cpu" and tally.dtype == torch.float64
+    n = ENV.num_worlds * ENV.max_agents
+    # Each rollout forward: the train and the past policies' actors, every
+    # agent; each epoch: the two train policies' groups of n / 2 slots,
+    # every step.
+    assert float(tally[1]) == (2 * n * (STEPS + 1) +
+                               EPOCHS * 2 * (n // 2) * STEPS)
+    assert 1.0 <= keys.read() <= 17.0
+    assert pol.actor_critic.backbone.critic_encoder.net.visible_keys is None
+
+
 def test_profiler_sees_spans_as_host_ranges_nested_as_stored():
     """One plain step (a reset step's level generation holds some 10^5
     host events, too many to read here)."""
