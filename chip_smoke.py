@@ -21,6 +21,13 @@ just before and read just after (the threefry kernel's on every path):
   step 100, leaf by leaf (integers and masks equal, floats within 1e-5),
   then at 65,536 worlds (that state four times over): ms a launch, the
   byte bound, the plain version's ms, the largest error;
+* k7_check - K7 (level generation) against the plain generator at 256,
+  16,384 and 65,536 worlds of bench.py's 2v2 and at 16,384 worlds of
+  3v3, of the serve path's fixed world and of headless.py's 3v2, every
+  leaf bit for bit: ms a launch (arguments built once), a whole call with
+  its draws, the plain version's ms, the byte bound; K7's launches (one
+  at init and on each reset step) are required on the main, classic,
+  serve, eval and train paths and counted on every other;
 * the classic path - ``HideAndSeekEnv`` at scripts/headless.py's
   configuration (16,384 worlds, 3 hiders and 2 seekers, SimFlags.Default,
   seed 5) - for 250 steps across the full reset, then 5 steps with 1 %
@@ -356,6 +363,7 @@ def run(args, work: str) -> int:
     from marl_hideandseek_torch.env import observations as O
     from marl_hideandseek_torch.env.packed import PackedEnv
     from marl_hideandseek_torch.ops import build, rays, step
+    from marl_hideandseek_torch.ops import levelgen as LG
     from marl_hideandseek_torch.ops import threefry as tfk
     from marl_hideandseek_torch.ops.common import block_occupancy
     from marl_hideandseek_torch.types import pack_state
@@ -370,10 +378,11 @@ def run(args, work: str) -> int:
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["raycast", "megastep", "rgbd", "threefry", "observations"],
-                host=["ckptlog"])
+    build.build(["raycast", "megastep", "rgbd", "threefry", "observations",
+                 "levelgen"], host=["ckptlog"])
     phase("build", t0)
-    for name in ("raycast", "megastep", "rgbd", "threefry", "observations"):
+    for name in ("raycast", "megastep", "rgbd", "threefry", "observations",
+                 "levelgen"):
         log(f"ptxas {name}:\n{build.ptxas_summary(name)}")
     occ = step.megastep_occupancy()
     log(f"megastep.cu (K2, K3, K4): one warp per world, "
@@ -381,7 +390,8 @@ def run(args, work: str) -> int:
         f"{occ['smem_bytes_per_world']} B of shared memory per world; "
         f"resident worlds per SM: K4 {occ['megastep_worlds_per_sm']}, K2 "
         f"{occ['physics_worlds_per_sm']}, K3 {occ['fused_worlds_per_sm']}")
-    for name, label in (("raycast", "K1"), ("rgbd", "K5")):
+    for name, label in (("raycast", "K1"), ("rgbd", "K5"),
+                        ("levelgen", "K7")):
         o = block_occupancy(name)
         log(f"{name}.cu ({label}): one warp per world, "
             f"{o['worlds_per_block']} worlds per block, "
@@ -439,6 +449,7 @@ def run(args, work: str) -> int:
     step.MEGASTEP.launches = 0
     tfk.THREEFRY.launches = 0
     O.OBSERVATIONS.launches = 0
+    LG.LEVELGEN.launches = 0
     env = PackedEnv(cfg, device=dev)
     ps, res = env.init()
     tf_init = tfk.THREEFRY.launches
@@ -479,7 +490,8 @@ def run(args, work: str) -> int:
     launches = {"raycast": rays.RAYCAST.launches,
                 "megastep": step.MEGASTEP.launches,
                 "threefry": tfk.THREEFRY.launches,
-                "observations": O.OBSERVATIONS.launches}
+                "observations": O.OBSERVATIONS.launches,
+                "levelgen": LG.LEVELGEN.launches}
     tf_compact = launches["threefry"] - tf_main
     require(env.reset_counts["compact"] >= 1, "the compact reset never ran")
     n_reset_steps = env.reset_counts["full"] + env.reset_counts["compact"]
@@ -488,7 +500,8 @@ def run(args, work: str) -> int:
             f"threefry launches on the main path: init {tf_init}, full "
             f"reset {tf_reset}, {MAIN_STEPS} steps {tf_main - tf_init}")
     require(launches["raycast"] > 0 and launches["megastep"] > 0 and
-            launches["observations"] == 1 + MAIN_STEPS + COMPACT_STEPS,
+            launches["observations"] == 1 + MAIN_STEPS + COMPACT_STEPS and
+            launches["levelgen"] == 1 + n_reset_steps,
             f"kernel launches on the main path: {launches}")
     obs_shapes = {k: tuple(v.shape) for k, v in res.obs.items()}
     require(obs_shapes["box_data"] == (WORLDS, na, 9 * 17) and
@@ -535,6 +548,11 @@ def run(args, work: str) -> int:
     k6 = check_k6(cfg, rk[0], rk[1])
     del moving, rk
     phase("k6_check", t0)
+
+    # ---- 5c. K7 vs plain at 256 to 65,536 worlds, 2v2, 3v3, fixed, 3v2 ------
+    t0 = time.perf_counter()
+    k7 = check_k7(cfg, dev)
+    phase("k7_check", t0)
 
     # ---- 6. render path: bench.py BENCH_RENDER=1 ----------------------------
     t0 = time.perf_counter()
@@ -670,6 +688,16 @@ def run(args, work: str) -> int:
              eval_launches=evaluation["launches"]["observations"],
              train_launches=training["launches"]["observations"],
              library_ms=None, **k6, **new_paths("observations")),
+        dict(name="levelgen", route="cuda",
+             source="marl_hideandseek_torch/csrc/levelgen.cu",
+             replaces="none: XLA's fusion of "
+                      "marl_hideandseek_tpu/env/levelgen.py and geometry.py",
+             launches=launches["levelgen"],
+             classic_launches=classic["launches"]["levelgen"],
+             serve_launches=serve["launches"]["levelgen"],
+             eval_launches=evaluation["launches"]["levelgen"],
+             train_launches=training["launches"]["levelgen"],
+             library_ms=None, **k7, **new_paths("levelgen")),
         dict(launches=launches["threefry"],
              classic_launches=classic["launches"]["threefry"],
              serve_launches=serve["launches"]["threefry"],
@@ -851,6 +879,7 @@ def serve_path(dev, gpu):
     from marl_hideandseek_torch.models.actor_critic import tree_map
     from marl_hideandseek_torch.ops import rays, step
     from marl_hideandseek_torch.ops import threefry as tfk
+    from marl_hideandseek_torch.ops import levelgen as LG
     from marl_hideandseek_torch.policy import make_policy
     from marl_hideandseek_torch.train.rollout import apply_ensemble
 
@@ -906,6 +935,7 @@ def serve_path(dev, gpu):
     step.MEGASTEP.launches = 0
     tfk.THREEFRY.launches = 0
     O.OBSERVATIONS.launches = 0
+    LG.LEVELGEN.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_inference(env, policy, params, stats, SERVE_STEPS,
@@ -915,7 +945,8 @@ def serve_path(dev, gpu):
     launches = {"megastep": step.MEGASTEP.launches,
                 "raycast": rays.RAYCAST.launches,
                 "threefry": tfk.THREEFRY.launches,
-                "observations": O.OBSERVATIONS.launches}
+                "observations": O.OBSERVATIONS.launches,
+                "levelgen": LG.LEVELGEN.launches}
     # Per step: the step key's split, the buckets' split and their Gumbel
     # noise; more on the reset steps and at init.
     require(launches["threefry"] > 3 * SERVE_STEPS,
@@ -930,6 +961,9 @@ def serve_path(dev, gpu):
     require(launches["raycast"] > saved["k1_before_reset"],
             f"serve path: no K1 launch on the reset step ({launches})")
     require(env.reset_counts["full"] >= 1, "serve path: no episode end")
+    require(launches["levelgen"] == 1 + sum(env.reset_counts.values()),
+            f"serve path: K7 launches {launches['levelgen']}, expected one "
+            f"at init and one a reset step ({env.reset_counts})")
     require(bool(ok["finite"]), "serve path: non-finite logits, values or "
             "LSTM states")
     require(bool(ok["in_buckets"]), "serve path: an action outside its "
@@ -1010,6 +1044,7 @@ def eval_path(dev, policy, params, gpu):
     from marl_hideandseek_torch.env.env import HideAndSeekEnv
     from marl_hideandseek_torch.ops import fused, rays
     from marl_hideandseek_torch.ops import threefry as tfk
+    from marl_hideandseek_torch.ops import levelgen as LG
     from marl_hideandseek_torch.train import (
         ActionsConfig,
         EvalConfig,
@@ -1031,6 +1066,7 @@ def eval_path(dev, policy, params, gpu):
     rays.RAYCAST.launches = 0
     tfk.THREEFRY.launches = 0
     O.OBSERVATIONS.launches = 0
+    LG.LEVELGEN.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eval_policies(dev, ecfg, env, policy, params, stats)
@@ -1039,7 +1075,8 @@ def eval_path(dev, policy, params, gpu):
     launches = {"fused": fused.FUSED.launches,
                 "raycast": rays.RAYCAST.launches,
                 "threefry": tfk.THREEFRY.launches,
-                "observations": O.OBSERVATIONS.launches}
+                "observations": O.OBSERVATIONS.launches,
+                "levelgen": LG.LEVELGEN.launches}
     elo = out["elo"].cpu()
     log(f"eval path: {EVAL_STEPS} steps x {EVAL_WORLDS} worlds in "
         f"{wall:.3f} s = {EVAL_STEPS * EVAL_WORLDS / wall:.1f} steps x "
@@ -1050,6 +1087,9 @@ def eval_path(dev, policy, params, gpu):
             launches["observations"] >= EVAL_STEPS,
             f"eval path launches {launches}")
     require(out["episodes_finished"] >= 1, "eval path: no episode finished")
+    require(launches["levelgen"] == 1 + sum(env.reset_counts.values()),
+            f"eval path: K7 launches {launches['levelgen']}, expected one "
+            f"at init and one a reset step ({env.reset_counts})")
     require(bool(torch.isfinite(elo).all()) and
             float((elo - ELO_START).abs().max()) > 0.0,
             f"eval path: ELOs {elo.tolist()} did not move or are not finite")
@@ -1062,7 +1102,8 @@ KERNEL_COUNTERS = {"raycast": ("ops.rays", "RAYCAST"),
                    "megastep": ("ops.step", "MEGASTEP"),
                    "rgbd": ("ops.rgbd", "RGBD"),
                    "threefry": ("ops.threefry", "THREEFRY"),
-                   "observations": ("env.observations", "OBSERVATIONS")}
+                   "observations": ("env.observations", "OBSERVATIONS"),
+                   "levelgen": ("ops.levelgen", "LEVELGEN")}
 
 
 def kernel_counters() -> dict:
@@ -1226,9 +1267,13 @@ def train_path(dev, gpu, ckpt_dir: str):
         k1_train = run["launches"]["raycast"]
         k4_train = run["launches"]["megastep"]
         tf_train = run["launches"]["threefry"] - tf_init
+        lg_init = run["init_launches"]["levelgen"]
+        lg_train = run["launches"]["levelgen"]
+        resets_train = sum(env.reset_counts.values())
         elo_train = mgr.state.elo.clone()
         mgr = eval_elo(mgr)
         launches = read_counts()
+        resets_eval = sum(env.reset_counts.values()) - resets_train
         st = mgr.state
         n_steps = TRAIN_UPDATES * cfg.steps_per_update
         eval_steps = cfg.steps_per_update * 6
@@ -1252,6 +1297,14 @@ def train_path(dev, gpu, ckpt_dir: str):
                 launches["raycast"] > k1_train,
                 f"train path: K1 not launched on the init and reset steps "
                 f"({k1_init}, {k1_train}, {launches['raycast']})")
+        # eval_elo steps on from the rollout's state: no init there.
+        require(lg_init == 1 and resets_train >= 1 and
+                lg_train - lg_init == resets_train and
+                launches["levelgen"] - lg_train == resets_eval,
+                f"train path: K7 launches {lg_init} at init, "
+                f"{lg_train - lg_init} in training with {resets_train} reset "
+                f"steps, {launches['levelgen'] - lg_train} in eval_elo with "
+                f"{resets_eval} (one at the init and on each reset step)")
 
         metrics = {k: v.cpu() for k, v in st.metrics.items()}
         require(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
@@ -1907,6 +1960,81 @@ def check_k6(cfg, ps, sweep) -> dict:
     return out
 
 
+def check_k7(cfg, dev) -> dict:
+    """K7 against the plain generator: packed level 1 of bench.py's 2v2 at
+    256 (a compact reset's slots), 16,384 and 65,536 worlds, and at 16,384
+    worlds of 3v3, of the serve path's 2v2 under ``UseFixedWorld`` (one
+    draw row for every world) and of headless.py's 3v2 (5 agent slots,
+    ``SimFlags.Default``), every leaf bit for bit (floats as their
+    words). Then K7's time
+    (launches from arguments built once), a whole call of
+    ``training_world_packed`` (the threefry draws and the launch), the
+    plain version's time and the byte bound (the draws read, the state
+    written: the least any kernel could take; K7 is bound by each
+    world's sequential program instead)."""
+    import ctypes
+
+    from marl_hideandseek_torch import prng
+    from marl_hideandseek_torch.config import SimFlags
+    from marl_hideandseek_torch.env import levelgen as L
+    from marl_hideandseek_torch.env.episode import draw_episode
+    from marl_hideandseek_torch.env.rng import episode_keys
+    from marl_hideandseek_torch.ops import levelgen as LG
+    from marl_hideandseek_torch.ops.common import c_arrays, stream_ptr
+    from marl_hideandseek_torch.types import pack_state
+
+    words = lambda t: t.view(torch.int32) if t.dtype in (
+        torch.float32, torch.uint32) else t
+    out = {}
+    cases = [("_256", 256, cfg), ("", WORLDS, cfg), ("_64k", 4 * WORLDS, cfg),
+             ("_3v3", WORLDS, cfg.replace(min_hiders=3, max_hiders=3,
+                                          min_seekers=3, max_seekers=3)),
+             ("_fixed", WORLDS, cfg.replace(
+                 sim_flags=SimFlags.UseFixedWorld |
+                 SimFlags.ZeroAgentVelocity)),
+             ("_3v2", WORLDS, cfg.replace(min_hiders=3, max_hiders=3,
+                                          min_seekers=2, max_seekers=2,
+                                          sim_flags=SimFlags.Default))]
+    for label, w, c in cases:
+        c = c.replace(num_worlds=w)
+        ids = torch.arange(w, device=dev)
+        ep, lk, nh, ns, flip = draw_episode(c, episode_keys(
+            prng.key(SEED, dev), ids, torch.zeros_like(ids)))
+        got = L.training_world_packed(c, lk, ep, nh, ns, flip)
+        want = pack_state(L.generate_training_world(c, lk, ep, nh, ns, flip))
+        for k, p in zip(got.leaves(), want.leaves()):
+            require(k.dtype == p.dtype and k.shape == p.shape and
+                    torch.equal(words(k), words(p)),
+                    f"K7 at {w} worlds{label} differs from the plain "
+                    f"generator")
+        call_ms = cuda_ms(lambda: L.training_world_packed(c, lk, ep, nh, ns,
+                                                          flip), 5)
+        draws = L.training_draws(c, lk)
+        nh, ns = nh.long(), ns.long()
+        ptrs, ip = LG.levelgen_params(c, draws, lk, ep, nh, ns, flip, got)
+        pa, ia, fa = c_arrays(ptrs, ip, [])
+        launch = (ctypes.cast(pa, ctypes.c_void_p), len(ptrs),
+                  ctypes.cast(ia, ctypes.c_void_p), len(ip),
+                  ctypes.cast(fa, ctypes.c_void_p), 0, stream_ptr(dev))
+        ms = cuda_ms(lambda: LG.LEVELGEN(*launch), 20)
+        plain_ms = cuda_ms(lambda: L.generate_training_world(
+            c, lk, ep, nh, ns, flip), 1)
+        n_bytes = nbytes(draws.counts, draws.pose_u, draws.walls.bits,
+                         draws.walls.u, lk, ep, nh, ns, flip, *got.leaves())
+        b_ms, _ = bound(n_bytes, 0.0)
+        log(f"K7 at {w} worlds{label}: {ms:.4f} ms/launch ({ms / b_ms:.1f}x "
+            f"the byte bound {b_ms:.5f} ms, {n_bytes} B); a whole call with "
+            f"its draws {call_ms:.4f} ms; plain {plain_ms:.3f} ms; equal bit "
+            f"for bit")
+        out.update({f"ms{label}": ms, f"call_ms{label}": call_ms,
+                    f"plain_ms{label}": plain_ms, f"bound_ms{label}": b_ms})
+        del got, want, draws
+        torch.cuda.empty_cache()
+    out.update(bound_by="bytes (a floor; latency bounds it)",
+               max_abs_err=0.0)
+    return out
+
+
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32):
     """(least time in ms, what bounds it) for this many bytes moved and
     operations done at ``peak_ops`` a second (float32 by default)."""
@@ -2010,6 +2138,7 @@ def classic_path(dev, random_actions, gpu):
     from marl_hideandseek_torch.config import EnvConfig, SimFlags
     from marl_hideandseek_torch.env.env import HideAndSeekEnv
     from marl_hideandseek_torch.ops import fused, physics, rays
+    from marl_hideandseek_torch.ops import levelgen as LG
     from marl_hideandseek_torch.ops import threefry as tfk
 
     cfg = EnvConfig(num_worlds=WORLDS, min_hiders=3, max_hiders=3,
@@ -2026,6 +2155,7 @@ def classic_path(dev, random_actions, gpu):
     fused.FUSED.launches = 0
     physics.PHYSICS.launches = 0
     tfk.THREEFRY.launches = 0
+    LG.LEVELGEN.launches = 0
     t0 = time.perf_counter()
     env = HideAndSeekEnv(cfg, device=dev)
     state, res = env.init()
@@ -2058,10 +2188,13 @@ def classic_path(dev, random_actions, gpu):
             "never ran")
     launches = {"fused": fused.FUSED.launches,
                 "raycast": rays.RAYCAST.launches,
-                "threefry": tfk.THREEFRY.launches}
+                "threefry": tfk.THREEFRY.launches,
+                "levelgen": LG.LEVELGEN.launches}
     require(launches["fused"] > 0 and launches["raycast"] > 0 and
-            launches["threefry"] > 0,
-            f"kernel launches on the classic path: {launches}")
+            launches["threefry"] > 0 and
+            launches["levelgen"] == 1 + sum(env.reset_counts.values()),
+            f"kernel launches on the classic path: {launches} (K7: one at "
+            f"init and one a reset step, {env.reset_counts})")
     log(f"classic path: init {t_init:.3f} s; {CLASSIC_STEPS} steps in "
         f"{t_steps:.3f} s = {CLASSIC_STEPS * WORLDS / t_steps:.1f} steps x "
         f"worlds / s; {CLASSIC_COMPACT_STEPS} steps with 1 % resets in "

@@ -32,6 +32,8 @@ MAX_AGENTS = 6
 # Wall grammar bound: 4 seed walls + 6 connect ops x 4 + 6 door ops x 1
 # = 34 live segments at most, rounded up.
 MAX_WALLS = 36
+# Ground planes: the floor and up to 2 side planes of the debug levels.
+MAX_PLANES = 3
 # Episode constants (reference: src/sim.cpp:14-17).
 DT = 1.0 / 30.0
 NUM_PHYSICS_SUBSTEPS = 4

@@ -1,8 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (K1 raycast, K2 physics, K3
 fused physics + sweep, K4 megastep, K5 RGBD, K6 observation assembly,
-and the threefry kernel of every random draw) against its plain PyTorch
-version on CUDA tensors, the packed env's main path through K1, K4 and
-K6, the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
+K7 level generation, and the threefry kernel of every random draw)
+against its plain PyTorch version on CUDA tensors, the packed env's main
+path through K1, K4, K6 and K7 (the classic env's resets through K7 too), the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
 the ``openai_hns`` policy's forward against its plain reference at 1,024
 3v3 worlds (K4 with the default force movement beside it), the inference
 loop through K4 and K1, and a PPO update at train.sh's
@@ -25,13 +25,17 @@ import torch
 
 from marl_hideandseek_torch import prng
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch.env import levelgen
 from marl_hideandseek_torch.env import observations as obs_mod
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.env.env import HideAndSeekEnv
+from marl_hideandseek_torch.env.episode import draw_episode
+from marl_hideandseek_torch.env.rng import episode_keys
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.infer import run_inference
 from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import fused as ops_fused
+from marl_hideandseek_torch.ops import levelgen as ops_levelgen
 from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rays as ops_rays
 from marl_hideandseek_torch.ops import rgbd as ops_rgbd
@@ -40,7 +44,7 @@ from marl_hideandseek_torch.ops import threefry as ops_threefry
 from marl_hideandseek_torch.policy import make_policy
 from marl_hideandseek_torch.testing import observation_case
 from marl_hideandseek_torch.train.rollout import apply_ensemble
-from marl_hideandseek_torch.types import unpack_state
+from marl_hideandseek_torch.types import on_bits, pack_state, unpack_state
 from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
@@ -421,6 +425,142 @@ def test_env_step_assembles_through_k6(cuda):
     assert names.count("host_read.reset_trigger") == 4
     for v in res.obs.values():
         assert bool(torch.isfinite(v.float()).all())
+
+
+# K7 against the plain generator on the card: every leaf equal bit for
+# bit (floats compared as their words).
+LEVEL_TEAMS = {"2v2": FULL, "3v3": dict(min_hiders=1, max_hiders=3,
+                                        min_seekers=1, max_seekers=3)}
+
+
+def _episodes(cfg, w, seed, cuda):
+    ids = torch.arange(w, device=cuda)
+    return draw_episode(cfg, episode_keys(prng.key(seed, cuda), ids,
+                                          torch.zeros_like(ids)))
+
+
+def _words(t):
+    return t.view(torch.int32) if t.dtype in (torch.float32,
+                                              torch.uint32) else t
+
+
+def _assert_same_bits(got, want):
+    for g, p in zip(got.leaves(), want.leaves()):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.equal(_words(g), _words(p))
+
+
+@pytest.mark.parametrize("teams", list(LEVEL_TEAMS))
+@pytest.mark.parametrize("w", [1, 256, 16384])
+def test_levelgen_kernel_matches_plain(cuda, teams, w):
+    """K7's packed level 1 equals the plain generator's on every leaf,
+    bit for bit, with per-world keys and (at 256 worlds) under
+    UseFixedWorld; one launch a call, counting its worlds."""
+    for fixed in (False, True) if w == 256 else (False,):
+        flags = FLAGS | (SimFlags.UseFixedWorld if fixed else SimFlags(0))
+        cfg = EnvConfig(num_worlds=w, **LEVEL_TEAMS[teams], sim_flags=flags)
+        ep, lk, nh, ns, flip = _episodes(cfg, w, 5 + w, cuda)
+        n0, w0 = ops_levelgen.LEVELGEN.launches, ops_levelgen.LEVELGEN.worlds
+        got = levelgen.training_world_packed(cfg, lk, ep, nh, ns, flip)
+        assert ops_levelgen.LEVELGEN.launches == n0 + 1
+        assert ops_levelgen.LEVELGEN.worlds == w0 + w
+        want = pack_state(levelgen.generate_training_world(
+            cfg, lk, ep, nh, ns, flip))
+        _assert_same_bits(got, want)
+
+
+def test_levelgen_kernel_with_debug_levels(cuda):
+    """A batch mixing level ids 0-9 (0 and 1 the arena, 2-8 the debug
+    fixtures, 9 clipped to 8): K7's generate_world equals the plain one
+    bit for bit."""
+    cfg = EnvConfig(num_worlds=300, **FULL, sim_flags=FLAGS)
+    ep, lk, nh, ns, flip = _episodes(cfg, 300, 6, cuda)
+    lvl = torch.arange(300, device=cuda) % 10
+    got = levelgen.generate_world(cfg, lk, ep, lvl, nh, ns, flip)
+    _assert_same_bits(got, _plain_world(cfg, lk, ep, lvl, nh, ns, flip))
+    assert int(got.agent_active[:, 5].sum()) == 1          # level 5
+
+
+# The leaves a reset writes from the generator (the sweep's hits, the
+# episode counter and the carried scores aside).
+FRESH = ("bodies", "statics", "grab", "agent_type", "agent_active",
+         "num_hiders", "num_seekers", "num_active_boxes", "num_active_ramps",
+         "step", "ep_key", "level_key", "seekers_first")
+
+
+def _plain_world(cfg, lk, ep, lvl, nh, ns, flip):
+    """``levelgen.generate_world`` through the plain generator."""
+    return levelgen.with_debug_levels(cfg, pack_state(
+        levelgen.generate_training_world(cfg, lk, ep, nh, ns, flip)), lvl)
+
+
+def _assert_fresh_levels(cfg, ps, worlds):
+    """Packed worlds ``worlds`` of ``ps`` hold level 1 as the plain
+    generator makes it from their keys and team draws."""
+    sub = ps.map(on_bits(lambda x: x[..., worlds].contiguous()))
+    want = _plain_world(cfg, sub.level_key, sub.ep_key,
+                        torch.ones_like(worlds), sub.num_hiders,
+                        sub.num_seekers, sub.seekers_first)
+    for name in FRESH:
+        g, p = getattr(sub, name), getattr(want, name)
+        if hasattr(g, "leaves"):
+            _assert_same_bits(g, p)
+        else:
+            assert torch.equal(_words(g), _words(p)), name
+
+
+def test_env_resets_generate_through_k7(cuda):
+    """init, a compact reset and a full reset through PackedEnv.step: one
+    K7 launch each, over the worlds each generates; the reset worlds
+    hold the plain generator's level for their keys; no host read of
+    level generation's constants (a wait inside ``env.levelgen`` other
+    than the two for the level ids)."""
+    cfg = EnvConfig(num_worlds=512, **FULL, sim_flags=FLAGS,
+                    reset_budget=128)
+    env = PackedEnv(cfg, device=cuda)
+    n0, w0 = ops_levelgen.LEVELGEN.launches, ops_levelgen.LEVELGEN.worlds
+    ps, _ = env.init()
+    acts = torch.zeros((cfg.max_agents, 5, 512), dtype=torch.int32,
+                       device=cuda)
+    resets = torch.zeros(512, dtype=torch.int32, device=cuda)
+    resets[::64] = 1
+    with tracing.recording() as rec:
+        compact, _ = env.step(ps, acts, resets)
+        ps = compact.replace(
+            step=torch.full_like(ps.step, cfg.episode_len - 1))
+        ps, res = env.step(ps, acts)
+    spans = rec.take().spans
+    names = [s.name for s in spans]
+    assert env.reset_counts == {"full": 1, "compact": 1}
+    assert ops_levelgen.LEVELGEN.launches == n0 + 3
+    assert ops_levelgen.LEVELGEN.worlds == w0 + 512 + 128 + 512
+    _assert_fresh_levels(cfg, compact, torch.arange(0, 512, 64, device=cuda))
+    _assert_fresh_levels(cfg, ps, torch.arange(512, device=cuda))
+    assert names.count("env.levelgen") == 2
+    assert "host_read.levelgen_consts" not in names
+    # Inside level generation the host waits only for the level ids.
+    assert sorted(s.name for s in spans if s.parent == "env.levelgen" and
+                  s.name.startswith("host_read.")) == ["host_read.levels"] * 4
+    for v in res.obs.values():
+        assert bool(torch.isfinite(v.float()).all())
+
+
+def test_classic_env_compact_reset_through_k7(cuda):
+    """The classic env's compact reset regenerates its worlds through one
+    K7 launch, and they hold the plain generator's level."""
+    cfg = EnvConfig(num_worlds=512, **CLASSIC, reset_budget=128)
+    env = HideAndSeekEnv(cfg, device=cuda)
+    st, _ = env.init()
+    n0 = ops_levelgen.LEVELGEN.launches
+    acts = torch.zeros((512, cfg.max_agents, 5), dtype=torch.int32,
+                       device=cuda)
+    resets = torch.zeros(512, dtype=torch.int32, device=cuda)
+    resets[3::64] = 1
+    st, _ = env.step(st, acts, resets)
+    assert env.reset_counts == {"full": 0, "compact": 1}
+    assert ops_levelgen.LEVELGEN.launches == n0 + 1
+    _assert_fresh_levels(cfg, obs_mod.world_last(st),
+                         torch.arange(3, 512, 64, device=cuda))
 
 
 def _pre_physics(cfg, ps, g):

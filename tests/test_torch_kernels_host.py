@@ -1,14 +1,14 @@
 """PyTorch port: the CUDA kernels' sources (csrc/raycast.cu,
 csrc/megastep.cu with its megastep, physics and fused entries,
-csrc/rgbd.cu, csrc/threefry.cu, csrc/observations.cu) compiled as plain
-host C++
+csrc/rgbd.cu, csrc/threefry.cu, csrc/observations.cu, csrc/levelgen.cu)
+compiled as plain host C++
 (-DMHS_HOST_BUILD, the same per-ray / per-world / per-pixel functions in
 a loop) and held to the plain PyTorch versions on CPU tensors. This
 checks the kernels' arithmetic and their argument layout without a card;
 the launch itself is checked on the card (tests/test_torch_gpu.py,
 chip_smoke.py). Needs a host C++ compiler.
 
-Three sources run a warp per world (rgbd.cu: per world and agent), and
+Four sources run a warp per world (rgbd.cu: per world and agent), and
 observations.cu a block per tile of worlds; as host C++ their lane
 helpers (csrc/lanes.cuh) run the lanes of each phase, the block's load,
 compute and store items and the block's warps one after another. Each source is built twice, in forward and in reverse order
@@ -28,18 +28,27 @@ import pytest
 import torch
 
 from marl_hideandseek_torch.config import EnvConfig, SimFlags
+from marl_hideandseek_torch import prng
+from marl_hideandseek_torch.env import levelgen
 from marl_hideandseek_torch.env import observations as obs_mod
+from marl_hideandseek_torch.env.episode import draw_episode
+from marl_hideandseek_torch.env.rng import episode_keys
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.ops import build, rays as ops_rays
 from marl_hideandseek_torch.ops import fused as ops_fused
+from marl_hideandseek_torch.ops import levelgen as ops_levelgen
 from marl_hideandseek_torch.ops import physics as ops_physics
 from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import common as ops_common
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.ops import threefry as ops_threefry
 from marl_hideandseek_torch.testing import observation_case
-from marl_hideandseek_torch.types import body_slot_ranges, unpack_state
+from marl_hideandseek_torch.types import (
+    body_slot_ranges,
+    pack_state,
+    unpack_state,
+)
 
 REDUCED = dict(num_worlds=96, min_hiders=1, max_hiders=1, min_seekers=1,
                max_seekers=1, max_boxes=3, max_ramps=1)
@@ -72,7 +81,8 @@ def host_libs(tmp_path_factory):
     libs = {}
     for key, name, defs in [
             (f"{name}{suffix}", name, defs)
-            for name in ("raycast", "megastep", "rgbd", "observations")
+            for name in ("raycast", "megastep", "rgbd", "observations",
+                         "levelgen")
             for suffix, defs in (("", []),
                                  ("-reverse", ["-DMHS_LANES_REVERSE"]))]:
         so = out / f"{key}.so"
@@ -388,6 +398,143 @@ def test_observations_source_matches_plain(host_libs, obs_states, teams,
             assert torch.equal(h, p), name
         else:
             torch.testing.assert_close(h, p, atol=1e-5, rtol=1e-5, msg=name)
+
+
+# Level generation (K7): 64 keys of 2v2 and 3v3 worlds, each drawn
+# per world or under UseFixedWorld (every world the zero key's).
+LEVEL_TEAMS = {"2v2": 2, "3v3": 3}
+LEVEL_WORLDS = 64
+
+
+def _level_inputs(teams, fixed, seed=11):
+    """(cfg, draws, episode draws)."""
+    flags = SimFlags.RandomFlipTeams | (
+        SimFlags.UseFixedWorld if fixed else SimFlags(0))
+    n = LEVEL_TEAMS[teams]
+    cfg = EnvConfig(num_worlds=LEVEL_WORLDS, min_hiders=1, max_hiders=n,
+                    min_seekers=1, max_seekers=n, sim_flags=flags)
+    ids = torch.arange(LEVEL_WORLDS)
+    ep = draw_episode(cfg, episode_keys(prng.key(seed), ids,
+                                        torch.zeros_like(ids)))
+    level_key = ep[1]
+    keys = (torch.zeros((1, 2), dtype=torch.uint32) if fixed else
+            prng.u32(prng.i32(level_key).T.contiguous()))
+    return cfg, levelgen.level_draws(cfg, keys), ep
+
+
+@pytest.fixture(scope="module")
+def level_cases():
+    """Each case's inputs and the plain generator's packed state."""
+    out = {}
+    for t in LEVEL_TEAMS:
+        for f in (False, True):
+            cfg, draws, ep = _level_inputs(t, f)
+            out[(t, f)] = (cfg, draws, ep, pack_state(
+                levelgen.generate_training_world(cfg, ep[1], ep[0],
+                                                 *ep[2:])))
+    return out
+
+
+def _host_levelgen(lib, cfg, draws, ep, w):
+    # Contiguous copies, kept alive through the call.
+    ep_key, level_key, nh, ns, flip = (
+        prng.u32(prng.i32(x[..., :w]).contiguous()) if x.dtype == torch.uint32
+        else x[..., :w].contiguous() for x in ep)
+    if not cfg.use_fixed_world:
+        draws = levelgen.LevelDraws(
+            draws.counts[:w], draws.pose_u[:w],
+            type(draws.walls)(draws.walls.bits[:w], draws.walls.u[:w]))
+    out = ops_levelgen.level1_outputs(cfg, w, "cpu")
+    ptrs, ip = ops_levelgen.levelgen_params(cfg, draws, level_key, ep_key,
+                                            nh, ns, flip, out)
+    _host_call(lib.mhs_levelgen_host, ptrs, ip, [])
+    return out
+
+
+@pytest.mark.parametrize("teams", list(LEVEL_TEAMS))
+@pytest.mark.parametrize("fixed", [False, True], ids=["keyed", "fixed"])
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_levelgen_source_matches_plain(host_libs, level_cases, teams, fixed,
+                                       worlds, lanes):
+    """K7's 37 leaves against the plain generator's packed state, over 64
+    keys (63 ragged: not a multiple of the 8 worlds per block): the same
+    dtypes and shapes; integer, key and bool leaves equal; floats within
+    1e-5 (the host's libm sinf / cosf against PyTorch's CPU kernels move
+    a yaw quaternion by an ulp; on the card both reach the same CUDA
+    functions and the leaves are equal bit for bit)."""
+    cfg, draws, ep, want = level_cases[(teams, fixed)]
+    w = LEVEL_WORLDS - (worlds == "ragged")
+    got = _host_levelgen(_lib(host_libs, "levelgen", lanes), cfg, draws, ep,
+                         w)
+    for g, p in zip(got.leaves(), want.leaves()):
+        p = p[..., :w]
+        assert g.dtype == p.dtype and g.shape == p.shape
+        if p.dtype == torch.float32:
+            torch.testing.assert_close(g, p, atol=1e-5, rtol=0)
+        elif p.dtype == torch.uint32:
+            assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+        else:
+            assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("teams", list(LEVEL_TEAMS))
+def test_levelgen_outputs_follow_the_schema(teams):
+    """K7's outputs are ``empty_world``'s packed leaves with W worlds, the
+    same shapes and dtypes in the same order, as contiguous views of one
+    allocation, each starting on a 16-byte boundary, none overlapping."""
+    cfg = _level_inputs(teams, False)[0]
+    w = 37
+    got = ops_levelgen.level1_outputs(cfg, w, "cpu").leaves()
+    want = pack_state(levelgen.empty_world(cfg, w, "cpu")).leaves()
+    assert len(got) == len(want) == 37
+    base = got[0].untyped_storage().data_ptr()
+    end = base
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and g.shape == p.shape and g.is_contiguous()
+        assert g.untyped_storage().data_ptr() == base
+        assert g.data_ptr() % 16 == 0 and g.data_ptr() >= end
+        end = g.data_ptr() + g.numel() * g.element_size()
+
+
+def _bad_levelgen_args(case):
+    """K7's arguments for 8 2v2 worlds with one of them made wrong."""
+    cfg, draws, ep = _level_inputs("2v2", False)
+    ep = [x[..., :8].contiguous() for x in ep]
+    wd = draws.walls
+    draws = levelgen.LevelDraws(draws.counts[:8], draws.pose_u[:8],
+                                type(wd)(wd.bits[:8], wd.u[:8]))
+    if case == "level_key_dtype":
+        ep[1] = prng.i32(ep[1])
+    elif case == "team_dtype":
+        ep[2] = ep[2].to(torch.int32)
+    elif case == "draws_worlds":
+        draws = draws._replace(pose_u=draws.pose_u[:4])
+    elif case == "wall_bits_shape":
+        draws = draws._replace(walls=type(wd)(wd.bits[:8, :-1], wd.u[:8]))
+    elif case == "not_contiguous":
+        draws = draws._replace(counts=draws.counts.transpose(1, 2))
+    return cfg, draws, ep
+
+
+@pytest.mark.parametrize("case", ["level_key_dtype", "team_dtype",
+                                  "draws_worlds", "wall_bits_shape",
+                                  "not_contiguous", "cpu_tensors"])
+def test_levelgen_wrapper_checks_inputs(case):
+    """K7's wrapper refuses what the kernel does not take, before any
+    launch: a wrong dtype, shape or layout of a draw or an episode input,
+    and CPU tensors (the plain generator's)."""
+    cfg, draws, ep = _bad_levelgen_args(case)
+    out = ops_levelgen.level1_outputs(cfg, 8, "cpu")
+    launches = ops_levelgen.LEVELGEN.launches
+    with pytest.raises(ValueError):
+        if case == "cpu_tensors":
+            ops_levelgen.training_world_kernel(cfg, draws, ep[1], ep[0],
+                                               *ep[2:])
+        else:
+            ops_levelgen.levelgen_params(cfg, draws, ep[1], ep[0], *ep[2:],
+                                         out)
+    assert ops_levelgen.LEVELGEN.launches == launches
 
 
 @pytest.fixture(scope="module")
