@@ -26,8 +26,8 @@
 //     agent's flag, a visibility column, a lidar ray) and reads its
 //     TILE worlds: in the packed [..., W] layout (world stride 1) that is
 //     32 contiguous bytes, read as two 16-byte words. Each input is read
-//     through the strides it is given, so the classic env's world-major
-//     views need no copy (they take the word-by-word path). Lidar and
+//     through the strides it is given, so views of world-major state
+//     need no copy (they take the word-by-word path). Lidar and
 //     visibility rows go straight to the output (a transpose: consecutive
 //     rows are consecutive words there); the rest to shared memory.
 // (2) Compute: a thread per (world, agent, column), the columns being the

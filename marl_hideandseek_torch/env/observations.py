@@ -471,18 +471,6 @@ def reference_obs(cfg: EnvConfig, obs: dict) -> dict:
     }
 
 
-def build_observations(cfg: EnvConfig, state: EnvState, vis_seen, lidar):
-    """Observations of world-major state in the classic ``StepResult``
-    shapes (observations.py:226): ``vis_seen [W, A, T]``, ``lidar
-    [W, A, 30]`` -> dict of ``[W, A, ...]`` leaves (``agent_data [W, A,
-    5, 14]``, ``box_data [W, A, 9, 17]``, ``vis_*_mask [W, A, n, 1]``,
-    ...). The packed assembly on views of the same tensors."""
-    obs = build_observations_packed(
-        cfg, world_last(state), torch.movedim(vis_seen, 0, -1),
-        torch.movedim(lidar, 0, -1))
-    return reference_obs(cfg, obs)
-
-
 def global_debug_positions(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
     """[W, max_boxes + max_ramps + MAX_AGENTS, 2] xy positions of the
     observed bodies, zero elsewhere (reference: globalPositionsDebugSystem

@@ -13,6 +13,11 @@ consecutive worlds read coalesced addresses. A step is:
    with the raycast kernel (``ops/rays.py``);
 3. observation assembly with flattened feature dims.
 
+This is the port's one environment core: the classic env
+(``env/env.py``) runs it too, overriding only the megastep
+(``_megastep``) and the compact merge's float contract
+(``_merge_floats``).
+
 Random draws follow JAX's keys (``prng.py``): ``init(key)`` draws the
 first episodes from ``key``, resets from ``base_key`` (default
 ``PRNGKey(cfg.rand_seed)``), as JAX's ``init`` and ``step`` do. Level
@@ -302,8 +307,8 @@ class PackedEnv:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                "PackedEnv(device='cuda') but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain PyTorch path")
+                "device='cuda' but torch.cuda.is_available() is False; pass "
+                "device='cpu' to run the plain PyTorch path")
         self.cfg = cfg
         self.device = device
         self.worldgen = worldgen or levelgen_worldgen(cfg)
@@ -326,9 +331,13 @@ class PackedEnv:
             ps = fresh_world(self.worldgen, self._key(key), ids,
                              torch.ones(w, dtype=torch.long,
                                         device=self.device))
-            sweep = standalone_sweep_packed(self.cfg, ps)
-            ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
-            return ps, self._result(ps, sweep, None, None)
+            return self._swept(ps)
+
+    def _swept(self, ps: EnvState) -> Tuple[EnvState, PackedStepResult]:
+        """Sweep fresh or loaded worlds; zero rewards."""
+        sweep = standalone_sweep_packed(self.cfg, ps)
+        ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
+        return ps, self._result(ps, sweep, None, None)
 
     # -- stepping -----------------------------------------------------------
 
@@ -355,8 +364,8 @@ class PackedEnv:
             world_ids = torch.arange(w, device=dev)
 
         with tracing.span("env.megastep"):
-            ps, sweep, rewards, dones, team_r = ops_step.megastep_packed(
-                cfg, ps, actions.to(torch.int32).contiguous())
+            ps, sweep, rewards, dones, team_r = self._megastep(
+                ps, actions.to(torch.int32).contiguous())
 
         trigger = resets != 0
         if not cfg.ignore_episode_length:
@@ -380,6 +389,12 @@ class PackedEnv:
         ps = ps.replace(act_hit_t=sweep.act_t, act_hit_id=sweep.act_id)
         return ps, self._result(ps, sweep, rewards, dones, team_r)
 
+    def _megastep(self, ps, actions):
+        return ops_step.megastep_packed(self.cfg, ps, actions)
+
+    # The compact merge's float contract.
+    _merge_floats = staticmethod(canon_float)
+
     def _key(self, key: Optional[torch.Tensor]) -> torch.Tensor:
         if key is None:
             return prng.key(self.cfg.rand_seed, self.device)
@@ -401,7 +416,7 @@ class PackedEnv:
         The k = reset_budget slots hold the triggered worlds in ascending
         order, padded with the first one; only the first occurrence of a
         world writes back (packed.py:629-703). Float leaves merge under
-        the finite-or-+inf contract."""
+        ``_merge_floats``: here the finite-or-+inf contract."""
         k = self.cfg.reset_budget
         w = trigger.shape[0]
         dev = trigger.device
@@ -424,7 +439,7 @@ class PackedEnv:
         def merge(old, new):
             out = old.clone()
             with tracing.span("host_read.compact_merge"):
-                picked = canon_float(new)[..., first]
+                picked = self._merge_floats(new)[..., first]
             out[..., cols] = picked.to(old.dtype)
             return out
 

@@ -1,17 +1,16 @@
 """K3: the physics step fused with the post-physics ray sweep.
 
-``fused_step_packed`` (packed state) and ``fused_step`` (world-major,
-pallas_step.py:681) launch ``csrc/megastep.cu``'s ``mhs_fused`` for CUDA
-tensors: one warp per world runs the ``physics_step`` and ``sweep``
+``fused_step_packed`` launches ``csrc/megastep.cu``'s ``mhs_fused`` for
+CUDA tensors: one warp per world runs the ``physics_step`` and ``sweep``
 device functions that the megastep (K4) runs too - visibility, lidar, the
 next step's grab/lock rays and the seeker-sees-hider flag on the moved
 bodies, with the sweep's wall loop bounded by the batch's largest
 active-wall count (computed on the device, no host sync). For CPU tensors
-they run the plain version, ``fused_step_plain``: the plain physics, then
+it runs the plain version, ``fused_step_plain``: the plain physics, then
 ``standalone_sweep_packed`` with the plain raycast - the composite the
 JAX kernel is tested against (tests/test_pallas_kernels.py:70-146).
-Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::fused_step_packed`` /
-``fused_step`` (``_fused_pallas``).
+Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::fused_step_packed``
+(``_fused_pallas``).
 """
 
 from __future__ import annotations
@@ -30,12 +29,7 @@ from marl_hideandseek_torch.ops.common import (
     launch_arrays,
     wall_bound,
 )
-from marl_hideandseek_torch.types import (
-    EnvState,
-    RigidBodies,
-    SweepResults,
-    pack_state,
-)
+from marl_hideandseek_torch.types import EnvState, RigidBodies, SweepResults
 
 FUSED = CudaKernel("megastep", "mhs_fused", ARRAY_ENTRY)
 
@@ -73,21 +67,6 @@ def fused_step_packed(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):
     if ps.step.device.type == "cpu":
         return fused_step_plain(cfg, ps, ext_force, ext_torque)
     return _fused_cuda(cfg, ps, ext_force, ext_torque)
-
-
-def fused_step(cfg: EnvConfig, state: EnvState, ext_force, ext_torque):
-    """World-major fused step (pallas_step.py:681): ``state`` with the
-    world axis first, ``ext_force, ext_torque [W, B, 3]`` -> (bodies,
-    SweepResults), world axis first (vis ``[W, A, T]``, lidar ``[W, A,
-    30]``, act_t / act_id ``[W, A]``, rew_seen ``[W]``). Transposes to
-    the packed layout around ``fused_step_packed``."""
-    pk = lambda x: torch.movedim(x, 0, -1).contiguous()
-    wm = lambda x: torch.movedim(x, -1, 0).contiguous()
-    bodies, sweep = fused_step_packed(cfg, pack_state(state), pk(ext_force),
-                                      pk(ext_torque))
-    return (state.bodies.replace(pos=wm(bodies.pos), quat=wm(bodies.quat),
-                                 vel=wm(bodies.vel), omega=wm(bodies.omega)),
-            SweepResults(*(wm(x) for x in sweep)))
 
 
 def fused_buffers(cfg: EnvConfig, ps: EnvState, ext_force, ext_torque):

@@ -1,12 +1,12 @@
 """K2: the XPBD physics step on its own.
 
-``physics_packed`` (packed state) and ``physics_step_batch`` (world-major,
-pallas_physics.py:872) launch ``csrc/megastep.cu``'s ``mhs_physics`` for
+``physics_packed`` launches ``csrc/megastep.cu``'s ``mhs_physics`` for
 CUDA tensors: one warp per world runs the ``physics_step`` device
 function that the megastep (K4) and the fused step (K3) run too. For CPU
-tensors they run the plain version, ``env/physics.py::physics_step``.
+tensors it runs the plain version, ``env/physics.py::physics_step``.
 Replaces ``marl_hideandseek_tpu/ops/pallas_physics.py::
-physics_step_batch`` (``_physics_pallas``).
+physics_step_batch`` (``_physics_pallas``). The classic env's unfused
+branch is its one caller in the program.
 
 The launch arguments (``physics_inputs``, ``step_params``) are shared with
 K3 (``ops/fused.py``): its pointer list starts with this one.
@@ -133,21 +133,3 @@ def physics_buffers(cfg: EnvConfig, bodies, statics, grab, ext_force,
     out = body_outputs(cfg, w, dev)
     ptrs += [t.data_ptr() for t in out.values()]
     return (ptrs, *step_params(cfg, statics, w), out)
-
-
-def physics_step_batch(cfg: EnvConfig, bodies, statics, grab, ext_force,
-                       ext_torque) -> RigidBodies:
-    """World-major physics step (pallas_physics.py:872): subtrees with the
-    world axis first, ``ext_force, ext_torque [W, B, 3]``; returns the new
-    bodies, world axis first. On CUDA the inputs are transposed to the
-    packed layout around the kernel."""
-    if bodies.pos.device.type == "cpu":
-        pos, quat, vel, omega = physics.physics_step(
-            cfg, bodies, statics, grab, ext_force, ext_torque)
-        return bodies.replace(pos=pos, quat=quat, vel=vel, omega=omega)
-    pk = lambda x: torch.movedim(x, 0, -1).contiguous()
-    new = physics_packed(cfg, bodies.map(pk), statics.map(pk), grab.map(pk),
-                         pk(ext_force), pk(ext_torque))
-    wm = lambda x: torch.movedim(x, -1, 0).contiguous()
-    return bodies.replace(pos=wm(new.pos), quat=wm(new.quat),
-                          vel=wm(new.vel), omega=wm(new.omega))

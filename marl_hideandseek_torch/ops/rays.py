@@ -1,10 +1,9 @@
-"""K1: the batched raycast, over packed or world-major state.
+"""K1: the batched raycast over packed state.
 
-``raycast_batch_packed`` (packed) and ``raycast_batch`` (world-major)
-launch the CUDA kernel ``csrc/raycast.cu`` for CUDA tensors and run the
-plain PyTorch version (``env/rays.py::raycast_world``) for CPU tensors.
-Replaces ``marl_hideandseek_tpu/ops/pallas_rays.py::raycast_batch_packed``
-and ``raycast_batch``.
+``raycast_batch_packed`` launches the CUDA kernel ``csrc/raycast.cu`` for
+CUDA tensors and runs the plain PyTorch version
+(``env/rays.py::raycast_world``) for CPU tensors. Replaces
+``marl_hideandseek_tpu/ops/pallas_rays.py::raycast_batch_packed``.
 """
 
 from __future__ import annotations
@@ -49,62 +48,28 @@ def raycast_batch_packed(cfg: EnvConfig, ps: EnvState, origins, dirs,
     """
     if origins.device.type == "cpu":
         return raycast_packed_plain(cfg, ps, origins, dirs, max_t, exclude)
-    b, s = ps.bodies, ps.statics
-    return _raycast_cuda(cfg, (b.pos, b.quat, b.half_ext, b.active),
-                         (s.wall_pos, s.wall_half_ext, s.wall_active,
-                          s.plane_point, s.plane_normal, s.plane_active),
-                         origins, dirs, max_t, exclude)
-
-
-def raycast_batch(cfg: EnvConfig, state: EnvState, origins, dirs, max_t,
-                  exclude):
-    """World-major twin of ``raycast_batch_packed`` (pallas_rays.py:264):
-    ``state`` with the world axis first, ``origins, dirs [W, R, 3]``,
-    ``max_t, exclude [W, R]`` -> ``(t [W, R], id [W, R])``. On CUDA the
-    geometry and the rays are transposed to the packed layout around the
-    same kernel."""
-    b, s = state.bodies, state.statics
-    if origins.device.type == "cpu":
-        return plain_rays.raycast_world(
-            cfg, b.pos, b.quat, b.half_ext, b.active, s.wall_pos,
-            s.wall_half_ext, s.wall_active, s.plane_point, s.plane_normal,
-            s.plane_active, origins, dirs, max_t, exclude)
-    pk = lambda x: torch.movedim(x, 0, -1).contiguous()
-    t, hit = _raycast_cuda(
-        cfg, [pk(x) for x in (b.pos, b.quat, b.half_ext, b.active)],
-        [pk(x) for x in (s.wall_pos, s.wall_half_ext, s.wall_active,
-                         s.plane_point, s.plane_normal, s.plane_active)],
-        pk(origins), pk(dirs), pk(max_t), pk(exclude))
-    return t.T.contiguous(), hit.T.contiguous()
-
-
-def _raycast_cuda(cfg: EnvConfig, bodies, statics, origins, dirs, max_t,
-                  exclude):
-    """One K1 launch on packed tensors: bodies (pos, quat, half_ext,
-    active), statics (wall pos, half, active, plane point, normal,
-    active)."""
     dev = origins.device
     r, w = max_t.shape
     n_body = cfg.num_dyn_bodies
     _, (ramp_lo, ramp_hi), _ = body_slot_ranges(cfg)
-    pos, quat, half, active = bodies
-    wpos, whalf, wact, ppt, pnrm, pact = statics
-    n_wall = wact.shape[0]
-    n_plane = pact.shape[0]
+    b, s = ps.bodies, ps.statics
+    n_wall = s.wall_active.shape[0]
+    n_plane = s.plane_active.shape[0]
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     t_out = torch.empty((r, w), dtype=f32, device=dev)
     id_out = torch.empty((r, w), dtype=i32, device=dev)
     ptrs = [
-        check(pos, "pos", (n_body, 3, w), f32, dev),
-        check(quat, "quat", (n_body, 4, w), f32, dev),
-        check(half, "half_ext", (n_body, 3, w), f32, dev),
-        check(active.view(u8), "active", (n_body, w), u8, dev),
-        check(wpos, "wall_pos", (n_wall, 3, w), f32, dev),
-        check(whalf, "wall_half_ext", (n_wall, 3, w), f32, dev),
-        check(wact.view(u8), "wall_active", (n_wall, w), u8, dev),
-        check(ppt, "plane_point", (n_plane, 3, w), f32, dev),
-        check(pnrm, "plane_normal", (n_plane, 3, w), f32, dev),
-        check(pact.view(u8), "plane_active", (n_plane, w), u8, dev),
+        check(b.pos, "pos", (n_body, 3, w), f32, dev),
+        check(b.quat, "quat", (n_body, 4, w), f32, dev),
+        check(b.half_ext, "half_ext", (n_body, 3, w), f32, dev),
+        check(b.active.view(u8), "active", (n_body, w), u8, dev),
+        check(s.wall_pos, "wall_pos", (n_wall, 3, w), f32, dev),
+        check(s.wall_half_ext, "wall_half_ext", (n_wall, 3, w), f32, dev),
+        check(s.wall_active.view(u8), "wall_active", (n_wall, w), u8, dev),
+        check(s.plane_point, "plane_point", (n_plane, 3, w), f32, dev),
+        check(s.plane_normal, "plane_normal", (n_plane, 3, w), f32, dev),
+        check(s.plane_active.view(u8), "plane_active", (n_plane, w), u8,
+              dev),
         check(origins, "origins", (r, 3, w), f32, dev),
         check(dirs, "dirs", (r, 3, w), f32, dev),
         check(max_t, "max_t", (r, w), f32, dev),

@@ -1,19 +1,26 @@
 """K4: the megastep - the whole packed step before resets.
 
+``megastep_plain`` is the port's one composition of the step's systems:
+movement, grab/lock, a physics-and-sweep phase, agent zero-velocity,
+rewards, dones and episode scores. Its three phases: the plain K3
+(``ops/fused.py::fused_step_plain``), which makes the plain megastep, the
+JAX package's fallback branch (env/packed.py:576-595); K3
+(``fused_step_packed``), the classic env's step; K2 then the standalone
+sweep, the classic env's unfused branch (``env/env.py``).
+
 ``megastep_packed`` launches ``csrc/megastep.cu`` for CUDA tensors: one
 warp per world (its lanes over the world's bodies, contact slots, agents
-and rays) runs movement decode, grab/lock, the XPBD physics step,
-agent zero-velocity, the ray sweep (visibility, lidar, next-step
-grab/lock rays, the seeker-sees-hider flag), rewards, dones and episode
-scores. For CPU tensors it runs the plain version, ``megastep_plain``:
-the JAX package's fallback branch (env/packed.py:576-595) - the
-component step systems, the plain physics and the plain sweep composed.
-Replaces ``marl_hideandseek_tpu/ops/pallas_step.py::megastep_packed``.
+and rays) runs the whole composition - movement decode, grab/lock, the
+XPBD physics step, agent zero-velocity, the ray sweep (visibility, lidar,
+next-step grab/lock rays, the seeker-sees-hider flag), rewards, dones and
+episode scores. For CPU tensors it runs the plain megastep. Replaces
+``marl_hideandseek_tpu/ops/pallas_step.py::megastep_packed``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -66,20 +73,23 @@ def megastep_occupancy() -> Dict[str, int]:
 
 
 def megastep_plain(cfg: EnvConfig, ps: EnvState, actions: torch.Tensor,
-                   tally: Optional[Dict[str, int]] = None):
-    """Plain PyTorch megastep (the JAX fallback branch): the step systems
-    around the plain physics + sweep (``ops/fused.py``). actions
-    [A, 5, W] i32 -> (ps2, SweepResults, rewards [A, W] f32, dones
-    [A, W] i32, team_r [W] f32). ps2 has the new bodies, locks, grabs,
-    scores and team reward; step bookkeeping is left to the caller.
-    ``tally`` collects the physics' work counts (physics.physics_step)."""
+                   tally: Optional[Dict[str, int]] = None,
+                   phase: Optional[Callable] = None):
+    """The step's systems around a physics-and-sweep ``phase(cfg, ps,
+    ext_force, ext_torque) -> (bodies, SweepResults)``, by default the
+    plain K3 (``fused_step_plain``, which ``tally`` is passed to: the
+    physics' work counts). actions [A, 5, W] i32 -> (ps2, SweepResults,
+    rewards [A, W] f32, dones [A, W] i32, team_r [W] f32). ps2 has the
+    new bodies, locks, grabs, scores and team reward; step bookkeeping is
+    left to the caller."""
     from marl_hideandseek_torch.env import packed as P
 
+    if phase is None:
+        phase = functools.partial(ops_fused.fused_step_plain, tally=tally)
     ext_force, ext_torque = P.movement_packed(cfg, ps, actions)
     ps = P.action_system_packed(cfg, ps, actions, ps.act_hit_t,
                                 ps.act_hit_id)
-    bodies, sweep = ops_fused.fused_step_plain(cfg, ps, ext_force,
-                                               ext_torque, tally=tally)
+    bodies, sweep = phase(cfg, ps, ext_force, ext_torque)
     ps = ps.replace(bodies=bodies)
     if cfg.zero_agent_velocity:
         ps = P.zero_agent_velocities_packed(cfg, ps)

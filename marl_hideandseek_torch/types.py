@@ -170,9 +170,7 @@ def pack_actions(actions: torch.Tensor) -> torch.Tensor:
 
 
 class SweepResults(NamedTuple):
-    """Per-step ray-sweep outputs. Packed (world axis last, shapes below)
-    in the packed step; world axis first (``vis_seen [W, A, T]``, ...) in
-    the classic env."""
+    """Per-step ray-sweep outputs, packed (world axis last)."""
 
     vis_seen: torch.Tensor  # [A, T, W] f32 final visibility mask values
     lidar: torch.Tensor     # [A, 30, W] f32 depths (0 on miss)

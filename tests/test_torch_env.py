@@ -24,6 +24,7 @@ from marl_hideandseek_torch.config import EnvConfig, SimFlags
 from marl_hideandseek_torch.env import observations as tobs
 from marl_hideandseek_torch.env import packed as tp
 from marl_hideandseek_torch.env.env import HideAndSeekEnv
+from marl_hideandseek_torch.types import pack_state
 
 W = 8
 KW = dict(num_worlds=W, min_hiders=2, max_hiders=2, min_seekers=2,
@@ -279,12 +280,16 @@ def test_compact_merge_first_occurrence_and_float_contract():
 
 
 def test_classic_compact_merge_scatters_values_unchanged():
-    """The classic env's compact merge writes each triggered world once
-    and scatters regenerated values unchanged, NaN and -inf included, as
-    the JAX classic env does (env.py:470-474)."""
+    """The classic env's core runs the one compact reset path
+    (``PackedEnv._compact_resets``): it writes each triggered world once
+    and, under the classic merge contract, scatters regenerated values
+    unchanged, NaN and -inf included, as the JAX classic env does
+    (env.py:470-474)."""
     cfg = TCFG.replace(reset_budget=4)
     env = HideAndSeekEnv(cfg, device="cpu")
+    assert type(env._core)._compact_resets is tp.PackedEnv._compact_resets
     state, _ = env.init()
+    ps = pack_state(state)
     calls = []
     env_default = env.worldgen
 
@@ -300,17 +305,17 @@ def test_classic_compact_merge_scatters_values_unchanged():
     trigger = torch.zeros(W, dtype=torch.bool)
     trigger[[2, 5]] = True
     level_ids = torch.ones(W, dtype=torch.long)
-    sweep = env._standalone_sweep(state)
-    adv = state.replace(step=state.step + 1)
-    new, _ = env._compact_resets(state, adv, sweep, trigger, level_ids,
-                                 torch.arange(W), prng.key(cfg.rand_seed))
+    sweep = tp.standalone_sweep_packed(cfg, ps)
+    new, _ = env._core._compact_resets(ps, sweep, trigger, level_ids,
+                                       torch.arange(W),
+                                       prng.key(cfg.rand_seed))
     np.testing.assert_array_equal(calls[0].numpy(), [2, 5, 2, 2])
     v = new.bodies.vel
-    assert bool(torch.isnan(v[[2, 5], 0, 0]).all())
-    assert bool((v[[2, 5], 0, 1] == -float("inf")).all())
+    assert bool(torch.isnan(v[0, 0, [2, 5]]).all())
+    assert bool((v[0, 1, [2, 5]] == -float("inf")).all())
     untouched = [i for i in range(W) if i not in (2, 5)]
-    assert torch.equal(new.bodies.pos[untouched],
-                       state.bodies.pos[untouched])
+    assert torch.equal(new.bodies.pos[..., untouched],
+                       ps.bodies.pos[..., untouched])
     assert bool((new.step[[2, 5]] == 0).all())
     assert bool((new.episode_counter.long()[[2, 5]] == 1).all())
 

@@ -372,20 +372,20 @@ def test_observations_kernel_drawn_cases(cuda, teams):
 
 
 def test_observations_kernel_reads_world_major_views(cuda):
-    """The classic env's world-major state and sweep through
-    ``build_observations``: K6 reads the views through their strides."""
+    """World-major state and sweep as ``world_last`` views through
+    ``build_observations_packed``: K6 reads the views through their
+    strides."""
     cfg = EnvConfig(num_worlds=300, **CLASSIC, rand_seed=3)
     st, _ = HideAndSeekEnv(cfg, device=cuda).init()
     st, vis, lidar = observation_case(cfg, obs_mod.world_last(st), 12)
     st = unpack_state(st)
     vis, lidar = (torch.movedim(x, -1, 0).contiguous() for x in (vis, lidar))
+    views = (obs_mod.world_last(st), torch.movedim(vis, 0, -1),
+             torch.movedim(lidar, 0, -1))
     n0 = obs_mod.OBSERVATIONS.launches
-    got = obs_mod.build_observations(cfg, st, vis, lidar)
+    got = obs_mod.build_observations_packed(cfg, *views)
     assert obs_mod.OBSERVATIONS.launches == n0 + 1
-    want = obs_mod.reference_obs(cfg, obs_mod.build_observations_plain(
-        cfg, obs_mod.world_last(st), torch.movedim(vis, 0, -1),
-        torch.movedim(lidar, 0, -1)))
-    _check_obs(got, want)
+    _check_obs(got, obs_mod.build_observations_plain(cfg, *views))
 
 
 def test_observations_wrapper_checks_inputs(cuda):
@@ -605,25 +605,6 @@ def test_physics_and_fused_kernels_match_plain(cuda, kw, entry, w):
             assert ((a - b).abs() < tol).float().mean().item() >= need, name
         ps = ps.replace(bodies=bk)
     assert counter.launches == n0 + 3
-
-
-def test_world_major_wrappers_match_plain(cuda):
-    """raycast_batch and physics_step_batch transpose around K1 and K2."""
-    cfg, ps = _state(cuda, FULL, 300, 100)
-    g = torch.Generator(device=cuda).manual_seed(3)
-    ps, ext_f, ext_t = _pre_physics(cfg, ps, g)
-    st = unpack_state(ps)
-    q = obs_mod.obs_ray_queries(cfg, st)
-    t_k, id_k = ops_rays.raycast_batch(cfg, st, *q)
-    t_p, id_p = ops_rays.raycast_batch(cfg, st.map(lambda x: x.cpu()),
-                                       *[x.cpu() for x in q])
-    assert (id_k.cpu() == id_p).float().mean() >= 0.999
-    wm = lambda x: torch.movedim(x, -1, 0).contiguous()
-    bk = ops_physics.physics_step_batch(cfg, st.bodies, st.statics, st.grab,
-                                        wm(ext_f), wm(ext_t))
-    bp = ops_physics.physics_plain(cfg, ps.bodies, ps.statics, ps.grab,
-                                   ext_f, ext_t)
-    torch.testing.assert_close(bk.pos, wm(bp.pos), atol=1e-4, rtol=1e-4)
 
 
 def test_rgbd_kernel_matches_plain(cuda):

@@ -372,8 +372,8 @@ def test_observations_source_matches_plain(host_libs, obs_states, teams,
     """K6's eleven leaves against the plain assembly's: the same names,
     dtypes and shapes; integer leaves and masks equal; every float within
     rounding of the math library's atan2f / asinf (host libm against
-    PyTorch's CPU kernels). The packed layout, and world-major views of
-    the same values (the classic env's), read through their strides."""
+    PyTorch's CPU kernels). The packed layout, and ``world_last`` views
+    of the same values held world-major, read through their strides."""
     cfg, ps, drawn = obs_states[teams]
     ins = (ps, *_sweep(cfg, ps)) if case == "init" else drawn
     if worlds == "ragged":
