@@ -3,9 +3,11 @@
 Port of ``marl_hideandseek_tpu/models/actor_critic.py``. The recurrent
 state is threaded explicitly, as nested tuples of ``[L, N, C]`` tensors
 per agent (``init_recurrent_state``). ``ActorCritic`` takes the
-observations and the state shared by every policy of its ensemble and
-returns each output with the policy axis in front (``[P, N, ...]``):
-``train/rollout.py::apply_ensemble`` then picks each agent's policy.
+observations and the state shared by every policy of its ensemble, or
+with ``per_policy`` each policy's own rows (``[P, M, ...]``, states ``[P,
+L, M, C]``), and returns each output with the policy axis in front
+(``[P, M, ...]``): ``train/rollout.py::apply_ensemble`` routes each agent
+to its policy's rows and back.
 """
 
 from __future__ import annotations
@@ -112,6 +114,9 @@ class BackboneShared(nn.Module):
                                        self._prefix(obs, train), train)
         return feat, (new_state,)
 
+    def actor_only_states(self, new_states, old_states):
+        return new_states
+
     def sequence(self, start_states, seq_ends, seq_obs, train=False):
         feat = self.encoder.sequence(start_states[0], seq_ends,
                                      self._prefix(seq_obs, train), train)
@@ -155,6 +160,9 @@ class BackboneSeparate(nn.Module):
             rnn_states[0], self._prefix(obs, train), train)
         return a_feat, (a_state, rnn_states[1])
 
+    def actor_only_states(self, new_states, old_states):
+        return new_states[0], old_states[1]
+
     def sequence(self, start_states, seq_ends, seq_obs, train=False):
         seq_obs = self._prefix(seq_obs, train)
         a = self.actor_encoder.sequence(start_states[0], seq_ends, seq_obs,
@@ -167,7 +175,9 @@ class BackboneSeparate(nn.Module):
 class ActorCritic(nn.Module):
     """Backbone + discrete actor head + critic head. Every method takes
     observations and recurrent state shared by the ensemble (no policy
-    axis) and returns outputs with the policy axis in front."""
+    axis), or with ``per_policy`` the policy axis in front of every input
+    (each policy runs its own rows), and returns outputs with the policy
+    axis in front."""
 
     def __init__(self, backbone: nn.Module, actor: nn.Module,
                  critic: nn.Module):
@@ -182,10 +192,14 @@ class ActorCritic(nn.Module):
     def clear_recurrent_state(self, states, should_clear):
         return self.backbone.clear_recurrent_state(states, should_clear)
 
-    def forward(self, rnn_states, obs, train: bool = False):
-        """One rollout step: (action dists, critic out, new states)."""
-        (a_feat, c_feat), new_states = self.backbone(
-            _shared(rnn_states), _shared(obs), train)
+    def forward(self, rnn_states, obs, train: bool = False,
+                per_policy: bool = False):
+        """One rollout step: (action dists, critic out, new states). With
+        ``per_policy`` the inputs carry the policy axis (``[P, M, ...]``,
+        states ``[P, L, M, C]``)."""
+        if not per_policy:
+            rnn_states, obs = _shared(rnn_states), _shared(obs)
+        (a_feat, c_feat), new_states = self.backbone(rnn_states, obs, train)
         return self.actor(a_feat), self.critic(c_feat), new_states
 
     def act(self, rnn_states, obs, train: bool = False):
@@ -194,6 +208,12 @@ class ActorCritic(nn.Module):
         a_feat, new_states = self.backbone.actor_only(
             _shared(rnn_states), _shared(obs), train)
         return self.actor(a_feat), new_states
+
+    def actor_only_states(self, new_states, old_states):
+        """The recurrent state an actor-only step leaves, from a full
+        step's ``new_states``: a separate critic encoder's part kept as in
+        ``old_states``."""
+        return self.backbone.actor_only_states(new_states, old_states)
 
     def sequence(self, start_states, seq_ends, seq_obs, train: bool = True,
                  per_policy: bool = False):

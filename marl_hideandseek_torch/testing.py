@@ -1,8 +1,10 @@
 """Checks shared by the card tests, ``chip_smoke.py`` and the CPU tests:
 the rounding bars of a PPO update, the comparison of two updates at those
 bars, the planted optimizer faults the bars must catch, a launcher of
-ranks on one machine, and drawn inputs of the observation assembly
-(``observation_case``). No module of the training path imports this one.
+ranks on one machine, drawn inputs of the observation assembly
+(``observation_case``), and the naive ensemble forward that the routed
+one is held to (``naive_ensemble``). No module of the training path
+imports this one.
 
 Rounding bars. Two runs of one PPO update that differ only in rounding
 (the card's kernels against the CPU's, bf16 products, ranks' partial sums)
@@ -35,10 +37,13 @@ import time
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+from torch.func import functional_call
 
 from marl_hideandseek_torch.config import NUM_LIDAR_SAMPLES
 from marl_hideandseek_torch.env.observations import num_vis_targets
+from marl_hideandseek_torch.models.actor_critic import tree_map
 from marl_hideandseek_torch.train import ppo
+from marl_hideandseek_torch.train.rollout import MethodCall
 
 K = 4.0
 FIXED_BARS = {"mu": 1e-4, "nu": 2e-4, "params": 1e-6}
@@ -273,3 +278,34 @@ def observation_case(cfg, ps, seed: int):
                         50.0 * torch.rand((na, NUM_LIDAR_SAMPLES, w),
                                           generator=g, device=dev), 0.0)
     return ps, vis, lidar
+
+
+def naive_ensemble(policy, all_params, rnn_states, obs,
+                   assignments: torch.Tensor, num_policies: int,
+                   num_train=None):
+    """``apply_ensemble``'s outputs computed naively: every policy on
+    every agent with the inputs shared (past policies, at index >=
+    ``num_train``, actor-only: values 0, the critic's state passed
+    through), then each agent's own policy's row picked out."""
+    ac = policy.actor_critic
+    nt = num_train if num_train and num_train < num_policies \
+        else num_policies
+    dists, critic_out, states = functional_call(
+        ac, {k: v[:nt] for k, v in all_params.items()}, (rnn_states, obs),
+        strict=True)
+    logits, values = dists.logits, critic_out["value"][..., 0]
+    if nt < num_policies:
+        n_past = num_policies - nt
+        dists, rnn_p = functional_call(
+            MethodCall(ac, "act"),
+            {f"ac.{k}": v[nt:] for k, v in all_params.items()},
+            (rnn_states, obs), strict=True)
+        logits = torch.cat([logits, dists.logits])
+        values = torch.cat([values, values.new_zeros((n_past,) +
+                                                     values.shape[1:])])
+        states = tree_map(lambda a, b: torch.cat(
+            [a, b.expand(n_past, *b.shape[1:])]), states, rnn_p)
+    idx = assignments.to(torch.long)
+    agents = torch.arange(idx.shape[0], device=idx.device)
+    return (logits[idx, agents], values[idx, agents],
+            tree_map(lambda x: x[idx, :, agents].movedim(0, 1), states))

@@ -4,9 +4,9 @@ Port of ``marl_hideandseek_tpu/train/rollout.py``. ``collect_rollout``
 steps the packed env (K4 every step, K1 on reset steps) for
 ``steps_per_update`` transitions with the policy ensemble choosing the
 actions, and stores them as ``num_bptt_chunks`` sequences with the LSTM
-state at each chunk's start, for BPTT. ``apply_ensemble`` runs every
-policy on the whole agent batch and gives each agent its assigned
-policy's outputs; ``compute_gae`` turns a buffer into advantages and
+state at each chunk's start, for BPTT. ``apply_ensemble`` routes each
+agent through its assigned policy only, in one batched product over a
+per-policy layout; ``compute_gae`` turns a buffer into advantages and
 returns. Every draw comes from the rollout's key, split in the JAX
 version's order (``prng.py``): the same key gives JAX's step keys,
 actions and matchups.
@@ -15,7 +15,7 @@ actions and matchups.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -87,66 +87,128 @@ class MethodCall(nn.Module):
         return getattr(self.ac, self.method)(*args, **kwargs)
 
 
+# A policy's routed rows round up to a multiple of this, so that the
+# products' shapes, and with them the allocator's blocks and cuBLAS's
+# choices, repeat from step to step.
+ROUTE_ALIGN = 64
+
+
+class RouteTally:
+    """Host-side tally of the routed ensemble forwards, from the counts
+    each one reads anyway: calls, agent rows needed (the sum of the
+    counts) and rows run (policies x ``cap``)."""
+
+    def __init__(self):
+        self.calls = self.needed = self.run = 0
+
+    def read(self) -> Tuple[int, int, int]:
+        """(calls, rows needed, rows run) so far."""
+        return self.calls, self.needed, self.run
+
+
+ROUTE = RouteTally()
+
+
+class RoutePlan(NamedTuple):
+    """A per-policy layout of the agents: ``rows [P * cap]`` the agent of
+    each routed row (policy-major, ``cap`` rows a policy) and ``back
+    [N]`` each agent's routed row."""
+
+    rows: torch.Tensor
+    back: torch.Tensor
+    cap: int
+
+
+def route_plan(assignments: torch.Tensor, num_policies: int) -> RoutePlan:
+    """Route each agent ``assignments [N]`` to its policy's rows. The
+    agents are sorted by policy (stably, so a policy's rows keep agent
+    order); each policy gets ``cap`` rows, the largest count rounded up
+    to ``ROUTE_ALIGN`` (at most N). Rows past a policy's count repeat its
+    last agent, or agent 0 for a policy with none, so every row computes
+    finite numbers that no agent reads. The counts are the one host read
+    (``host_read.route``)."""
+    dev = assignments.device
+    n, p = assignments.shape[0], num_policies
+    pol, order = torch.sort(assignments.to(torch.long), stable=True)
+    starts = torch.searchsorted(pol, torch.arange(p + 1, device=dev))
+    counts = starts.diff()
+    with tracing.span("host_read.route"):
+        top = max(counts.tolist())
+    cap = min(n, -(-max(top, 1) // ROUTE_ALIGN) * ROUTE_ALIGN)
+    starts = starts[:p, None]
+    j = torch.arange(cap, device=dev)
+    pos = (starts + torch.minimum(j, (counts[:, None] - 1).clamp(min=0))
+           ).clamp(max=n - 1)
+    rows = torch.where(counts[:, None] > 0, order[pos], 0).reshape(-1)
+    at = pol * cap + torch.arange(n, device=dev) - starts[pol, 0]
+    back = torch.empty_like(order).scatter_(0, order, at)
+    ROUTE.calls += 1
+    ROUTE.needed += n
+    ROUTE.run += p * cap
+    return RoutePlan(rows, back, cap)
+
+
 def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
                    rnn_states, obs, assignments: torch.Tensor,
                    num_policies: int, num_train: Optional[int] = None):
-    """Apply every policy to the whole agent batch, then give each agent
-    its assigned policy's outputs (rollout.py:61-126).
+    """Run each agent through its assigned policy only
+    (rollout.py:61-126).
 
-    all_params: the flat parameter dict, leading policy axis P. Every
-    layer runs as one batched product over the P policies (the stacked
-    modules of ``models/layers.py``), which computes what JAX's
-    ``vmap`` over the policy axis computes. Returns (logits ``[N, L]``,
-    values ``[N]``, new recurrent state ``[.., N, C]``) per agent.
+    all_params: the flat parameter dict, leading policy axis P. The
+    agents are routed (``route_plan``): their normalized observations
+    and recurrent state are gathered into ``[P, cap, ...]``, each policy
+    holding its own agents, and every layer runs once as one batched
+    product over the P policies (the stacked modules of
+    ``models/layers.py``, ``per_policy``), which computes per agent what
+    JAX's ``vmap`` over the policy axis and its pick compute; one gather
+    then brings each agent's row back. Returns (logits ``[N, L]``,
+    values ``[N]``, new recurrent state ``[.., N, C]``) per agent. With
+    one policy nothing is routed: it runs on the whole batch.
 
     With ``num_train`` set, policies at index >= num_train are frozen past
-    policies: they run actor-only (values 0, the critic's recurrent state
-    passed through).
+    policies, which act only: their agents get values 0 and keep the
+    critic's recurrent state (``ActorCritic.actor_only_states``). They
+    run in the same pass as the train policies, critic included, and the
+    critic's outputs for their agents are dropped: the rollout's forward
+    is paced by the host, and one pass over the layers costs it less than
+    a full pass and an actor-only one.
 
-    Each agent's policy is picked with a gather where JAX contracts with a
-    one-hot: the same for finite values, but a non-finite output of a
-    policy the agent does not use turns JAX's one-hot sum into NaN and
-    leaves the gather untouched.
+    Outputs of a policy an agent does not use are never computed. JAX
+    computes them and contracts with a one-hot: the same for finite
+    values, but there a non-finite output of another policy turns the
+    agent's sum into NaN.
     """
     ac = policy.actor_critic
 
-    def one(params):
-        dists, critic_out, new_rnn = functional_call(
-            ac, dict(params), (rnn_states, obs), strict=True)
-        return dists.logits, critic_out["value"][..., 0], new_rnn
-
     if num_policies == 1:
-        logits, values, new_rnn = one({k: v[:1] for k, v in
-                                       all_params.items()})
-        return logits[0], values[0], tree_map(lambda x: x[0], new_rnn)
-
-    if num_train is not None and 0 < num_train < num_policies:
-        n_past = num_policies - num_train
-        lg_t, val_t, rnn_t = one({k: v[:num_train]
-                                  for k, v in all_params.items()})
-        dists, rnn_p = functional_call(
-            MethodCall(ac, "act"), {f"ac.{k}": v[num_train:]
-                       for k, v in all_params.items()},
+        dists, critic_out, new_rnn = functional_call(
+            ac, {k: v[:1] for k, v in all_params.items()},
             (rnn_states, obs), strict=True)
-        logits_all = torch.cat([lg_t, dists.logits], 0)
-        values_all = torch.cat([val_t, val_t.new_zeros(
-            (n_past,) + val_t.shape[1:])], 0)
-        rnn_all = tree_map(lambda a, b: torch.cat(
-            [a, b.expand(n_past, *b.shape[1:])], 0), rnn_t, rnn_p)
-    else:
-        logits_all, values_all, rnn_all = one(all_params)   # [P, N, ..]
+        return (dists.logits[0], critic_out["value"][..., 0][0],
+                tree_map(lambda x: x[0], new_rnn))
 
-    idx = assignments.to(torch.long)
-
-    def sel(arr):
-        """arr [P, ..., N, C] or [P, N]: each agent's policy's slice."""
-        n_axis = arr.dim() - 2 if arr.dim() >= 3 else 1
-        shape = [1] * arr.dim()
-        shape[n_axis] = -1
-        i = idx.reshape(shape).expand(1, *arr.shape[1:])
-        return torch.gather(arr, 0, i)[0]
-
-    return sel(logits_all), sel(values_all), tree_map(sel, rnn_all)
+    p = num_policies
+    with tracing.span("ensemble.route"):
+        plan = route_plan(assignments, p)
+        o = {k: v.index_select(0, plan.rows).unflatten(0, (p, plan.cap))
+             for k, v in obs.items()}
+        s = tree_map(lambda x: x.index_select(1, plan.rows).unflatten(
+            1, (p, plan.cap)).movedim(1, 0), rnn_states)   # [P, L, cap, C]
+    dists, critic_out, new = functional_call(
+        ac, dict(all_params), (s, o), {"per_policy": True}, strict=True)
+    with tracing.span("ensemble.route"):
+        back = plan.back
+        logits = dists.logits.flatten(0, 1).index_select(0, back)
+        values = critic_out["value"][..., 0].flatten().index_select(0, back)
+        new_rnn = tree_map(lambda x: x.movedim(0, 1).flatten(1, 2)
+                           .index_select(1, back), new)
+        if num_train is not None and 0 < num_train < p:
+            past = assignments >= num_train
+            values = values.masked_fill(past, 0.0)
+            new_rnn = tree_map(
+                lambda a, b: a if a is b else torch.where(past[:, None], b, a),
+                new_rnn, ac.actor_only_states(new_rnn, rnn_states))
+        return logits, values, new_rnn
 
 
 def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,

@@ -2,7 +2,7 @@
 fused physics + sweep, K4 megastep, K5 RGBD, K6 observation assembly,
 K7 level generation, and the threefry kernel of every random draw)
 against its plain PyTorch version on CUDA tensors, the packed env's main
-path through K1, K4, K6 and K7 (the classic env's resets through K7 too), the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's,
+path through K1, K4, K6 and K7 (the classic env's resets through K7 too), the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's and its routed forward against the naive one,
 the ``openai_hns`` policy's forward against its plain reference at 1,024
 3v3 worlds (K4 with the default force movement beside it), the inference
 loop through K4 and K1, and a PPO update at train.sh's
@@ -717,6 +717,75 @@ def test_ensemble_forward_matches_cpu(cuda):
     for a, b in zip([x for e in card[2] for x in e],
                     [x for e in cpu[2] for x in e]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("w,num_train", [(16384, None), (4096, 2)],
+                         ids=["serve_w16k", "train_w4k"])
+def test_routed_ensemble_matches_naive(cuda, w, num_train):
+    """The flagship's 4 policies on the packed env's 2v2 observations:
+    ``infer.py``'s round robin at 16,384 worlds (65,536 agents), and the
+    rollout's 2 + 2 split at 4,096 worlds (each world's train side one of
+    policies 0-1 by a fair coin, the other side one of 2-3, hiders or
+    seekers by a coin). The routed forward equals the naive one (every
+    policy on every agent, then the pick) within 1e-5 of its largest
+    magnitude, with one ``host_read.route`` a call, no more peak memory,
+    and at most 6 % of its rows padding."""
+    from marl_hideandseek_torch.testing import naive_ensemble
+    from marl_hideandseek_torch.train.rollout import ROUTE
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, pol, params, obs, stats = _policy_inputs(cuda, w)
+    n = obs["self_data"].shape[0]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rnn = tuple(tuple(0.5 * torch.randn(1, n, 256, generator=g, device=cuda)
+                      for _ in range(2)) for _ in range(2))
+    is_h = torch.arange(4, device=cuda) < 2
+    if num_train is None:
+        wi = torch.arange(w, device=cuda)
+        t0, t1 = wi % 4, (wi + 1 + wi // 4) % 4
+    else:
+        coin = lambda lo: lo + torch.randint(0, 2, (w,), generator=g,
+                                             device=cuda)
+        train, past = coin(0), coin(2)
+        flip = torch.randint(0, 2, (w,), generator=g, device=cuda).bool()
+        t0, t1 = torch.where(flip, train, past), torch.where(flip, past, train)
+    assign = torch.where(is_h, t0[:, None], t1[:, None]).reshape(-1).to(
+        torch.int32)
+    nobs = pol.obs_preprocess.normalize(stats, obs)
+    args = (pol, params, rnn, nobs, assign, 4, num_train)
+    peak = {}
+    with torch.no_grad():
+        for name, fn in (("naive", naive_ensemble),
+                         ("routed", apply_ensemble)):
+            fn(*args)                                    # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = ROUTE.read()
+            with tracing.recording() as rec:
+                out = fn(*args)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - base
+            reads = [s for s in rec.take().spans
+                     if s.name == "host_read.route"]
+            if name == "naive":
+                want = out
+                assert not reads
+            else:
+                got = out
+                calls, needed, run = (a - b for a, b in
+                                      zip(ROUTE.read(), before))
+                assert len(reads) == 1 and (calls, needed) == (1, n)
+                assert n <= run <= 1.06 * n
+    assert peak["routed"] <= peak["naive"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    assert rel(got[0], want[0]) <= 1e-5 and rel(got[1], want[1]) <= 1e-5
+    for a, b in zip([x for e in got[2] for x in e],
+                    [x for e in want[2] for x in e]):
+        assert rel(a, b) <= 1e-5
 
 
 def test_openai_hns_forward_matches_plain_reference(cuda):

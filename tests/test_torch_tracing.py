@@ -25,6 +25,7 @@ from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.infer import run_inference
 from marl_hideandseek_torch.train import cfg as tcfg
 from marl_hideandseek_torch.train import manager as tmanager
+from marl_hideandseek_torch.train.rollout import ROUTE
 from marl_hideandseek_torch.types import SweepResults
 from marl_hideandseek_torch.utils import tracing
 
@@ -163,6 +164,8 @@ def test_update_and_env_steps_give_the_span_tree(policy):
         ("update", None): 1,
         ("rollout", "update"): 1,
         ("rollout.forward", "rollout"): STEPS + 1,
+        # The routed ensemble: the plan and its gathers, the gather back.
+        ("ensemble.route", "rollout.forward"): 2 * (STEPS + 1),
         ("rollout.record", "rollout"): STEPS,
         ("rollout.buffer", "rollout"): 1,
         ("env.step", "rollout"): STEPS,
@@ -187,6 +190,7 @@ def test_update_and_env_steps_give_the_span_tree(policy):
     assert reads == collections.Counter({
         ("host_read.reset_trigger", "env.step"): STEPS,
         ("host_read.obs_consts", "env.observations"): 2 * STEPS,
+        ("host_read.route", "ensemble.route"): STEPS + 1,
         ("host_read.bin_centers", "rollout.forward"): STEPS + 1,
         ("host_read.bin_centers", "ppo.loss"): mb,
         ("host_read.key", "env.reset"): 1,
@@ -230,8 +234,8 @@ def test_update_and_env_steps_give_the_span_tree(policy):
 
 def test_openai_hns_attention_spans_nest_in_forward_and_loss():
     """The ``openai_hns`` policy's update: a ``model.attn`` span for each
-    attention block's forward, inside ``rollout.forward`` (the train
-    policies' actor and critic and the past policies' actor, each step)
+    attention block's forward, inside ``rollout.forward`` (the actor and
+    the critic, each over every policy's routed agents, each step)
     and ``ppo.loss`` (both encoders, each epoch); its visible-key tally
     moves on the device with no host read, and the update's reads are the
     flagship's less the Dreamer critic's bin centres."""
@@ -249,16 +253,19 @@ def test_openai_hns_attention_spans_nest_in_forward_and_loss():
     mgr = mgr.replace(state=mgr.state.replace(rollout=ro.replace(
         env_state=ro.env_state.replace(step=torch.full_like(
             ro.env_state.step, ENV.episode_len - 3)))))
+    routed = ROUTE.read()
     with tracing.recording() as rec:
         mgr.update_iter()
     phases, reads, _ = split(rec.take().spans)
+    _, needed, run = (a - b for a, b in zip(ROUTE.read(), routed))
     attn = {k: v for k, v in phases.items() if k[0] == "model.attn"}
-    assert attn == {("model.attn", "rollout.forward"): 3 * (STEPS + 1),
+    assert attn == {("model.attn", "rollout.forward"): 2 * (STEPS + 1),
                     ("model.attn", "ppo.loss"): 2 * EPOCHS}
     assert not any(parent == "model.attn" for _, parent in reads)
     assert reads == collections.Counter({
         ("host_read.reset_trigger", "env.step"): STEPS,
         ("host_read.obs_consts", "env.observations"): 2 * STEPS,
+        ("host_read.route", "ensemble.route"): STEPS + 1,
         ("host_read.key", "env.reset"): 1,
         ("host_read.levels", "env.levelgen"): 2,
         ("host_read.pbt_rank", "pbt"): 3,
@@ -267,11 +274,11 @@ def test_openai_hns_attention_spans_nest_in_forward_and_loss():
     tally = keys.sums
     assert tally.device.type == "cpu" and tally.dtype == torch.float64
     n = ENV.num_worlds * ENV.max_agents
-    # Each rollout forward: the train and the past policies' actors, every
-    # agent; each epoch: the two train policies' groups of n / 2 slots,
-    # every step.
-    assert float(tally[1]) == (2 * n * (STEPS + 1) +
-                               EPOCHS * 2 * (n // 2) * STEPS)
+    # Each rollout forward: the actor on every policy's routed rows (its
+    # agents and the padding up to the cap); each epoch: the two train
+    # policies' groups of n / 2 slots, every step.
+    assert needed == n * (STEPS + 1)
+    assert float(tally[1]) == run + EPOCHS * 2 * (n // 2) * STEPS
     assert 1.0 <= keys.read() <= 17.0
     assert pol.actor_critic.backbone.critic_encoder.net.visible_keys is None
 
