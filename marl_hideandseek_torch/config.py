@@ -57,6 +57,14 @@ INTERACT_RAY_LEN = 2.5
 OOB_LIMIT = 18.0
 OOB_PENALTY = 10.0
 
+# Each agent's rendered view when EnvConfig.render_frames is set: the
+# batch renderer's 64x64 RGBD (scripts/benchmark.py), fov 90 degrees,
+# depth scaled by its 200-unit range (ops/rgbd.py), under this key.
+FRAME_KEY = "rgbd"
+FRAME_SIZE = 64
+FRAME_FOV = 90.0
+FRAME_MAX_DEPTH = 200.0
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
@@ -87,6 +95,10 @@ class EnvConfig:
 
     # Contact restitution coefficient (0 = perfectly inelastic).
     restitution: float = 0.0
+
+    # Render every agent's view after each step and at init (K5's frames
+    # mode) into the observations, under FRAME_KEY: [W, A, 4, 64, 64].
+    render_frames: bool = False
 
     def __post_init__(self):
         max_agents = self.max_hiders + self.max_seekers

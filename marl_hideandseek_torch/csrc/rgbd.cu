@@ -46,6 +46,15 @@
 //    block stores it with consecutive threads on consecutive worlds, 32 B
 //    of a [A, H*W, W] row per 8 threads: whole sectors.
 //
+// The frames mode (rgbd_frames_kernel, mhs_rgbd_frames) renders the same
+// pixels and stores them as the policy reads them: [W, A, 4, H, W]
+// float32, channels R / 255, G / 255, B / 255 and depth / max_depth,
+// each an IEEE float32 division (0 for a miss's depth). Its store puts
+// consecutive threads on consecutive pixels of one world and channel: a
+// pass's 8 pixels of a row are 32 B of a channel plane per 8 threads.
+// The packed mode (rgbd_kernel, mhs_rgbd) is the same code with the
+// packed store.
+//
 // Culls, exact: they drop only tests whose t could not be <= max_depth
 // and win against the best hit so far. A primitive lies within its
 // bounding sphere (centre c, radius |h| for a box, an agent or a wall,
@@ -114,12 +123,13 @@ struct RgbdArgs {
   const int* wall_bound;  // [1] batch-max active wall count
   unsigned int* rgba_out;  // [A, H*W, W]: R | G << 8 | B << 16 | 0xFF << 24
   float* depth_out;        // [A, H*W, W]
+  float* frames_out;       // frames mode: [W, A, 4, H, W]
   int W, img_h, img_w, n_body, ramp_lo, ramp_hi, agent_lo, n_agents, n_wall,
       n_plane;
   // tan(fov / 2) * aspect, tan(fov / 2), max depth (float32 values)
   float ha, half, max_depth;
 };
-constexpr int N_PTRS = 15;
+constexpr int N_PTRS = 16;
 constexpr int N_INTS = 10;
 constexpr int N_FLOATS = 3;
 
@@ -581,7 +591,8 @@ MHS_DEV void render_pass(const RgbdArgs& A, const Prims& w, const View& v,
 }
 
 // The whole of one block: worlds w0 .. w0 + nw - 1 for agent a, in
-// shared memory S.
+// shared memory S; FRAMES picks the store.
+template <bool FRAMES>
 MHS_DEV void rgbd_block(const RgbdArgs& A, Shared& S, int w0, int nw, int a) {
   const WorldBlock<Prims> K{S.w, A.W, w0, nw};
   const int n_wb = *A.wall_bound;
@@ -622,16 +633,35 @@ MHS_DEV void rgbd_block(const RgbdArgs& A, Shared& S, int w0, int nw, int a) {
       render_pass(A, S.w[wi], v, cd, c, row0, col0, wi, S.pix[wi], T);
     });
     block_sync();
-    // Item i: world i % 8 of pixel i / 8, both outputs.
-    block_items(PASS * WORLDS_PER_BLOCK, [&](int i) {
-      const int wi = i % WORLDS_PER_BLOCK, px = i / WORLDS_PER_BLOCK;
-      const Pix pq = pass_pixel(row0, col0, px);
-      if (wi >= nw || pq.row >= A.img_h || pq.col >= A.img_w) return;
-      const long long at = (static_cast<long long>(a) * n_pix +
-                            pq.row * A.img_w + pq.col) * Wl + w0 + wi;
-      A.rgba_out[at] = T.rgba[px][wi];
-      A.depth_out[at] = T.depth[px][wi];
-    });
+    if constexpr (FRAMES) {
+      // Item i: pixel i % PASS of world i / PASS, its four channels.
+      block_items(PASS * WORLDS_PER_BLOCK, [&](int i) {
+        const int wi = i / PASS, px = i % PASS;
+        const Pix pq = pass_pixel(row0, col0, px);
+        if (wi >= nw || pq.row >= A.img_h || pq.col >= A.img_w) return;
+        const long long at =
+            (static_cast<long long>(w0 + wi) * A.n_agents + a) * 4 * n_pix +
+            pq.row * A.img_w + pq.col;
+        const unsigned int c = T.rgba[px][wi];
+        A.frames_out[at] = static_cast<float>(c & 0xFFu) / 255.0f;
+        A.frames_out[at + n_pix] =
+            static_cast<float>((c >> 8) & 0xFFu) / 255.0f;
+        A.frames_out[at + 2 * n_pix] =
+            static_cast<float>((c >> 16) & 0xFFu) / 255.0f;
+        A.frames_out[at + 3 * n_pix] = T.depth[px][wi] / A.max_depth;
+      });
+    } else {
+      // Item i: world i % 8 of pixel i / 8, both outputs.
+      block_items(PASS * WORLDS_PER_BLOCK, [&](int i) {
+        const int wi = i % WORLDS_PER_BLOCK, px = i / WORLDS_PER_BLOCK;
+        const Pix pq = pass_pixel(row0, col0, px);
+        if (wi >= nw || pq.row >= A.img_h || pq.col >= A.img_w) return;
+        const long long at = (static_cast<long long>(a) * n_pix +
+                              pq.row * A.img_w + pq.col) * Wl + w0 + wi;
+        A.rgba_out[at] = T.rgba[px][wi];
+        A.depth_out[at] = T.depth[px][wi];
+      });
+    }
     block_sync();
   }
 }
@@ -643,8 +673,20 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 3)
   extern __shared__ __align__(16) unsigned char smem[];
   const int w0 = blockIdx.x * WORLDS_PER_BLOCK;
   const int left = A.W - w0;
-  rgbd_block(A, *reinterpret_cast<Shared*>(smem), w0,
-             left < WORLDS_PER_BLOCK ? left : WORLDS_PER_BLOCK, blockIdx.y);
+  rgbd_block<false>(A, *reinterpret_cast<Shared*>(smem), w0,
+                    left < WORLDS_PER_BLOCK ? left : WORLDS_PER_BLOCK,
+                    blockIdx.y);
+}
+
+// The frames mode: the same blocks, the policy's layout stored.
+__global__ void __launch_bounds__(BLOCK_THREADS, 3)
+    rgbd_frames_kernel(const RgbdArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w0 = blockIdx.x * WORLDS_PER_BLOCK;
+  const int left = A.W - w0;
+  rgbd_block<true>(A, *reinterpret_cast<Shared*>(smem), w0,
+                   left < WORLDS_PER_BLOCK ? left : WORLDS_PER_BLOCK,
+                   blockIdx.y);
 }
 #endif
 
@@ -680,20 +722,32 @@ constexpr int SMEM_BYTES = static_cast<int>(sizeof(Shared));
 }  // namespace
 
 #ifdef MHS_HOST_BUILD
-// Host rehearsal entry: the same block code, the blocks one after
+// Host rehearsal entries: the same block code, the blocks one after
 // another.
-extern "C" int mhs_rgbd_host(void* const* ptrs, int n_ptrs, const int* ip,
-                             int n_i, const float* fp, int n_f) {
+template <bool FRAMES>
+int host_render(void* const* ptrs, int n_ptrs, const int* ip, int n_i,
+                const float* fp, int n_f) {
   RgbdArgs a;
   if (!fill_args(&a, ptrs, n_ptrs, ip, n_i, fp, n_f)) return 1;
   Shared* s = new Shared;
   for (int ag = 0; ag < a.n_agents; ++ag)
     for (int w0 = 0; w0 < a.W; w0 += WORLDS_PER_BLOCK)
-      rgbd_block(a, *s, w0,
-                 a.W - w0 < WORLDS_PER_BLOCK ? a.W - w0 : WORLDS_PER_BLOCK,
-                 ag);
+      rgbd_block<FRAMES>(
+          a, *s, w0,
+          a.W - w0 < WORLDS_PER_BLOCK ? a.W - w0 : WORLDS_PER_BLOCK, ag);
   delete s;
   return 0;
+}
+
+extern "C" int mhs_rgbd_host(void* const* ptrs, int n_ptrs, const int* ip,
+                             int n_i, const float* fp, int n_f) {
+  return host_render<false>(ptrs, n_ptrs, ip, n_i, fp, n_f);
+}
+
+extern "C" int mhs_rgbd_frames_host(void* const* ptrs, int n_ptrs,
+                                    const int* ip, int n_i, const float* fp,
+                                    int n_f) {
+  return host_render<true>(ptrs, n_ptrs, ip, n_i, fp, n_f);
 }
 
 // Host rehearsal only: out[0] primitives left out of a (world, agent)
@@ -720,6 +774,24 @@ extern "C" int mhs_rgbd(void* const* ptrs, int n_ptrs, const int* ip, int n_i,
   dim3 grid((a.W + WORLDS_PER_BLOCK - 1) / WORLDS_PER_BLOCK, a.n_agents);
   rgbd_kernel<<<grid, BLOCK_THREADS, SMEM_BYTES,
                 static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The frames mode's launch: the packed mode's grid and shared memory.
+extern "C" int mhs_rgbd_frames(void* const* ptrs, int n_ptrs, const int* ip,
+                               int n_i, const float* fp, int n_f,
+                               void* stream) {
+  RgbdArgs a;
+  if (!fill_args(&a, ptrs, n_ptrs, ip, n_i, fp, n_f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.W <= 0) return 0;
+  const int attr = static_cast<int>(cudaFuncSetAttribute(
+      rgbd_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES));
+  if (attr != 0) return attr;
+  dim3 grid((a.W + WORLDS_PER_BLOCK - 1) / WORLDS_PER_BLOCK, a.n_agents);
+  rgbd_frames_kernel<<<grid, BLOCK_THREADS, SMEM_BYTES,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,10 @@ consecutive worlds read coalesced addresses. A step is:
    are regenerated - all worlds at once (full branch) or, when at most
    ``reset_budget`` trigger, only those (compact branch) - and re-swept
    with the raycast kernel (``ops/rays.py``);
-3. observation assembly with flattened feature dims.
+3. observation assembly with flattened feature dims;
+4. with ``cfg.render_frames``, every agent's 64x64 RGBD view (K5's
+   frames mode, ``ops/rgbd.py``) into a buffer allocated once, as the
+   observation ``FRAME_KEY``.
 
 This is the port's one environment core: the classic env
 (``env/env.py``) runs it too, overriding only the megastep
@@ -36,6 +39,10 @@ import torch
 
 from marl_hideandseek_torch import math3d, prng
 from marl_hideandseek_torch.config import (
+    FRAME_FOV,
+    FRAME_KEY,
+    FRAME_MAX_DEPTH,
+    FRAME_SIZE,
     NUM_PREP_STEPS,
     OOB_LIMIT,
     OOB_PENALTY,
@@ -50,6 +57,7 @@ from marl_hideandseek_torch.env.episode import (
 )
 from marl_hideandseek_torch.env.observations import build_observations_packed
 from marl_hideandseek_torch.ops import rays as ops_rays
+from marl_hideandseek_torch.ops import rgbd as ops_rgbd
 from marl_hideandseek_torch.ops import step as ops_step
 from marl_hideandseek_torch.types import (
     AGENT_HIDER,
@@ -300,6 +308,11 @@ class PackedEnv:
     replaces the world generator (see ``WorldGen``); the default is
     JAX's: each episode's draws keyed by (base key, world id, episode
     counter) and each level drawn from its level key.
+
+    With ``cfg.render_frames`` the observations hold ``FRAME_KEY``, the
+    env's one frame buffer: the next ``step`` or ``init`` renders over
+    it, so a caller that keeps a step's frames copies them (the rollout
+    writes each step's into its buffer).
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda",
@@ -314,6 +327,7 @@ class PackedEnv:
         self.worldgen = worldgen or levelgen_worldgen(cfg)
         # Reset branches taken by step(), for runs that must show them.
         self.reset_counts = {"full": 0, "compact": 0}
+        self._frames: Optional[torch.Tensor] = None
 
     # -- construction -------------------------------------------------------
 
@@ -449,6 +463,18 @@ class PackedEnv:
                                    zip(sweep, sub_sweep)))
         return new_p, new_sweep
 
+    def _render_frames(self, ps: EnvState) -> torch.Tensor:
+        """Every agent's view of ``ps`` into the frame buffer, allocated
+        at the first render (and again only if the world count
+        changes)."""
+        w = ps.step.shape[0]
+        if self._frames is None or self._frames.shape[0] != w:
+            self._frames = ops_rgbd.frames_buffer(
+                self.cfg, w, FRAME_SIZE, FRAME_SIZE, self.device)
+        return ops_rgbd.render_rgbd_frames(
+            self.cfg, ps, FRAME_SIZE, FRAME_SIZE, FRAME_FOV, FRAME_MAX_DEPTH,
+            out=self._frames)
+
     def _result(self, ps, sweep: SweepResults, rewards, dones,
                 team_r=None) -> PackedStepResult:
         cfg = self.cfg
@@ -457,6 +483,8 @@ class PackedEnv:
         with tracing.span("env.observations"):
             obs = build_observations_packed(cfg, ps, sweep.vis_seen,
                                             sweep.lidar)
+        if cfg.render_frames:
+            obs[FRAME_KEY] = self._render_frames(ps)
         if rewards is None:
             rewards = torch.zeros((cfg.max_agents, w), device=dev)
         if dones is None:

@@ -5,7 +5,8 @@ env (port of scripts/infer.py).
         [--num-worlds 16] [--num-steps 3600] [--num-hiders 3]
         [--num-seekers 3] [--record-log PATH] [--deterministic]
         [--single-policy K] [--train-only] [--bf16] [--print-obs]
-        [--backbone pooled] [--device cuda|cpu]
+        [--backbone pooled|attention|hash|openai_hns|impala_cnn]
+        [--device cuda|cpu]
 
 Loads a checkpoint written by ``bridge.save_policy_checkpoint`` (any
 ensemble size; a JAX orbax checkpoint converts to one, README.md), runs
@@ -18,7 +19,9 @@ checkpoint record of the state after step ``i``
 (``env/checkpoint.py::record_frame``), which ``replay`` and ``replay3d``
 render. infer.sh's arguments run as written. ``--backbone`` names the
 checkpoint's policy; ``openai_hns`` acts with the env's force-based
-movement (``UseFixedWorld`` alone).
+movement (``UseFixedWorld`` alone); ``impala_cnn`` acts from each agent's
+64x64 RGBD view, which the env renders every step
+(``EnvConfig.render_frames``), with its previous action and reward.
 """
 
 from __future__ import annotations
@@ -43,7 +46,11 @@ from marl_hideandseek_torch.policy import (
 )
 from marl_hideandseek_torch.train.elo import print_elos
 from marl_hideandseek_torch.train.evaluate import eval_load_ckpt
-from marl_hideandseek_torch.train.rollout import apply_ensemble
+from marl_hideandseek_torch.train.rollout import (
+    apply_ensemble,
+    core_inputs,
+    initial_core_inputs,
+)
 from marl_hideandseek_torch.types import AGENT_HIDER, EnvState
 from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.utils.ckptlog import CkptLogWriter
@@ -61,7 +68,9 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
     them). Matchups are round robin over the policy axis and
     keyed by team membership at each step: a world's hiders play
     ``t0``, its seekers ``t1``. Recurrent state is cleared for agents
-    whose episode ended.
+    whose episode ended. A policy with ``core_inputs`` gets each step's
+    actions and rewards as the next step's observations
+    (``train/rollout.py::core_inputs``).
 
     ``iter_cb(step_data)`` gets, per step: the forward's inputs (``obs``,
     prepped but not normalized, ``rnn``, ``assignments``), its outputs
@@ -99,6 +108,8 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
         key = prng.key(7, dev)
         env_state, result = env.init(prng.key(7, dev))
         obs = flat(result.obs)
+        if policy.core_inputs:
+            obs.update(initial_core_inputs(n, buckets, dev))
         rnn = ac.init_recurrent_state(n, dev)
         for i in range(num_steps):
             with tracing.span("serve.forward"):
@@ -130,6 +141,9 @@ def run_inference(env: PackedEnv, policy: Policy, params, obs_stats,
             if state_cb is not None:
                 state_cb(i, env_state)
             obs, rnn = flat(result.obs), rnn_next
+            if policy.core_inputs:
+                obs.update(core_inputs(actions, result.rewards.T.reshape(-1),
+                                       dones, buckets))
         with tracing.span("host_read.episodes_finished"):
             out = {"wins": wins, "episodes_finished": int(finished)}
     if timing:
@@ -194,9 +208,11 @@ def parse_args(argv=None):
 def infer_config(args) -> EnvConfig:
     """The env configuration of ``main``'s arguments: a fixed world,
     ``UseFixedWorld | ZeroAgentVelocity`` (``UseFixedWorld`` alone for
-    ``--backbone openai_hns``, whose actions are forces), seed 5."""
+    ``--backbone openai_hns``, whose actions are forces), seed 5; frames
+    rendered for ``--backbone impala_cnn``."""
+    recipe = backbone_recipe(args.backbone)
     flags = SimFlags.UseFixedWorld
-    if backbone_recipe(args.backbone).instant_velocity:
+    if recipe.instant_velocity:
         flags |= SimFlags.ZeroAgentVelocity
     return EnvConfig(
         num_worlds=args.num_worlds,
@@ -204,11 +220,15 @@ def infer_config(args) -> EnvConfig:
         min_seekers=args.num_seekers, max_seekers=args.num_seekers,
         sim_flags=flags,
         rand_seed=5,
+        render_frames=recipe.frames,
     )
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # float32 computes in float32: cuBLAS's products do by default, but
+    # PyTorch lets cuDNN's convolutions (the impala_cnn torso) use TF32.
+    torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     cfg = infer_config(args)
     env = PackedEnv(cfg, device=args.device)

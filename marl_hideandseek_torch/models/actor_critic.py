@@ -230,9 +230,14 @@ class ActorCritic(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    """Actor-critic module + observation preprocessing."""
+    """Actor-critic module + observation preprocessing. ``core_inputs``:
+    the policy reads the previous action and reward (IMPALA's core
+    input), which the rollout and the inference loop then carry as the
+    observations ``prev_action`` and ``prev_reward``
+    (``train/rollout.py::core_inputs``)."""
 
     actor_critic: ActorCritic
     obs_preprocess: Optional[ObservationsEMANormalizer] = None
     get_episode_scores: Callable[[Any], Any] = lambda episode_result: \
         episode_result
+    core_inputs: bool = False

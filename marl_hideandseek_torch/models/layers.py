@@ -449,6 +449,90 @@ class CircularConv1d(Dense):
         return super().forward(windows.transpose(-1, -2))
 
 
+def conv_orthogonal(scale: float = 2.0 ** 0.5) -> Init:
+    """``orthogonal(scale)`` over a convolution kernel's fan-in matrix
+    ``[C_in * k * k, C_out]`` (the input channel, then the row and column
+    of the window), stored as PyTorch's ``[C_out, C_in, k, k]``."""
+
+    def init(keys: torch.Tensor, shape) -> torch.Tensor:
+        n_in = math.prod(shape[1:])
+        q = orthogonal(scale)(keys, (n_in, shape[0]))
+        return q.transpose(1, 2).reshape(keys.shape[0], *shape)
+
+    return init
+
+
+class Conv2d(Stacked):
+    """A k x k convolution with stride 1 and SAME padding (k // 2 on every
+    side) over a policy axis: kernel ``[P, C_out, C_in, k, k]``, bias
+    ``[P, C_out]``. ``forward(x, p)`` runs policy ``p``'s on x ``[B, C_in,
+    H, W]`` (one policy's frames, contiguous): the caller loops over the
+    policies, so each convolution is one cuDNN call on a whole policy's
+    batch, with no transpose into a grouped layout."""
+
+    def __init__(self, num_policies: int, in_channels: int,
+                 out_channels: int, size: int = 3, dtype=torch.float32,
+                 device=None):
+        super().__init__(num_policies, device)
+        self.dtype = dtype
+        self.size = size
+        self.add("kernel", (out_channels, in_channels, size, size),
+                 conv_orthogonal())
+        self.add("bias", (out_channels,), zeros)
+
+    def forward(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.kernel[p].to(self.dtype),
+                        self.bias[p].to(self.dtype), padding=self.size // 2)
+
+
+def max_pool_same(x: torch.Tensor) -> torch.Tensor:
+    """TensorFlow's SAME 3 x 3 max pool with stride 2 on an even H and W:
+    window i covers rows (and columns) 2i .. 2i + 2, so the one padded row
+    or column, -inf, lies at the end. PyTorch's ``ceil_mode`` windows
+    without padding are those (the last one stops at the edge); its
+    ``padding=1`` would pad both ends and shift every window by one."""
+    return F.max_pool2d(x, 3, 2, ceil_mode=True)
+
+
+class ConvResidualBlock(nn.Module):
+    """IMPALA's residual block (Espeholt et al. 2018, Figure 3):
+    ``x + Conv2d_1(relu(Conv2d_0(relu(x))))``, channels unchanged."""
+
+    def __init__(self, num_policies: int, channels: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.Conv2d_0 = Conv2d(num_policies, channels, channels, dtype=dtype,
+                               device=device)
+        self.Conv2d_1 = Conv2d(num_policies, channels, channels, dtype=dtype,
+                               device=device)
+
+    def forward(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        y = self.Conv2d_0(torch.relu(x), p)
+        return x + self.Conv2d_1(torch.relu(y), p)
+
+
+class ConvSection(nn.Module):
+    """One section of IMPALA's deep torso: a 3 x 3 convolution to
+    ``channels``, the SAME max pool (``max_pool_same``), then ``blocks``
+    residual blocks."""
+
+    def __init__(self, num_policies: int, in_channels: int, channels: int,
+                 blocks: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.blocks = blocks
+        self.Conv2d_0 = Conv2d(num_policies, in_channels, channels,
+                               dtype=dtype, device=device)
+        for i in range(blocks):
+            setattr(self, f"ConvResidualBlock_{i}", ConvResidualBlock(
+                num_policies, channels, dtype, device))
+
+    def forward(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        x = max_pool_same(self.Conv2d_0(x, p))
+        for i in range(self.blocks):
+            x = getattr(self, f"ConvResidualBlock_{i}")(x, p)
+        return x
+
+
 @dataclasses.dataclass(frozen=True)
 class DiscreteActionDistributions:
     """Factored categorical distribution over independent action dims

@@ -9,6 +9,11 @@ outputs into the reference's ``[W, A, H, W, 4]`` u8 / ``[W, A, H, W, 1]``
 f32 tensors. Replaces ``marl_hideandseek_tpu/ops/pallas_rgbd.py::
 render_rgbd_packed_fast`` (``_rgbd_pallas``), ``unpack_rgba`` and
 ``to_reference_layout``.
+
+``render_rgbd_frames`` is K5's frames mode (``rgbd_frames_kernel``): the
+same pixels stored as the policy reads them, ``[W, A, 4, H, W]`` float32
+(RGB / 255, depth / max_depth), in one launch; on the CPU, the plain
+renderer's output through ``to_frames``, which defines the values.
 """
 
 from __future__ import annotations
@@ -31,6 +36,18 @@ from marl_hideandseek_torch.utils import tracing
 from marl_hideandseek_torch.viz import rgbd as plain_rgbd
 
 RGBD = CudaKernel("rgbd", "mhs_rgbd", ARRAY_ENTRY)
+RGBD_FRAMES = CudaKernel("rgbd", "mhs_rgbd_frames", ARRAY_ENTRY)
+
+
+class FrameCount:
+    """Frames (world x agent views) that ``render_rgbd_frames`` rendered,
+    on any device: a host count, read without waiting for the card."""
+
+    def __init__(self):
+        self.frames = 0
+
+
+FRAMES = FrameCount()
 
 
 def pack_rgba(rgba: torch.Tensor) -> torch.Tensor:
@@ -57,6 +74,60 @@ def to_reference_layout(cfg: EnvConfig, packed: torch.Tensor,
         -1, n_a, img_h, img_w, 4)
     d = torch.movedim(depth, 2, 0).reshape(-1, n_a, img_h, img_w, 1)
     return rgb, d
+
+
+def to_frames(rgb: torch.Tensor, depth: torch.Tensor,
+              max_depth: float = 200.0) -> torch.Tensor:
+    """Reference-layout images (rgb ``[W, A, H, W, 4]`` u8, depth ``[W,
+    A, H, W, 1]`` f32) -> frames ``[W, A, 4, H, W]`` f32: R, G, B over 255
+    and depth over ``max_depth``, each the float32 quotient correctly
+    rounded (taken in float64, which rounds it exactly once more), as the
+    frames mode divides."""
+    chans = torch.cat([rgb[..., :3].to(torch.float64) / 255.0,
+                       depth.to(torch.float64) / as_f32(max_depth)], -1)
+    return chans.to(torch.float32).permute(0, 1, 4, 2, 3).contiguous()
+
+
+def frames_from_packed(cfg: EnvConfig, packed: torch.Tensor,
+                       depth: torch.Tensor, img_h: int = 64, img_w: int = 64,
+                       max_depth: float = 200.0) -> torch.Tensor:
+    """The packed mode's outputs as frames: what the frames mode stores
+    for the same render, bit for bit."""
+    return to_frames(*to_reference_layout(cfg, packed, depth, img_h, img_w),
+                     max_depth)
+
+
+def frames_buffer(cfg: EnvConfig, w: int, img_h: int = 64, img_w: int = 64,
+                  device="cuda") -> torch.Tensor:
+    """The output of one frames-mode render, ``[W, A, 4, H, W]`` f32."""
+    return torch.empty((w, cfg.max_agents, 4, img_h, img_w),
+                       dtype=torch.float32, device=device)
+
+
+def render_rgbd_frames(cfg: EnvConfig, ps: EnvState, img_h: int = 64,
+                       img_w: int = 64, fov_deg: float = 90.0,
+                       max_depth: float = 200.0,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every agent's RGBD view of packed ``ps`` as policy frames ``[W, A,
+    4, H, W]`` f32 (``to_frames``'s values), written into ``out`` (from
+    ``frames_buffer``) if given. CUDA tensors take K5's frames mode, one
+    launch; CPU tensors the plain renderer."""
+    with tracing.span("rgbd.render"):
+        w = ps.step.shape[-1]
+        FRAMES.frames += w * cfg.max_agents
+        if ps.step.device.type == "cpu":
+            rgb, depth = plain_rgbd.render_rgbd_packed(cfg, ps, img_h, img_w,
+                                                       fov_deg, max_depth)
+            frames = to_frames(rgb, depth, max_depth)
+            if out is None:
+                return frames
+            return out.copy_(frames)
+        out = out if out is not None else frames_buffer(
+            cfg, w, img_h, img_w, ps.step.device)
+        ptrs, iparams, fparams, _, _keep = rgbd_args(
+            cfg, ps, img_h, img_w, fov_deg, max_depth, frames=out)
+        launch_arrays(RGBD_FRAMES, ptrs, iparams, fparams, ps.step.device)
+        return out
 
 
 def rgbd_buffers(cfg: EnvConfig, w: int, img_h: int = 64, img_w: int = 64,
@@ -106,10 +177,12 @@ def _render(cfg, ps, img_h, img_w, fov_deg, max_depth, out):
 
 
 def rgbd_args(cfg: EnvConfig, ps: EnvState, img_h: int, img_w: int,
-              fov_deg: float, max_depth: float, out=None):
+              fov_deg: float, max_depth: float, out=None, frames=None):
     """Checked pointers, outputs and scalar parameters of one K5 launch:
-    (ptrs, iparams, fparams, (rgba, depth), keepalive). The pointer order
-    is RgbdArgs' in csrc/rgbd.cu."""
+    (ptrs, iparams, fparams, outputs, keepalive). The pointer order is
+    RgbdArgs' in csrc/rgbd.cu. The packed mode's outputs are (rgba,
+    depth); with ``frames`` (``frames_buffer``'s layout) the frames
+    mode's, ``(frames,)``, and the packed outputs' pointers are null."""
     w = ps.step.shape[-1]
     dev = ps.step.device
     n_body, n_a = cfg.num_dyn_bodies, cfg.max_agents
@@ -118,8 +191,17 @@ def rgbd_args(cfg: EnvConfig, ps: EnvState, img_h: int, img_w: int,
     n_wall = s.wall_active.shape[0]
     n_plane = s.plane_active.shape[0]
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
-    rgba, depth = out if out is not None else rgbd_buffers(
-        cfg, w, img_h, img_w, dev)
+    if frames is None:
+        rgba, depth = out if out is not None else rgbd_buffers(
+            cfg, w, img_h, img_w, dev)
+        outs = [check(rgba.view(i32), "rgba", (n_a, img_h * img_w, w), i32,
+                      dev),
+                check(depth, "depth", (n_a, img_h * img_w, w), f32, dev), 0]
+        outputs = (rgba, depth)
+    else:
+        outs = [0, 0, check(frames, "frames", (w, n_a, 4, img_h, img_w), f32,
+                            dev)]
+        outputs = (frames,)
     bound = wall_bound(s.wall_active)
     ptrs = [
         check(b.pos, "pos", (n_body, 3, w), f32, dev),
@@ -136,11 +218,10 @@ def rgbd_args(cfg: EnvConfig, ps: EnvState, img_h: int, img_w: int,
         check(s.plane_active.view(u8), "plane_active", (n_plane, w), u8,
               dev),
         bound.data_ptr(),
-        check(rgba.view(i32), "rgba", (n_a, img_h * img_w, w), i32, dev),
-        check(depth, "depth", (n_a, img_h * img_w, w), f32, dev),
+        *outs,
     ]
     ha, half = plain_rgbd.camera_params(img_h, img_w, fov_deg)
     iparams = [w, img_h, img_w, n_body, ramp_lo, ramp_hi, agent_lo, n_a,
                n_wall, n_plane]
     fparams = [ha, half, as_f32(max_depth)]
-    return ptrs, iparams, fparams, (rgba, depth), bound
+    return ptrs, iparams, fparams, outputs, bound

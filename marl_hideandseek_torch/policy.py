@@ -17,6 +17,13 @@ mean pooling, then the LSTM, with the env's force-based movement
 to what the agent sees; its critic, with parameters of its own, to every
 entity that exists (``OpenAIHnsNet``).
 
+``backbone="impala_cnn"`` (the port's own) trains from pixels: the deep
+residual torso of Espeholt et al., *IMPALA* (2018, Figure 3, right) over
+each agent's rendered 64x64 RGBD (``EnvConfig.render_frames``), one
+encoder shared by actor and critic, whose core input joins the previous
+action and reward and the agent's own observation (``ImpalaCnnNet``),
+with the flagship's action buckets and a plain value head.
+
 Every module holds ``num_policies`` policies stacked on a leading axis
 (``models/layers.py``); ``make_policy`` draws them as flax's ``init``
 does from one key per policy, or leaves them for
@@ -32,11 +39,12 @@ import torch
 from torch import nn
 
 from marl_hideandseek_torch import prng
-from marl_hideandseek_torch.config import NUM_LIDAR_SAMPLES
+from marl_hideandseek_torch.config import FRAME_KEY, NUM_LIDAR_SAMPLES
 from marl_hideandseek_torch.models import (
     MLP,
     ActorCritic,
     BackboneSeparate,
+    BackboneShared,
     DenseLayerDiscreteActor,
     DreamerV3Critic,
     EntitySelfAttentionNet,
@@ -47,6 +55,7 @@ from marl_hideandseek_torch.models import (
 )
 from marl_hideandseek_torch.models.layers import (
     CircularConv1d,
+    ConvSection,
     Dense,
     DenseLayerCritic,
     EmbedBlock,
@@ -58,12 +67,13 @@ from marl_hideandseek_torch.models.layers import (
     normal,
 )
 from marl_hideandseek_torch.models.rnn import LSTM
+from marl_hideandseek_torch.utils import tracing
 
 DEFAULT_ACTION_BUCKETS = (5, 5, 5, 2, 2)  # reference: jax_train.py:147
 # The env's default movement (env/packed.py DEFAULT_BUCKETS): 11 force
 # buckets on x and y, 11 torque buckets on z, then grab and lock.
 FORCE_ACTION_BUCKETS = (11, 11, 11, 2, 2)
-BACKBONES = ("pooled", "attention", "hash", "openai_hns")
+BACKBONES = ("pooled", "attention", "hash", "openai_hns", "impala_cnn")
 
 # Features per entity of the observations (env/observations.py): the self
 # vector is prep_counter 1 + self_data 13 + self_type 1 + self_lidar 30;
@@ -282,24 +292,93 @@ class OpenAIHnsNet(nn.Module):
         return self.LayerNorm_0(torch.relu(self.Dense_0(pooled)))
 
 
+class ImpalaCnnNet(nn.Module):
+    """IMPALA's deep network (Espeholt et al. 2018, Figure 3, right; the
+    code's ``experiment.py``, ``Agent._torso``) on each agent's frame
+    ``FRAME_KEY`` ``[.., 4, 64, 64]`` (RGB / 255, depth / 200):
+
+    - the torso: three sections (``ConvSection``) of 16, 32 and 32
+      channels, each a 3 x 3 convolution, the SAME 3 x 3 max pool with
+      stride 2 and two residual blocks; ReLU, flatten (32 x 8 x 8 =
+      2,048, channel-major), Dense 256 and ReLU. Each call is the span
+      ``model.torso``, and adds the frames it ran to ``torso_frames``;
+    - the core input: the torso's output, the previous reward clipped to
+      [-1, 1] (``prev_reward``), one one-hot a bucket of the previous
+      action (``prev_action``) and, in the slot of IMPALA's instruction,
+      the agent's own observation (``split_obs``'s self group): 256 + 1
+      + sum(buckets) + 45 features.
+
+    Each policy runs its own frames through the whole torso (a loop over
+    the policy axis); their flattened outputs meet again in one batched
+    Dense."""
+
+    SECTIONS = ((16, 2), (32, 2), (32, 2))
+    OUT = 256
+
+    def __init__(self, num_policies: int, buckets: Sequence[int],
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        in_ch = 4
+        for i, (ch, blocks) in enumerate(self.SECTIONS):
+            setattr(self, f"ConvSection_{i}", ConvSection(
+                num_policies, in_ch, ch, blocks, dtype, device))
+            in_ch = ch
+        self.Dense_0 = Dense(num_policies, in_ch * 8 * 8, self.OUT,
+                             dtype=dtype, device=device)
+        self.num_channels = (self.OUT + 1 + sum(buckets) +
+                             ENTITY_FEATURES["self"])
+        self.torso_frames = 0
+
+    def torso(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames ``[P|1, .., 4, H, W]`` -> ``[P, .., 256]``."""
+        with tracing.span("model.torso"):
+            p = self.Dense_0.kernel.shape[0]
+            lead = frames.shape[1:-3]
+            flat = []
+            for i in range(p):
+                x = frames[i if frames.shape[0] > 1 else 0]
+                x = x.reshape(-1, *frames.shape[-3:])
+                for k in range(len(self.SECTIONS)):
+                    x = getattr(self, f"ConvSection_{k}")(x, i)
+                flat.append(torch.relu(x).flatten(1))
+                self.torso_frames += x.shape[0]
+            out = torch.relu(self.Dense_0(torch.stack(flat)))
+            return out.reshape(p, *lead, self.OUT)
+
+    def forward(self, obs, train: bool = False):
+        feat = self.torso(obs[FRAME_KEY])
+        own = torch.cat([obs["prev_reward"], obs["prev_action"],
+                         obs["prep_counter"], obs["self_data"],
+                         obs["self_type"], obs["self_lidar"]], -1)
+        own = own.to(feat.dtype).expand(feat.shape[0], *own.shape[1:])
+        return torch.cat([feat, own], -1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Recipe:
     """What a backbone brings beside its encoder: its action heads, its
     critic (the Dreamer-V3 critic, or a plain value head on EMA-normalized
-    returns: ``TrainConfig.dreamer_v3_critic``), and the env's movement
-    (``SimFlags.ZeroAgentVelocity``'s instant velocities, or forces)."""
+    returns: ``TrainConfig.dreamer_v3_critic``), the env's movement
+    (``SimFlags.ZeroAgentVelocity``'s instant velocities, or forces), and
+    whether the env renders each agent's view into the observations
+    (``EnvConfig.render_frames``)."""
 
     action_buckets: Tuple[int, ...] = DEFAULT_ACTION_BUCKETS
     dreamer_critic: bool = True
     instant_velocity: bool = True
+    frames: bool = False
 
 
 def backbone_recipe(backbone: str) -> Recipe:
     """train.sh's recipe for the upstream backbones; Baker et al.'s force
-    movement and plain value head for ``openai_hns``."""
+    movement and plain value head for ``openai_hns``; for
+    ``impala_cnn`` the flagship's movement and buckets, a plain value
+    head and rendered frames."""
     if backbone == "openai_hns":
         return Recipe(FORCE_ACTION_BUCKETS, dreamer_critic=False,
                       instant_velocity=False)
+    if backbone == "impala_cnn":
+        return Recipe(dreamer_critic=False, frames=True)
     return Recipe()
 
 
@@ -320,7 +399,9 @@ def make_policy(dtype=torch.float32,
         action_buckets = recipe.action_buckets
 
     def encoder(view):
-        if backbone == "pooled":
+        if backbone == "impala_cnn":
+            net = ImpalaCnnNet(p, action_buckets, dtype, device=device)
+        elif backbone == "pooled":
             net = PooledEntityNet(p, dtype, device=device)
         elif backbone == "attention":
             net = AttentionEntityNet(p, dtype, device=device)
@@ -338,10 +419,14 @@ def make_policy(dtype=torch.float32,
         critic = DreamerV3Critic(p, num_rnn_channels, dtype, device=device)
     else:
         critic = DenseLayerCritic(p, num_rnn_channels, dtype, device=device)
+    if backbone == "impala_cnn":
+        # One torso and LSTM for both heads, as IMPALA shares them.
+        body = BackboneShared(prefix=None, encoder=encoder("shared"))
+    else:
+        body = BackboneSeparate(prefix=None, actor_encoder=encoder("actor"),
+                                critic_encoder=encoder("critic"))
     actor_critic = ActorCritic(
-        backbone=BackboneSeparate(prefix=None,
-                                  actor_encoder=encoder("actor"),
-                                  critic_encoder=encoder("critic")),
+        backbone=body,
         actor=DenseLayerDiscreteActor(p, num_rnn_channels, action_buckets,
                                       dtype, device),
         critic=critic,
@@ -362,7 +447,8 @@ def make_policy(dtype=torch.float32,
         },
         skip_normalization={
             "prep_counter", "self_type", "self_mask", "vis_agents_mask",
-            "vis_boxes_mask", "vis_ramps_mask",
+            "vis_boxes_mask", "vis_ramps_mask", FRAME_KEY, "prev_action",
+            "prev_reward",
         },
         entity_rows=({"agent_data": ENTITY_FEATURES["agents"],
                       "box_data": ENTITY_FEATURES["boxes"],
@@ -370,4 +456,5 @@ def make_policy(dtype=torch.float32,
                      if backbone == "openai_hns" else None),
     )
     return Policy(actor_critic=actor_critic, obs_preprocess=obs_preprocess,
-                  get_episode_scores=lambda episode_result: episode_result)
+                  get_episode_scores=lambda episode_result: episode_result,
+                  core_inputs=backbone == "impala_cnn")

@@ -7,7 +7,8 @@
         [--entropy-loss-coef 0.01] [--value-loss-coef 1.0]
         [--clip-value-loss] [--fp16 | --bf16] [--pbt-ensemble-size 2]
         [--pbt-past-policies 2] [--num-hiders 3] [--num-seekers 3]
-        [--eval-frequency 500] [--wandb] [--backbone pooled]
+        [--eval-frequency 500] [--wandb]
+        [--backbone pooled|attention|hash|openai_hns|impala_cnn]
         [--restore UPDATE] [--device cuda|cpu] [--data-parallel]
         [--distributed]
 
@@ -17,9 +18,14 @@ train.sh's recipe is ``--num-worlds 1024 --num-updates 100000
 UseFixedWorld | ZeroAgentVelocity``, seed 5. ``--backbone openai_hns``
 (Baker et al. 2019's policy, ``policy.OpenAIHnsNet``) brings its own
 action heads (11, 11, 11, 2, 2), its plain value head on EMA-normalized
-returns, and the env's force-based movement (no ``ZeroAgentVelocity``). Updates run in blocks of 10,
-each block followed by a log of the update count, the training rate
-(steps x worlds / s), the ELOs and the ring-buffered metrics; every
+returns, and the env's force-based movement (no ``ZeroAgentVelocity``).
+``--backbone impala_cnn`` (IMPALA's deep residual network,
+``policy.ImpalaCnnNet``) trains from each agent's 64x64 RGBD view, which
+the env renders every step (``EnvConfig.render_frames``), with the
+flagship's buckets and movement and a plain value head. Updates run in
+blocks of 10, each block followed by a log of the update count, the
+training rate (steps x worlds / s), the ELOs and the ring-buffered
+metrics; every
 ``--eval-frequency`` updates an ``eval_elo`` pass and a checkpoint,
 ``<ckpt-dir>/<run-name>/<update>.pt``, which ``--restore <update>``
 resumes. ``--fp16`` and ``--bf16`` set the policy's compute dtype.
@@ -135,6 +141,7 @@ def build(args):
         sim_flags=flags,
         rand_seed=5,
         num_pbt_policies=args.pbt_ensemble_size,
+        render_frames=recipe.frames,
     ), device=args.device)
     if args.fp16:
         dtype = torch.float16
@@ -220,6 +227,9 @@ def setup_mesh(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # float32 computes in float32: cuBLAS's products do by default, but
+    # PyTorch lets cuDNN's convolutions (the impala_cnn torso) use TF32.
+    torch.backends.cudnn.allow_tf32 = False
     if args.eval_frequency % BLOCK != 0:
         raise SystemExit(f"--eval-frequency must be a multiple of {BLOCK}")
     mesh = setup_mesh(args)

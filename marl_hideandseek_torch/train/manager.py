@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from marl_hideandseek_torch import bridge, prng
+from marl_hideandseek_torch.config import FRAME_KEY
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import Policy
 from marl_hideandseek_torch.models.layers import draw_params
@@ -62,6 +63,7 @@ from marl_hideandseek_torch.train.rollout import (
     RolloutState,
     _resample_assignments,
     collect_rollout,
+    initial_core_inputs,
 )
 from marl_hideandseek_torch.types import AGENT_HIDER
 from marl_hideandseek_torch.utils import tracing
@@ -258,7 +260,7 @@ class TrainingManager:
         _, _, metrics = collect_rollout(
             eval_cfg, self.env, self.policy, self.all_params(), st.obs_stats,
             st.rollout.replace(assignments=fresh.to(torch.int32)),
-            st.value_stats, mesh)
+            st.value_stats, mesh, record_frames=False)
         elo = elo_mod.update_elo_pairwise(
             st.elo, *elo_mod.matches_from_episode_results(
                 metrics["episode_results"], metrics["team_pol"],
@@ -429,6 +431,12 @@ def init_training(dev, cfg: TrainConfig, env: PackedEnv, policy: Policy,
     env_state, result = sharded_packed_init(env, mesh, k_env)
     obs = {k: v.reshape((n_agents,) + v.shape[2:])
            for k, v in norm.prep(result.obs).items()}
+    if FRAME_KEY in obs:
+        # A frame of its own: the env's buffer is rendered over each step.
+        obs[FRAME_KEY] = obs[FRAME_KEY].clone()
+    if policy.core_inputs:
+        obs.update(initial_core_inputs(
+            n_agents, cfg.actions.actions_num_buckets, device))
     n_train = cfg.num_train_policies
     n_past = cfg.total_policies - n_train
     params = draw_params(ac, prng.split(k_param.cpu(), n_train), device)

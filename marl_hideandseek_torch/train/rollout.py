@@ -10,6 +10,12 @@ per-policy layout; ``compute_gae`` turns a buffer into advantages and
 returns. Every draw comes from the rollout's key, split in the JAX
 version's order (``prng.py``): the same key gives JAX's step keys,
 actions and matchups.
+
+Where the env renders frames (``EnvConfig.render_frames``), the rollout
+copies each step's frame from the env's buffer into one of its own,
+allocated per rollout, which the stored sequences then view; a policy
+with ``core_inputs`` also gets the previous action and reward as
+observations (``core_inputs``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from torch import nn
 from torch.func import functional_call
 
 from marl_hideandseek_torch import prng
-from marl_hideandseek_torch.config import NUM_PREP_STEPS
+from marl_hideandseek_torch.config import FRAME_KEY, NUM_PREP_STEPS
 from marl_hideandseek_torch.env.packed import PackedEnv
 from marl_hideandseek_torch.models import DiscreteActionDistributions, Policy
 from marl_hideandseek_torch.models.actor_critic import tree_map
@@ -44,8 +50,10 @@ from marl_hideandseek_torch.utils import tracing
 class RolloutState:
     """Actor state carried between updates (rollout.py:29-45): the packed
     env state, the prepped (not normalized) current observations flattened
-    to the ``[N = W * A]`` agent batch, the recurrent state, each agent's
-    policy and the key of the rollout's draws."""
+    to the ``[N = W * A]`` agent batch (a frame of its own, not the env's
+    buffer; the previous action and reward for a policy with
+    ``core_inputs``), the recurrent state, each agent's policy and the key
+    of the rollout's draws."""
 
     env_state: EnvState
     obs: Dict[str, torch.Tensor]
@@ -211,6 +219,26 @@ def apply_ensemble(policy: Policy, all_params: Mapping[str, torch.Tensor],
         return logits, values, new_rnn
 
 
+def core_inputs(actions: torch.Tensor, rewards: torch.Tensor,
+                dones: torch.Tensor, buckets) -> Dict[str, torch.Tensor]:
+    """IMPALA's core input for the next step, per agent: ``prev_action``,
+    one one-hot a bucket of ``actions [N, len(buckets)]`` (``[N,
+    sum(buckets)]``), and ``prev_reward``, ``rewards [N]`` clipped to [-1,
+    1] (``[N, 1]``); both zero where ``dones [N]``: the next step opens an
+    episode."""
+    keep = (~dones).to(torch.float32)[:, None]
+    onehot = torch.cat([torch.nn.functional.one_hot(actions[:, i].long(), b)
+                        for i, b in enumerate(buckets)], -1)
+    return {"prev_action": onehot.to(torch.float32) * keep,
+            "prev_reward": rewards.clamp(-1.0, 1.0)[:, None] * keep}
+
+
+def initial_core_inputs(n: int, buckets, device) -> Dict[str, torch.Tensor]:
+    """``core_inputs`` before an episode's first step: zeros."""
+    return {"prev_action": torch.zeros((n, sum(buckets)), device=device),
+            "prev_reward": torch.zeros((n, 1), device=device)}
+
+
 def denormalize_values(cfg: TrainConfig, value_stats, values: torch.Tensor,
                        assignments: torch.Tensor) -> torch.Tensor:
     """Critic outputs (normalized-return space) -> returns, per agent
@@ -287,7 +315,7 @@ def rollout_keys(key: torch.Tensor, steps: int):
 def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
                     all_params: Mapping[str, torch.Tensor], obs_stats,
                     rollout: RolloutState, value_stats=None,
-                    mesh: Mesh = LOCAL):
+                    mesh: Mesh = LOCAL, record_frames: bool = True):
     """Run ``steps_per_update`` env steps; return (rollout', buffer,
     metrics) (rollout.py:194-376).
 
@@ -299,7 +327,13 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     Per step: normalize, the ensemble forward (past policies actor-only),
     an action draw, ``env.step``, the LSTM state cleared for agents whose
     episode ended, and new matchups for the worlds that ended, keyed by
-    the post-step teams. ELO attribution (``team_pol``) and the seek-phase
+    the post-step teams. The frame of each step is copied into the
+    rollout's frame buffer (``[T + 1, N, ..]``, the last the returned
+    state's, copied again so that the buffer can go with the update); a
+    policy with ``core_inputs`` gets each step's actions and rewards as
+    the next step's observations. Without ``record_frames`` (a pass that
+    keeps only the metrics, ``eval_elo``) the frames are neither copied
+    nor in the buffer. ELO attribution (``team_pol``) and the seek-phase
     gate use the pre-step state: the episode the transition belongs to.
     Runs without autograd.
 
@@ -310,11 +344,11 @@ def collect_rollout(cfg: TrainConfig, env: PackedEnv, policy: Policy,
     """
     with tracing.span("rollout"):
         return _collect(cfg, env, policy, all_params, obs_stats, rollout,
-                        value_stats, mesh)
+                        value_stats, mesh, record_frames)
 
 
 def _collect(cfg, env, policy, all_params, obs_stats, rollout, value_stats,
-             mesh):
+             mesh, record_frames):
     cfg_env = env.cfg
     w, a = rollout.env_state.step.shape[0], cfg_env.max_agents
     n = w * a
@@ -337,6 +371,11 @@ def _collect(cfg, env, policy, all_params, obs_stats, rollout, value_stats,
     store = {k: [] for k in keys}
     rnn_start = []
     env_state, obs = rollout.env_state, rollout.obs
+    frames = None
+    if FRAME_KEY in obs and record_frames:
+        first = obs[FRAME_KEY]
+        frames = first.new_empty((cfg.steps_per_update + 1,) + first.shape)
+        obs = {**obs, FRAME_KEY: frames[0].copy_(first)}
     rnn, assignments = rollout.rnn_states, rollout.assignments
     with torch.no_grad():
         for ci in range(cfg.num_bptt_chunks):
@@ -364,6 +403,14 @@ def _collect(cfg, env, policy, all_params, obs_stats, rollout, value_stats,
                 with tracing.span("rollout.record"):
                     next_obs = flat(result.obs)
                     dones = result.dones.T.reshape(-1).to(torch.bool)
+                    t = ci * t_chunk + ti + 1
+                    if frames is not None:
+                        next_obs[FRAME_KEY] = frames[t].copy_(
+                            next_obs[FRAME_KEY])
+                    if policy.core_inputs:
+                        next_obs.update(core_inputs(
+                            actions, result.rewards.T.reshape(-1), dones,
+                            buckets))
                     new_rnn = ac.clear_recurrent_state(new_rnn, dones)
                     dones_w = result.dones[0].to(torch.bool)
                     new_assign = _resample_assignments(
@@ -427,9 +474,13 @@ def _collect(cfg, env, policy, all_params, obs_stats, rollout, value_stats,
             x = torch.stack(xs)
             return x.reshape((c, t_chunk) + x.shape[1:])
 
+        obs_seq = {k: chunked([o[k] for o in store["obs"]])
+                   for k in store["obs"][0] if k != FRAME_KEY}
+        if frames is not None:
+            obs_seq[FRAME_KEY] = frames[:-1].unflatten(0, (c, t_chunk))
+            obs = {**obs, FRAME_KEY: frames[-1].clone()}
         buffer = RolloutBuffer(
-            obs={k: chunked([o[k] for o in store["obs"]])
-                 for k in store["obs"][0]},
+            obs=obs_seq,
             actions=chunked(store["actions"]),
             log_probs=chunked(store["log_probs"]),
             values=chunked(store["values"]),

@@ -4,7 +4,9 @@ K7 level generation, and the threefry kernel of every random draw)
 against its plain PyTorch version on CUDA tensors, the packed env's main
 path through K1, K4, K6 and K7 (the classic env's resets through K7 too), the classic env through K3, K2 and K1, the flagship policy ensemble's forward against the CPU's and its routed forward against the naive one,
 the ``openai_hns`` policy's forward against its plain reference at 1,024
-3v3 worlds (K4 with the default force movement beside it), the inference
+3v3 worlds (K4 with the default force movement beside it), K5's frames
+mode against its packed mode at 16,384 worlds and the routed
+``impala_cnn`` forward against the unrouted one, the inference
 loop through K4 and K1, and a PPO update at train.sh's
 configuration against the CPU's at the update's rounding bars
 (``marl_hideandseek_torch/testing.py``), which each planted Adam fault
@@ -629,6 +631,37 @@ def test_rgbd_kernel_matches_plain(cuda):
         assert bool((same | ~sky).all())
 
 
+def test_rgbd_frames_mode_matches_packed_mode_at_16k(cuda):
+    """K5's frames mode (``[W, A, 4, 64, 64]`` float32 in one launch)
+    against its packed mode's output on the same state, unpacked and
+    scaled in plain PyTorch (``ops.rgbd.frames_from_packed``), bit for
+    bit, at 16,384 2v2 worlds after 10 steps of random actions; and the
+    env with ``render_frames`` renders into one buffer, once a step."""
+    w = 16384
+    cfg = EnvConfig(num_worlds=w, **FULL, sim_flags=FLAGS, rand_seed=3,
+                    render_frames=True)
+    env = PackedEnv(cfg, device=cuda)
+    ps, res = env.init()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n0 = ops_rgbd.RGBD_FRAMES.launches
+    for _ in range(10):
+        acts = torch.cat([
+            torch.randint(0, 5, (4, 3, w), generator=g, device=cuda),
+            torch.randint(0, 2, (4, 2, w), generator=g, device=cuda)], 1)
+        ps, res = env.step(ps, acts.to(torch.int32))
+    assert ops_rgbd.RGBD_FRAMES.launches == n0 + 10
+    frames = res.obs["rgbd"]
+    assert frames is env._frames and frames.shape == (w, 4, 4, 64, 64)
+    rgba, depth = ops_rgbd.render_rgbd_packed_fast(cfg, ps)
+    for lo in range(0, w, 2048):
+        cut = slice(lo, lo + 2048)
+        want = ops_rgbd.frames_from_packed(
+            cfg, rgba[..., cut].contiguous(), depth[..., cut].contiguous())
+        assert torch.equal(frames[cut].view(torch.int32),
+                           want.view(torch.int32))
+    assert bool((frames[:, :, 3] > 0).any()) and float(frames.max()) <= 1.0
+
+
 def test_classic_env_uses_fused_and_raycast(cuda):
     """The classic env at 512 worlds: init, the full reset at the episode
     end and a compact reset, through K3 and K1; the unfused env through
@@ -778,6 +811,72 @@ def test_routed_ensemble_matches_naive(cuda, w, num_train):
                 assert len(reads) == 1 and (calls, needed) == (1, n)
                 assert n <= run <= 1.06 * n
     assert peak["routed"] <= peak["naive"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    assert rel(got[0], want[0]) <= 1e-5 and rel(got[1], want[1]) <= 1e-5
+    for a, b in zip([x for e in got[2] for x in e],
+                    [x for e in want[2] for x in e]):
+        assert rel(a, b) <= 1e-5
+
+
+def test_routed_impala_cnn_forward_matches_unrouted(cuda):
+    """The ``impala_cnn`` policy's 4 policies (2 train + 2 past, the
+    rollout's split) on 256 2v2 worlds' rendered frames after 20 steps:
+    the routed forward (each policy's ~256 agents through its own torso)
+    against the naive one (every policy's torso on all 1,024 frames,
+    then the pick) within 1e-5 of the largest magnitude: float32 without
+    TF32 (cuDNN's convolutions too; PyTorch's default allows TF32
+    there), where cuDNN may pick other algorithms for the two batch
+    sizes."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _routed_impala_case(cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _routed_impala_case(cuda):
+    from marl_hideandseek_torch.testing import naive_ensemble
+    from marl_hideandseek_torch.train.rollout import initial_core_inputs
+
+    w = 256
+    cfg = EnvConfig(num_worlds=w, **FULL, sim_flags=FLAGS, rand_seed=3,
+                    render_frames=True)
+    env = PackedEnv(cfg, device=cuda)
+    ps, res = env.init()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(20):
+        acts = torch.cat([
+            torch.randint(0, 5, (4, 3, w), generator=g, device=cuda),
+            torch.randint(0, 2, (4, 2, w), generator=g, device=cuda)], 1)
+        ps, res = env.step(ps, acts.to(torch.int32))
+    pol = make_policy(backbone="impala_cnn", num_policies=4, device=cuda,
+                      key=prng.key(3))
+    params = dict(pol.actor_critic.named_parameters())
+    norm = pol.obs_preprocess
+    obs = {k: v.flatten(0, 1) for k, v in norm.prep(res.obs).items()}
+    n = obs["self_data"].shape[0]
+    obs.update(initial_core_inputs(n, (5, 5, 5, 2, 2), cuda))
+    obs["prev_reward"] += 0.5
+    stats = norm.update_state(norm.init_state(obs), obs)
+    nobs = norm.normalize(stats, obs)
+    assert torch.equal(nobs["rgbd"], obs["rgbd"])
+    rnn = ((0.5 * torch.randn(1, n, 256, generator=g, device=cuda),
+            0.5 * torch.randn(1, n, 256, generator=g, device=cuda)),)
+    coin = lambda lo: lo + torch.randint(0, 2, (w,), generator=g,
+                                         device=cuda)
+    train, past = coin(0), coin(2)
+    flip = torch.randint(0, 2, (w,), generator=g, device=cuda).bool()
+    t0, t1 = torch.where(flip, train, past), torch.where(flip, past, train)
+    is_h = torch.arange(4, device=cuda) < 2
+    assign = torch.where(is_h, t0[:, None], t1[:, None]).reshape(-1).to(
+        torch.int32)
+    with torch.no_grad():
+        want = naive_ensemble(pol, params, rnn, nobs, assign, 4, 2)
+        got = apply_ensemble(pol, params, rnn, nobs, assign, 4, 2)
 
     def rel(a, b):
         return float((a - b).abs().max() / max(1.0, float(b.abs().max())))

@@ -279,6 +279,28 @@ def test_rgbd_source_matches_plain(host_libs, kw, worlds, lanes):
         torch.testing.assert_close(depth_h, depth_p, atol=1e-5, rtol=1e-6)
 
 
+@pytest.mark.parametrize("worlds", WORLDS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_rgbd_frames_mode_matches_packed_mode(host_libs, worlds, lanes):
+    """K5's frames mode (the policy's ``[W, A, 4, H, W]`` float32 store)
+    against its packed mode's output on the same state, unpacked and
+    scaled in plain PyTorch (``ops.rgbd.frames_from_packed``): equal bit
+    for bit, both from the same host build, at 20x20 (partial pixel
+    tiles) on level-1 worlds after 100 steps."""
+    cfg, ps = _env_state(_sized(dict(FULL, num_worlds=16), worlds), 100)
+    w, img = cfg.num_worlds, 20
+    lib = _lib(host_libs, "rgbd", lanes)
+    rgba, depth = _host_rgbd(lib, cfg, ps, img)
+    frames = torch.full((w, cfg.max_agents, 4, img, img), float("nan"))
+    ptrs, ip, fp, (out,), _keep = ops_rgbd.rgbd_args(
+        cfg, ps, img, img, 90.0, 200.0, frames=frames)
+    _host_call(lib.mhs_rgbd_frames_host, ptrs, ip, fp)
+    want = ops_rgbd.frames_from_packed(cfg, rgba, depth, img, img, 200.0)
+    assert out is frames
+    assert torch.equal(frames.view(torch.int32), want.view(torch.int32))
+    assert 0.0 < float(frames[:, :, 3].max()) <= 1.0
+
+
 def _cull_scene(cfg, ps):
     """Agent 0 of every world looks along +y from its eye e, with: box 0
     wholly behind e; box 1 straddling the eye plane, partly in view; box

@@ -283,6 +283,51 @@ def test_openai_hns_attention_spans_nest_in_forward_and_loss():
     assert pol.actor_critic.backbone.critic_encoder.net.visible_keys is None
 
 
+def test_impala_cnn_torso_and_render_spans_nest_in_the_update():
+    """The ``impala_cnn`` policy's update on an env that renders frames: a
+    ``model.torso`` span for each torso forward, inside
+    ``rollout.forward`` (every step and the bootstrap) and ``ppo.loss``
+    (each epoch); K5's ``rgbd.render`` inside every ``env.step``; neither
+    reads a device value; the update's reads are the flagship's less the
+    Dreamer critic's bin centres; the torso's frame count is each
+    forward's routed rows and each epoch's two groups."""
+    import dataclasses
+
+    pol = tpolicy.make_policy(backbone="impala_cnn", num_rnn_channels=32,
+                              device="cpu")
+    env = PackedEnv(ENV.replace(render_frames=True), device="cpu")
+    cfg = dataclasses.replace(train_config(), dreamer_v3_critic=False)
+    mgr = tmanager.init_training("cpu", cfg, env, pol)
+    ro = mgr.state.rollout
+    mgr = mgr.replace(state=mgr.state.replace(rollout=ro.replace(
+        env_state=ro.env_state.replace(step=torch.full_like(
+            ro.env_state.step, ENV.episode_len - 3)))))
+    routed = ROUTE.read()
+    net = pol.actor_critic.backbone.encoder.net
+    frames0 = net.torso_frames
+    with tracing.recording() as rec:
+        mgr.update_iter()
+    phases, reads, _ = split(rec.take().spans)
+    _, _, run = (a - b for a, b in zip(ROUTE.read(), routed))
+    assert {k: v for k, v in phases.items() if k[0] == "model.torso"} == {
+        ("model.torso", "rollout.forward"): STEPS + 1,
+        ("model.torso", "ppo.loss"): EPOCHS}
+    assert {k: v for k, v in phases.items() if k[0] == "rgbd.render"} == {
+        ("rgbd.render", "env.step"): STEPS}
+    assert not any(parent in ("model.torso", "rgbd.render")
+                   for _, parent in reads)
+    assert reads == collections.Counter({
+        ("host_read.reset_trigger", "env.step"): STEPS,
+        ("host_read.obs_consts", "env.observations"): 2 * STEPS,
+        ("host_read.route", "ensemble.route"): STEPS + 1,
+        ("host_read.key", "env.reset"): 1,
+        ("host_read.levels", "env.levelgen"): 2,
+        ("host_read.pbt_rank", "pbt"): 3,
+    })
+    n = ENV.num_worlds * ENV.max_agents
+    assert net.torso_frames - frames0 == run + EPOCHS * 2 * (n // 2) * STEPS
+
+
 def test_profiler_sees_spans_as_host_ranges_nested_as_stored():
     """One plain step (a reset step's level generation holds some 10^5
     host events, too many to read here)."""
