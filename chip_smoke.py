@@ -37,6 +37,12 @@ just before and read just after (the threefry kernel's on every path):
 * the render path - bench.py's BENCH_RENDER=1 protocol: 20 more packed
   steps, each followed by the K5 RGBD kernel at 64x64 into buffers
   allocated once;
+* the frames path - the pixel policy's training: the train CLI's
+  ``build`` with ``--backbone impala_cnn`` at 256 2v2 worlds (the env
+  renders every agent's 64x64 RGBD frame in its init and in each step,
+  K5's frames mode), ``init_training`` and one ``update_iter``: K5's
+  frames launches counted over that run, the last frames held to the
+  plain renderer, K5's frames-mode time against its bound;
 * the serve path - the inference loop of ``python -m
   marl_hideandseek_torch.infer`` (``infer.run_inference``) on
   ``PackedEnv`` at 16,384 worlds, 2 hiders and 2 seekers, UseFixedWorld
@@ -158,6 +164,7 @@ UNFUSED_STEPS = 10        # the classic env's unfused branch: K2 + K1
 RENDER_STEPS = 20         # bench.py BENCH_RENDER=1: a render every step
 RENDER_HW = 64
 RENDER_CHECK_WORLDS = 256  # K5 against the plain renderer on these
+FRAMES_WORLDS = 256       # the pixel policy's training (impala_cnn)
 SERVE_STEPS = 250         # crosses step 239: the episode-end full reset
 SERVE_POLICIES = 4
 SERVE_CHECK_AT = 100      # step whose forward is held to the CPU's
@@ -560,6 +567,12 @@ def run(args, work: str) -> int:
     ps = render.pop("state")
     phase("render_path", t0)
 
+    # ---- 6b. frames path: impala_cnn's training, K5's frames mode ---------
+    t0 = time.perf_counter()
+    frames = frames_path(dev, gpu)
+    torch.cuda.empty_cache()
+    phase("frames_path", t0)
+
     # ---- 7. classic path (K3, K1), then its unfused branch (K2, K1) ---------
     t0 = time.perf_counter()
     del env, res
@@ -679,6 +692,11 @@ def run(args, work: str) -> int:
              source="marl_hideandseek_torch/csrc/rgbd.cu",
              replaces="marl_hideandseek_tpu/ops/pallas_rgbd.py:325",
              **render["kernel"], **new_paths("rgbd")),
+        dict(name="rgbd_frames", route="cuda",
+             source="marl_hideandseek_torch/csrc/rgbd.cu",
+             replaces="none: K5's store in the policy's frame layout; "
+                      "marl_hideandseek_tpu renders no frame for a policy",
+             **frames),
         dict(name="observations", route="cuda",
              source="marl_hideandseek_torch/csrc/observations.cu",
              replaces="none: XLA's fusion of "
@@ -2104,6 +2122,79 @@ def render_path(cfg, env, ps, random_actions, gpu):
         plain_at_worlds=k, bound_ms=k5_bound, bound_by=k5_by,
         library_ms=None, exhaustive_ops=exhaustive,
         exhaustive_bound_ms=ex_bound))
+
+
+def frames_path(dev, gpu):
+    """The pixel policy's training at FRAMES_WORLDS 2v2 worlds: the train
+    CLI's ``build`` with ``--backbone impala_cnn`` (the env renders every
+    agent's frame in ``init`` and in each step through K5's frames mode),
+    ``init_training`` and one ``update_iter``, with K5's frames launches
+    set to 0 just before: one at init and one a step. The last frames
+    (the env's buffer, on the rollout's state) against the plain
+    renderer's images of that state as frames: colours equal on every
+    pixel, depth within 1e-3 absolute and 1e-4 relative in world units.
+    Then K5's frames mode's ms a launch on that state and its bound from
+    the launch's inputs and the frames it writes. Returns the kernels
+    line's row."""
+    import tempfile
+
+    from marl_hideandseek_torch.config import FRAME_FOV, FRAME_MAX_DEPTH
+    from marl_hideandseek_torch.ops import rgbd as R
+    from marl_hideandseek_torch.viz import rgbd as plain
+
+    R.RGBD_FRAMES.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train_run(dev, train_args(
+            tmp, dev.type, "--num-worlds", str(FRAMES_WORLDS),
+            "--backbone", "impala_cnn"), 1)
+    n_launch = R.RGBD_FRAMES.launches
+    env, cfg, mgr = run["env"], run["cfg"], run["mgr"]
+    cfg_env, ps = env.cfg, mgr.state.rollout.env_state
+    require(cfg_env.render_frames and run["launches"]["rgbd"] == 0,
+            "frames path: the env does not render frames, or the packed "
+            "mode ran")
+    require(n_launch == 1 + cfg.steps_per_update,
+            f"frames path: K5 frames launches {n_launch}, expected one at "
+            f"init and one for each of {cfg.steps_per_update} steps")
+    finite_state("frames path", mgr)
+    got = env._frames
+    require(torch.equal(mgr.state.rollout.obs["rgbd"], got.flatten(0, 1)),
+            "frames path: the rollout's frame is not the env's last render")
+    hw = got.shape[-1]
+    rgb_p, d_p = plain.render_rgbd_packed(cfg_env, ps, hw, hw, FRAME_FOV,
+                                          FRAME_MAX_DEPTH)
+    want = R.to_frames(rgb_p, d_p, FRAME_MAX_DEPTH)
+    torch.cuda.synchronize()
+    colour = (got[:, :, :3] == want[:, :, :3]).all(2)
+    d_got, d_want = got[:, :, 3] * FRAME_MAX_DEPTH, d_p[..., 0]
+    d_err = max_err(d_got, d_want)
+    near = (d_got - d_want).abs() <= 1e-3 + 1e-4 * d_want.abs()
+    log(f"frames path: {FRAMES_WORLDS} worlds x {cfg_env.max_agents} agents "
+        f"at {hw}x{hw}, K5 frames launches {n_launch}; last frames vs plain: "
+        f"colours equal on {colour.float().mean().item():.6f} of pixels, "
+        f"depth max err {d_err:.3g}, hit share "
+        f"{(d_want > 0).float().mean().item():.4f}")
+    require(bool(colour.all()), "frames path: colours differ from the "
+            "plain renderer's")
+    require(bool(near.all()), f"frames path: depth beyond 1e-3 / 1e-4 of "
+            f"the plain renderer's ({d_err})")
+
+    ms = cuda_ms(lambda: R.render_rgbd_frames(
+        cfg_env, ps, hw, hw, FRAME_FOV, FRAME_MAX_DEPTH, out=got), 10)
+    b, s = ps.bodies, ps.statics
+    n_bytes = (nbytes(b.pos, b.quat, b.half_ext, b.active, b.locked,
+                      ps.agent_type, s.wall_pos, s.wall_half_ext,
+                      s.wall_active, s.plane_point, s.plane_normal,
+                      s.plane_active) + nbytes(got))
+    least = rgbd_least_ops(got[:, :, 3])
+    k5_bound, k5_by = bound(n_bytes, least)
+    log(f"K5 frames {ms:.4f} ms/launch at {FRAMES_WORLDS} worlds, bound "
+        f"{k5_bound:.5f} ms ({k5_by}: {n_bytes} B, {least:.4g} least "
+        f"operations); {gpu}")
+    del run, env, mgr
+    return dict(train_launches=n_launch, max_abs_err=d_err, ms=ms,
+                bound_ms=k5_bound, bound_by=k5_by, library_ms=None,
+                at_worlds=FRAMES_WORLDS)
 
 
 def compare_k5(rgb_k, d_k, rgb_p, d_p, label: str) -> float:

@@ -226,9 +226,6 @@ def infer_config(args) -> EnvConfig:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    # float32 computes in float32: cuBLAS's products do by default, but
-    # PyTorch lets cuDNN's convolutions (the impala_cnn torso) use TF32.
-    torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     cfg = infer_config(args)
     env = PackedEnv(cfg, device=args.device)

@@ -24,6 +24,7 @@ float32 rounding of the orthogonal initialiser's QR.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -462,13 +463,50 @@ def conv_orthogonal(scale: float = 2.0 ** 0.5) -> Init:
     return init
 
 
+@contextlib.contextmanager
+def ieee_convolutions():
+    """cuDNN's float32 convolutions without TF32 inside the block (PyTorch
+    allows TF32 there by default), the setting as it was after it."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+class _Float32Conv(torch.autograd.Function):
+    """``F.conv2d`` with stride 1 whose forward and backward both run
+    under ``ieee_convolutions``: autograd runs the backward after the
+    forward has returned, outside any block around the forward."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, padding: int):
+        ctx.save_for_backward(x, kernel)
+        ctx.padding = padding
+        with ieee_convolutions():
+            return F.conv2d(x, kernel, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, kernel = ctx.saved_tensors
+        pad = ctx.padding
+        with ieee_convolutions():
+            gx, gk, gb = torch.ops.aten.convolution_backward(
+                grad, x, kernel, [kernel.shape[0]], [1, 1], [pad, pad],
+                [1, 1], False, [0, 0], 1, list(ctx.needs_input_grad[:3]))
+        return gx, gk, gb, None
+
+
 class Conv2d(Stacked):
     """A k x k convolution with stride 1 and SAME padding (k // 2 on every
     side) over a policy axis: kernel ``[P, C_out, C_in, k, k]``, bias
     ``[P, C_out]``. ``forward(x, p)`` runs policy ``p``'s on x ``[B, C_in,
     H, W]`` (one policy's frames, contiguous): the caller loops over the
     policies, so each convolution is one cuDNN call on a whole policy's
-    batch, with no transpose into a grouped layout."""
+    batch, with no transpose into a grouped layout. In float32 it computes
+    in float32, forward and backward, whatever the process's TF32
+    setting (``_Float32Conv``)."""
 
     def __init__(self, num_policies: int, in_channels: int,
                  out_channels: int, size: int = 3, dtype=torch.float32,
@@ -481,8 +519,11 @@ class Conv2d(Stacked):
         self.add("bias", (out_channels,), zeros)
 
     def forward(self, x: torch.Tensor, p: int) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.kernel[p].to(self.dtype),
-                        self.bias[p].to(self.dtype), padding=self.size // 2)
+        args = (x.to(self.dtype), self.kernel[p].to(self.dtype),
+                self.bias[p].to(self.dtype))
+        if self.dtype == torch.float32:
+            return _Float32Conv.apply(*args, self.size // 2)
+        return F.conv2d(*args, padding=self.size // 2)
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -39,17 +39,6 @@ RGBD = CudaKernel("rgbd", "mhs_rgbd", ARRAY_ENTRY)
 RGBD_FRAMES = CudaKernel("rgbd", "mhs_rgbd_frames", ARRAY_ENTRY)
 
 
-class FrameCount:
-    """Frames (world x agent views) that ``render_rgbd_frames`` rendered,
-    on any device: a host count, read without waiting for the card."""
-
-    def __init__(self):
-        self.frames = 0
-
-
-FRAMES = FrameCount()
-
-
 def pack_rgba(rgba: torch.Tensor) -> torch.Tensor:
     """[..., 4] u8 -> [...] u32, R | G << 8 | B << 16 | A << 24."""
     c = rgba.to(torch.int32)
@@ -88,15 +77,6 @@ def to_frames(rgb: torch.Tensor, depth: torch.Tensor,
     return chans.to(torch.float32).permute(0, 1, 4, 2, 3).contiguous()
 
 
-def frames_from_packed(cfg: EnvConfig, packed: torch.Tensor,
-                       depth: torch.Tensor, img_h: int = 64, img_w: int = 64,
-                       max_depth: float = 200.0) -> torch.Tensor:
-    """The packed mode's outputs as frames: what the frames mode stores
-    for the same render, bit for bit."""
-    return to_frames(*to_reference_layout(cfg, packed, depth, img_h, img_w),
-                     max_depth)
-
-
 def frames_buffer(cfg: EnvConfig, w: int, img_h: int = 64, img_w: int = 64,
                   device="cuda") -> torch.Tensor:
     """The output of one frames-mode render, ``[W, A, 4, H, W]`` f32."""
@@ -114,7 +94,6 @@ def render_rgbd_frames(cfg: EnvConfig, ps: EnvState, img_h: int = 64,
     launch; CPU tensors the plain renderer."""
     with tracing.span("rgbd.render"):
         w = ps.step.shape[-1]
-        FRAMES.frames += w * cfg.max_agents
         if ps.step.device.type == "cpu":
             rgb, depth = plain_rgbd.render_rgbd_packed(cfg, ps, img_h, img_w,
                                                        fov_deg, max_depth)

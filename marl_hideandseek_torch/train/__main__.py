@@ -227,9 +227,6 @@ def setup_mesh(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    # float32 computes in float32: cuBLAS's products do by default, but
-    # PyTorch lets cuDNN's convolutions (the impala_cnn torso) use TF32.
-    torch.backends.cudnn.allow_tf32 = False
     if args.eval_frequency % BLOCK != 0:
         raise SystemExit(f"--eval-frequency must be a multiple of {BLOCK}")
     mesh = setup_mesh(args)

@@ -8,14 +8,18 @@ check against the plain reference.
   ``model.torso`` spans of one update hold, for ``torso_roofline``; the
   least time of one launch of K5's frames mode on the last frames, for
   ``k5_roofline.train``.
-- ``counters``: the frames rendered and the frames through the torso in
-  the traced update, and K5's frames-mode launches.
+- ``counters``: the frames rendered (K5's frames-mode launches times
+  the agents) and the frames through the torso in the traced update, and
+  K5's frames-mode launches.
 - ``check``: the probed steps' frames against the frozen plain renderer
   on the same states (``frame_pixel_miss``); the first checked update's
   chunk-start forwards, where the program's parameters and statistics are
   still the seed's and the reference's are equal to them
-  (``first_forward_rel_err``); then the frozen PPO and
-  rollout of ``train.Driver.check`` with the plain reference
+  (``first_forward_rel_err``); the first checked update's loss alone
+  (``first_loss_gap``: both sides start that update from the seed's
+  parameters; ``loss_gap``, over all three, also holds how far the two
+  PPO trajectories have parted); then the frozen PPO and rollout of
+  ``train.Driver.check`` with the plain reference
   (``reference/impala_cnn.py``) in place of the frozen pooled policy:
   its initial parameters drawn as the program draws them, the frame and
   the previous action and reward passed through the normalizer, and the
@@ -209,11 +213,13 @@ class Driver(train.Driver):
     def profile_segment(self, out: dict) -> None:
         from marl_hideandseek_torch.ops import rgbd
 
-        before = (rgbd.FRAMES.frames, self.net().torso_frames)
+        before = (rgbd.RGBD_FRAMES.launches, self.net().torso_frames)
         super().profile_segment(out)
         n = self.mix["trace_updates"]
+        # One launch of K5's frames mode renders every agent of every world.
         self.traced = {
-            "frames_rendered": (rgbd.FRAMES.frames - before[0]) / n,
+            "frames_rendered": (rgbd.RGBD_FRAMES.launches - before[0]) *
+            self.n_agents / n,
             "torso_frames": (self.net().torso_frames - before[1]) / n}
 
     def layer_values(self) -> dict:
@@ -298,6 +304,11 @@ class Driver(train.Driver):
         def ppo_update(*args, **kwargs):
             out = orig[2](*args, **kwargs)
             stats["value"] = out[2]
+            if "first_loss_gap" not in nums:
+                got = self.rec["updates"][0]["loss"]
+                want = out[3]["loss"].cpu()
+                nums["first_loss_gap"] = float(
+                    ((got - want).abs() / want.abs().clamp(min=1.0)).max())
             return out
 
         def apply_ensemble(policy, all_params, rnn, obs, assignments, *args,

@@ -634,9 +634,10 @@ def test_rgbd_kernel_matches_plain(cuda):
 def test_rgbd_frames_mode_matches_packed_mode_at_16k(cuda):
     """K5's frames mode (``[W, A, 4, 64, 64]`` float32 in one launch)
     against its packed mode's output on the same state, unpacked and
-    scaled in plain PyTorch (``ops.rgbd.frames_from_packed``), bit for
-    bit, at 16,384 2v2 worlds after 10 steps of random actions; and the
-    env with ``render_frames`` renders into one buffer, once a step."""
+    scaled in plain PyTorch (``ops.rgbd.to_frames`` of
+    ``to_reference_layout``), bit for bit, at 16,384 2v2 worlds after 10
+    steps of random actions; and the env with ``render_frames`` renders
+    into one buffer, once a step."""
     w = 16384
     cfg = EnvConfig(num_worlds=w, **FULL, sim_flags=FLAGS, rand_seed=3,
                     render_frames=True)
@@ -655,8 +656,8 @@ def test_rgbd_frames_mode_matches_packed_mode_at_16k(cuda):
     rgba, depth = ops_rgbd.render_rgbd_packed_fast(cfg, ps)
     for lo in range(0, w, 2048):
         cut = slice(lo, lo + 2048)
-        want = ops_rgbd.frames_from_packed(
-            cfg, rgba[..., cut].contiguous(), depth[..., cut].contiguous())
+        want = ops_rgbd.to_frames(*ops_rgbd.to_reference_layout(
+            cfg, rgba[..., cut].contiguous(), depth[..., cut].contiguous()))
         assert torch.equal(frames[cut].view(torch.int32),
                            want.view(torch.int32))
     assert bool((frames[:, :, 3] > 0).any()) and float(frames.max()) <= 1.0
@@ -821,25 +822,18 @@ def test_routed_ensemble_matches_naive(cuda, w, num_train):
         assert rel(a, b) <= 1e-5
 
 
-def test_routed_impala_cnn_forward_matches_unrouted(cuda):
+def test_routed_impala_cnn_forward_matches_unrouted(cuda, monkeypatch):
     """The ``impala_cnn`` policy's 4 policies (2 train + 2 past, the
     rollout's split) on 256 2v2 worlds' rendered frames after 20 steps:
     the routed forward (each policy's ~256 agents through its own torso)
     against the naive one (every policy's torso on all 1,024 frames,
     then the pick) within 1e-5 of the largest magnitude: float32 without
-    TF32 (cuDNN's convolutions too; PyTorch's default allows TF32
-    there), where cuDNN may pick other algorithms for the two batch
-    sizes."""
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        _routed_impala_case(cuda)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-
-
-def _routed_impala_case(cuda):
+    TF32, where cuDNN may pick other algorithms for the two batch sizes.
+    cuDNN is allowed TF32 here, PyTorch's default: the torso's
+    convolutions turn it off themselves."""
     from marl_hideandseek_torch.testing import naive_ensemble
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     from marl_hideandseek_torch.train.rollout import initial_core_inputs
 
     w = 256

@@ -290,6 +290,39 @@ def test_conv_is_same_padded_per_policy():
         torch.testing.assert_close(conv(x, p), want, rtol=0, atol=1e-6)
 
 
+def test_conv_computes_float32_without_tf32(monkeypatch):
+    """A float32 ``Conv2d`` runs its forward and its backward with cuDNN's
+    TF32 off, though the process allows it (PyTorch's default), and leaves
+    the setting as it found it; its gradients are ``F.conv2d``'s."""
+    seen = []
+    conv2d, backward = (torch.nn.functional.conv2d,
+                        torch.ops.aten.convolution_backward)
+
+    def spy(fn, tag):
+        def call(*a, **k):
+            seen.append((tag, torch.backends.cudnn.allow_tf32))
+            return fn(*a, **k)
+        return call
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy(conv2d, "fwd"))
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward",
+                        spy(backward, "bwd"))
+    conv = Conv2d(2, 4, 16)
+    init_params(conv, prng.split(prng.key(1), 2))
+    x = torch.rand(3, 4, 8, 8, requires_grad=True)
+    conv(x, 1).square().sum().backward()
+    assert seen == [("fwd", False), ("bwd", False)]
+    assert torch.backends.cudnn.allow_tf32
+    got = (x.grad, conv.kernel.grad[1], conv.bias.grad[1])
+    assert not bool(conv.kernel.grad[0].any())
+    x2 = x.detach().clone().requires_grad_()
+    k2 = conv.kernel[1].detach().clone().requires_grad_()
+    b2 = conv.bias[1].detach().clone().requires_grad_()
+    conv2d(x2, k2, b2, padding=1).square().sum().backward()
+    for a, b in zip(got, (x2.grad, k2.grad, b2.grad)):
+        assert torch.equal(a, b)
+
+
 def test_env_frames_are_the_plain_renderers(env_steps):
     """The env's image leaf (``PackedEnv`` with ``render_frames``, the CPU
     path of K5's frames mode) on each state against the plain renderer's
@@ -340,8 +373,9 @@ def test_rollout_records_frames_and_core_inputs(pol):
         seen.append(st.rollout.obs["rgbd"].clone() if not seen else None)
         return orig(ps, actions, *a, **k)
     env.step = step
-    ro, buf, _ = collect_rollout(cfg, env, policy, mgr.all_params(),
-                                 st.obs_stats, st.rollout, st.value_stats)
+    ro, buf, metrics = collect_rollout(cfg, env, policy, mgr.all_params(),
+                                       st.obs_stats, st.rollout,
+                                       st.value_stats)
     obs = {k: v.flatten(0, 1) for k, v in buf.obs.items()}
     acts = buf.actions.flatten(0, 1)
     dones = buf.dones.flatten(0, 1)
@@ -359,9 +393,20 @@ def test_rollout_records_frames_and_core_inputs(pol):
     assert not torch.equal(obs["rgbd"][1], obs["rgbd"][2])
     assert torch.equal(ro.obs["rgbd"], env._frames.flatten(0, 1))
     assert ro.obs["rgbd"].data_ptr() != env._frames.data_ptr()
+    # eval_elo's pass (record_frames=False): the same rollout, its metrics
+    # unchanged, with no frame buffer and no frames in its buffer.
+    env.step = orig
+    _, buf2, metrics2 = collect_rollout(
+        cfg, env, policy, mgr.all_params(), st.obs_stats, st.rollout,
+        st.value_stats, record_frames=False)
+    assert "rgbd" not in buf2.obs and torch.equal(buf2.actions, buf.actions)
+    assert metrics2.keys() == metrics.keys()
+    for k, v in metrics.items():
+        assert torch.equal(metrics2[k], v), k
 
 
-def test_train_and_infer_clis_run_impala_cnn(tmp_path, capsys):
+def test_train_and_infer_clis_run_impala_cnn(tmp_path, capsys,
+                                             monkeypatch):
     """``--backbone impala_cnn`` through the train CLI's ``build`` (frames
     rendered, the flagship's buckets and movement, the plain critic) for
     one tiny ``update_iter`` at 2 worlds, and its checkpoint through
@@ -381,12 +426,18 @@ def test_train_and_infer_clis_run_impala_cnn(tmp_path, capsys):
     net = policy.actor_critic.backbone.encoder.net
     mgr = init_training("cpu", cfg, env, policy)
     before = {k: v.clone() for k, v in mgr.state.params.items()}
-    rendered, frames0 = ops_rgbd.FRAMES.frames, net.torso_frames
+    rendered, frames0 = [], net.torso_frames
+    render = ops_rgbd.render_rgbd_frames
+
+    def counted(cfg_env, ps, *a, **k):
+        rendered.append(ps.step.shape[-1] * cfg_env.max_agents)
+        return render(cfg_env, ps, *a, **k)
+    monkeypatch.setattr(ops_rgbd, "render_rgbd_frames", counted)
     mgr = mgr.update_iter()
     st = mgr.state
     assert all(bool(torch.isfinite(v).all()) for v in st.params.values())
     assert any(not torch.equal(before[k], v) for k, v in st.params.items())
-    assert ops_rgbd.FRAMES.frames - rendered == 4 * W * 4
+    assert rendered == [W * 4] * 4
     assert net.torso_frames > frames0
     path = tmp_path / "impala.pt"
     bridge.save_policy_checkpoint(path, st.params, st.obs_stats,

@@ -284,9 +284,9 @@ def test_rgbd_source_matches_plain(host_libs, kw, worlds, lanes):
 def test_rgbd_frames_mode_matches_packed_mode(host_libs, worlds, lanes):
     """K5's frames mode (the policy's ``[W, A, 4, H, W]`` float32 store)
     against its packed mode's output on the same state, unpacked and
-    scaled in plain PyTorch (``ops.rgbd.frames_from_packed``): equal bit
-    for bit, both from the same host build, at 20x20 (partial pixel
-    tiles) on level-1 worlds after 100 steps."""
+    scaled in plain PyTorch (``to_frames`` of ``to_reference_layout``):
+    equal bit for bit, both from the same host build, at 20x20 (partial
+    pixel tiles) on level-1 worlds after 100 steps."""
     cfg, ps = _env_state(_sized(dict(FULL, num_worlds=16), worlds), 100)
     w, img = cfg.num_worlds, 20
     lib = _lib(host_libs, "rgbd", lanes)
@@ -295,7 +295,8 @@ def test_rgbd_frames_mode_matches_packed_mode(host_libs, worlds, lanes):
     ptrs, ip, fp, (out,), _keep = ops_rgbd.rgbd_args(
         cfg, ps, img, img, 90.0, 200.0, frames=frames)
     _host_call(lib.mhs_rgbd_frames_host, ptrs, ip, fp)
-    want = ops_rgbd.frames_from_packed(cfg, rgba, depth, img, img, 200.0)
+    want = ops_rgbd.to_frames(*ops_rgbd.to_reference_layout(
+        cfg, rgba, depth, img, img), 200.0)
     assert out is frames
     assert torch.equal(frames.view(torch.int32), want.view(torch.int32))
     assert 0.0 < float(frames[:, :, 3].max()) <= 1.0
